@@ -1,0 +1,58 @@
+"""Carry packed weights across from the JAX package: numpy in, tensors out.
+
+A caller turns every array field of a JAX ``PackedFabricStack`` and of a
+``FusedFrontend.plan`` into numpy (``np.asarray``) and hands them over as
+plain dicts together with the stack's static ints; this module builds the
+port's stack and plan from them on a given device. It imports nothing of
+the JAX package: the dicts are the whole interface.
+
+Only the bit-sliced layout exists in the port, so a stack whose ``sel``
+field is set (the matmul layout) is refused with NotPortedError.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.device import NotPortedError, resolve_device
+from repro_torch.kernels.frontend import _PLAN_KEYS
+from repro_torch.kernels.lut_eval.ops import MATMUL_NOT_PORTED, PackedFabricStack
+
+_STACK_ARRAYS = {"src": torch.int32, "tables": torch.float32,
+                 "level_base": torch.int32, "output_nets": torch.int32,
+                 "win_base": torch.int32}
+_STACK_STATICS = ("n_inputs", "n_outputs", "n_nets_pad", "m_pad",
+                  "n_levels", "in_seg", "band_k", "n_replicas")
+
+
+def stack_from_numpy(fields: Mapping[str, object], device=None
+                     ) -> PackedFabricStack:
+    """{array field: np.ndarray, static field: int | tuple} -> the port's
+    PackedFabricStack on ``device`` (default: CUDA)."""
+    if fields.get("sel") is not None:
+        raise NotPortedError(MATMUL_NOT_PORTED)
+    if fields.get("src") is None:
+        raise ValueError("stack fields carry no 'src': not a bit-sliced stack")
+    dev = resolve_device(device)
+    arrays = {k: torch.as_tensor(np.array(fields[k]), dtype=dt, device=dev)
+              for k, dt in _STACK_ARRAYS.items()}
+    statics = {k: int(fields[k]) for k in _STACK_STATICS}
+    return PackedFabricStack(
+        **arrays, **statics,
+        n_inputs_each=tuple(int(v) for v in fields["n_inputs_each"]),
+        n_outputs_each=tuple(int(v) for v in fields["n_outputs_each"]),
+    )
+
+
+def plan_from_numpy(plan: Mapping[str, np.ndarray], device=None
+                    ) -> Dict[str, torch.Tensor]:
+    """{plan key: (C, ...) np.ndarray} -> the fused frontend's encode plan
+    as device tensors (dtypes kept: int32 indices/weights, f32 scales)."""
+    dev = resolve_device(device)
+    missing = set(_PLAN_KEYS) - set(plan)
+    if missing:
+        raise ValueError(f"plan lacks {sorted(missing)}")
+    return {k: torch.as_tensor(np.array(plan[k]), device=dev)
+            for k in _PLAN_KEYS}

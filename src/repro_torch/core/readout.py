@@ -1,0 +1,343 @@
+"""End-to-end at-source readout pipeline (paper §5), PyTorch port.
+
+    sensor frames / features  ->  quantize (ap_fixed)  ->  offset-binary bits
+    ->  configured eFPGA fabric (bitstream)  ->  score  ->  keep/drop
+
+``ReadoutChip``, ``ScoringBackend`` and ``HostBackend`` are copies of the
+JAX package's core/readout.py (numpy; the staged frames path featurizes
+with this port's yprofile). ``KernelBackend`` runs the bit-sliced fabric
+evaluator and the fused frontend on a torch device (CUDA by default);
+only ``layout="bitsliced"`` is ported.
+"""
+from __future__ import annotations
+
+import abc
+import collections
+import dataclasses
+from typing import Dict, Optional, Union
+
+import numpy as np
+
+from repro_torch.core.bdt import GradientBoostedClassifier, QuantizedEnsemble
+from repro_torch.core.bitstream import decode, encode
+from repro_torch.core.fabric import FABRICS, FabricConfig, FabricSim, place_and_route
+from repro_torch.core.quantize import AP_FIXED_28_19, FixedSpec
+from repro_torch.core.synth import SynthResult, synth_ensemble
+
+
+# --------------------------------------------------------------------------
+# Scoring backends
+# --------------------------------------------------------------------------
+
+
+class ScoringBackend(abc.ABC):
+    """Evaluates input bits on a configured fabric.
+
+    The interface point where host-oracle and device execution are
+    interchangeable: ReadoutChip and launch/readout_server.py accept either
+    a backend name ("host" / "kernel") or an instance, per call. Backends
+    cache derived per-config structures (simulators, packed device arrays)
+    keyed by config identity, so repeated calls don't re-pack.
+
+    Two entry points, one per ingestion stage:
+      * ``score_bits``   — pre-packed fabric input bits (the classic path);
+      * ``score_frames`` — RAW charge frames. The base implementation is
+        the STAGED pipeline (featurize -> quantize+pack -> score_bits),
+        every stage materialized on the host between steps — the oracle
+        the fused path is compared against. KernelBackend overrides it
+        with the fused single-dispatch frontend (kernels/frontend.py).
+    """
+
+    name: str = "?"
+
+    @abc.abstractmethod
+    def score_bits(self, config: FabricConfig, bits: np.ndarray) -> np.ndarray:
+        """(B, n_inputs) 0/1 -> (B, n_outputs) uint8 output bits."""
+
+    # torch device of the featurizer (None = CUDA), resolved on first use
+    device = None
+
+    def score_frames(
+        self,
+        chip: "ReadoutChip",
+        frames: np.ndarray,
+        y0: np.ndarray,
+        threshold_electrons: float = 800.0,
+    ) -> np.ndarray:
+        """(B, T, Y, X) charge + (B,) y0 -> (B,) raw integer scores.
+
+        Staged path: the featurizer runs on ``self.device`` (the one float
+        stage: the same kernel or plain twin as the fused path, and the
+        same per-event sum order), then numpy quantize + offset-binary
+        packing + the backend's own bit scorer.
+        """
+        from repro_torch.kernels.yprofile import ops as yp_ops
+
+        feats = yp_ops.yprofile(
+            frames, y0, threshold_electrons=threshold_electrons,
+            device=self.device).cpu().numpy()
+        bits = chip.encode_features(feats)
+        outs = self.score_bits(chip.config, bits)
+        return chip.synth.decode_outputs(outs)
+
+
+class _ConfigCache:
+    """Small LRU of per-config derived structures.
+
+    Keyed by id() but each entry pins the config object, so entries can't
+    go stale through id reuse; bounded so a long-running service that
+    keeps reconfiguring doesn't pin every packed fabric it ever saw.
+    """
+
+    def __init__(self, build, max_entries: int = 8):
+        self._build = build
+        self._max = max_entries
+        self._entries: "collections.OrderedDict[int, tuple]" = (
+            collections.OrderedDict()
+        )
+
+    def get(self, config: FabricConfig, build=None):
+        """``build`` overrides the default builder for this miss — used
+        when the derived structure needs more context than the config
+        (e.g. a chip's encode plan for the fused frontend)."""
+        entry = self._entries.get(id(config))
+        if entry is not None and entry[0] is config:
+            self._entries.move_to_end(id(config))
+            return entry[1]
+        derived = (build or self._build)(config)
+        self._entries[id(config)] = (config, derived)
+        self._entries.move_to_end(id(config))
+        while len(self._entries) > self._max:
+            self._entries.popitem(last=False)
+        return derived
+
+
+class HostBackend(ScoringBackend):
+    """numpy FabricSim — the bit-exact oracle."""
+
+    name = "host"
+
+    def __init__(self, device=None):
+        self.device = device
+        self._sims = _ConfigCache(FabricSim)
+
+    def score_bits(self, config: FabricConfig, bits: np.ndarray) -> np.ndarray:
+        outs, _ = self._sims.get(config).run(bits)
+        return np.asarray(outs)
+
+
+class KernelBackend(ScoringBackend):
+    """The bit-sliced fabric evaluator and the fused frontend on a torch
+    device (None = CUDA). ``band`` is the fan-in-reach envelope used when
+    packing; ``layout="matmul"`` (the selection-matmul kernels) is not
+    ported and raises NotPortedError.
+    """
+
+    name = "kernel"
+
+    def __init__(self, batch_tile: int = 128, band: Optional[bool] = None,
+                 layout: str = "bitsliced", device=None):
+        from repro_torch.kernels.lut_eval import ops as lut_ops
+
+        lut_ops._check_layout(layout)
+        self.batch_tile = batch_tile
+        self.band = band
+        self.layout = layout
+        self.device = device
+
+        def build(config):
+            return lut_ops.pack_fabrics([config], band=self.band,
+                                        layout=self.layout,
+                                        device=self.device)
+
+        self._packed = _ConfigCache(build)
+        self._frontends = _ConfigCache(None)
+
+    def score_bits(self, config: FabricConfig, bits: np.ndarray) -> np.ndarray:
+        import torch
+
+        from repro_torch.kernels.lut_eval import ops as lut_ops
+
+        stack = self._packed.get(config)
+        b = torch.as_tensor(np.asarray(bits, np.int32), device=stack.device)
+        outs, _ = lut_ops.fabric_eval_bits_voted(
+            stack.src, stack.tables, stack.output_nets, b[None],
+            n_replicas=1, n_inputs=stack.n_inputs, in_seg=stack.in_seg)
+        return outs[0].cpu().numpy()
+
+    def score_frames(
+        self,
+        chip: "ReadoutChip",
+        frames: np.ndarray,
+        y0: np.ndarray,
+        threshold_electrons: float = 800.0,
+    ) -> np.ndarray:
+        """FUSED path: frames -> features -> bits -> score in one device
+        pass (kernels/frontend.py), no host materialization between
+        stages."""
+        from repro_torch.kernels import frontend as fe
+
+        # cached per (config identity, featurizer threshold)
+        by_thr = self._frontends.get(chip.config, build=lambda _cfg: {})
+        front = by_thr.get(float(threshold_electrons))
+        if front is None:
+            front = fe.pack_frontend(
+                [chip.config], [chip.frontend_spec()], band=self.band,
+                layout=self.layout, batch_tile=self.batch_tile,
+                threshold_electrons=threshold_electrons, device=self.device)
+            by_thr[float(threshold_electrons)] = front
+        score, _keep = front.score_frames(
+            np.asarray(frames)[None], np.asarray(y0)[None])
+        return score[0].cpu().numpy().astype(np.int64)
+
+
+_BACKENDS: Dict[str, ScoringBackend] = {}
+
+
+def get_backend(backend: Union[str, ScoringBackend]) -> ScoringBackend:
+    """Resolve "host"/"kernel" to a shared cached instance; pass instances
+    through unchanged."""
+    if isinstance(backend, ScoringBackend):
+        return backend
+    if backend not in ("host", "kernel"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend not in _BACKENDS:
+        _BACKENDS[backend] = (
+            HostBackend() if backend == "host" else KernelBackend()
+        )
+    return _BACKENDS[backend]
+
+
+@dataclasses.dataclass
+class ReadoutChip:
+    """A configured eFPGA acting as the front-end classifier ASIC."""
+
+    synth: SynthResult
+    golden: QuantizedEnsemble
+    config: FabricConfig
+    bitstream: bytes
+    score_threshold_raw: int  # reject if score_raw > threshold_raw
+
+    @classmethod
+    def build(
+        cls,
+        clf: GradientBoostedClassifier,
+        fabric: str = "efpga_28nm",
+        spec: FixedSpec = AP_FIXED_28_19,
+        score_threshold: float = 0.5,
+        adder: str = "tree",
+    ) -> "ReadoutChip":
+        """``adder`` is the ensemble summation structure: "tree" (default,
+        shallow carry-select reduction — faster to evaluate, ~2.5x the
+        adder LUTs) or "ripple" (minimal area, for near-capacity designs).
+        Single trees have no adders, so the paper's chip is unaffected."""
+        golden = clf.quantized(spec)
+        synth = synth_ensemble(golden, adder=adder)
+        config = place_and_route(synth.netlist, FABRICS[fabric])
+        bs = encode(config)
+        # thresholding happens in logit space on the integer grid
+        logit = float(np.log(score_threshold / (1 - score_threshold)))
+        thr_raw = int(np.floor(logit * spec.scale))
+        # reload through the bitstream (the "program the chip" step)
+        return cls(
+            synth=synth,
+            golden=golden,
+            config=decode(bs),
+            bitstream=bs,
+            score_threshold_raw=thr_raw,
+        )
+
+    # ---------------------------------------------------------------- run
+    def encode_features(self, X: np.ndarray) -> np.ndarray:
+        """features (n, 14) float -> fabric input bits (host featurization)."""
+        return self.synth.encode_inputs(self.golden.quantize_features(X))
+
+    def infer_raw(
+        self, X: np.ndarray, backend: Union[str, ScoringBackend] = "host"
+    ) -> np.ndarray:
+        """features (n, 14) float -> raw integer scores, via the fabric."""
+        bits = self.encode_features(X)
+        outs = get_backend(backend).score_bits(self.config, bits)
+        return self.synth.decode_outputs(outs)
+
+    def frontend_spec(self):
+        """This chip's fused-frontend encode/decode contract
+        (kernels.frontend.ChipFrontendSpec): which features feed the
+        fabric, on which ap_fixed grid, with which trigger cut."""
+        from repro_torch.kernels.frontend import ChipFrontendSpec
+
+        return ChipFrontendSpec(
+            used_features=tuple(self.synth.used_features),
+            spec=self.golden.spec,
+            threshold_raw=int(self.score_threshold_raw),
+        )
+
+    def infer_from_frames(self, frames: np.ndarray, y0: np.ndarray,
+                          backend: Union[str, ScoringBackend] = "kernel") -> np.ndarray:
+        """Full front end: raw charge frames -> raw integer scores.
+
+        Routed through the backend's ``score_frames`` pipeline: the
+        kernel backend runs the FUSED single-dispatch frontend
+        (frames -> features -> bits -> score with no host round-trip);
+        the host backend runs the same pipeline staged, each stage
+        materialized — the bit-exact comparison oracle.
+        """
+        return get_backend(backend).score_frames(self, frames, y0)
+
+    def infer_proba(self, X: np.ndarray,
+                    backend: Union[str, ScoringBackend] = "host") -> np.ndarray:
+        raw = self.infer_raw(X, backend)
+        return 1.0 / (1.0 + np.exp(-raw / self.golden.spec.scale))
+
+    def keep_mask(self, X: np.ndarray,
+                  backend: Union[str, ScoringBackend] = "host") -> np.ndarray:
+        """True = retain (not classified as pileup)."""
+        return self.infer_raw(X, backend) <= self.score_threshold_raw
+
+    # ----------------------------------------------------------- accounting
+    def data_reduction_report(
+        self,
+        X: np.ndarray,
+        is_pileup: np.ndarray,
+        bits_per_hit: int = 256,
+        hit_rate_hz: float = 40e6,
+        backend: Union[str, ScoringBackend] = "host",
+    ) -> Dict[str, float]:
+        keep = self.keep_mask(X, backend)
+        is_pu = is_pileup.astype(bool)
+        frac_kept = float(keep.mean())
+        return {
+            "n": float(len(X)),
+            "fraction_kept": frac_kept,
+            "signal_efficiency": float(keep[~is_pu].mean()) if (~is_pu).any() else 1.0,
+            "background_rejection": float((~keep)[is_pu].mean()) if is_pu.any() else 0.0,
+            "link_rate_in_gbps": hit_rate_hz * bits_per_hit / 1e9,
+            "link_rate_out_gbps": hit_rate_hz * bits_per_hit * frac_kept / 1e9,
+            "data_reduction_factor": 1.0 / max(frac_kept, 1e-9),
+        }
+
+    def calibrate(self, X_val: np.ndarray, is_pileup_val: np.ndarray,
+                  target_sig_eff: float = 0.975) -> Dict[str, float]:
+        """Pick the reject threshold achieving ~target signal efficiency on
+        a validation set (integer-domain, so the deployed cut is exact)."""
+        from repro_torch.core.bdt import operating_point_at_signal_eff
+
+        raw = self.golden.decision_function_raw(
+            self.golden.quantize_features(X_val))
+        thr, se, br = operating_point_at_signal_eff(
+            raw.astype(np.float64), is_pileup_val, target_sig_eff)
+        self.score_threshold_raw = int(thr)
+        return {"threshold_raw": int(thr), "signal_efficiency": se,
+                "background_rejection": br}
+
+    def verify_vs_golden(self, X: np.ndarray,
+                         backend: Union[str, ScoringBackend] = "host") -> Dict[str, float]:
+        """The 100%-accuracy check of §5, through bitstream + fabric."""
+        X_raw = self.golden.quantize_features(X)
+        got = self.infer_raw(X, backend)
+        want = self.golden.decision_function_raw(X_raw)
+        return {
+            "n": float(len(X)),
+            "n_match": float((got == want).sum()),
+            "accuracy": float((got == want).mean()),
+        }

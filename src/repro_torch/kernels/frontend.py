@@ -1,0 +1,349 @@
+"""Fused readout frontend on the device: frames -> features -> bits -> score.
+
+    frames (C, B, T, Y, X) + y0 (C, B)
+      -> yprofile                 (CUDA kernel, kernels/yprofile)
+      -> ap_fixed quantize        (core/quantize device path, int32)
+      -> offset-binary bit gather (per-chip encode plan, below)
+      -> bit-sliced fabric walk   (CUDA kernel with the TMR vote folded in)
+      -> score decode + keep/drop (two's-complement weights, int32 cut)
+
+No stage materializes on the host: the feature tensor, the bit tensor and
+the net words live and die on the device; the host sees only the (C, B)
+scores, the keep mask and the (C, R) disagreement counts. Calls return
+without synchronising (launches are asynchronous on the current stream).
+
+Everything per chip — which features feed which input bit, the
+fixed-point spec, the output decode weights, the trigger cut — is a
+(C, ...) tensor row of the encode plan, so a hot-swap is a row update:
+input bit j of chip c is bit ``bit_idx[c, j]`` of feature
+``feat_idx[c, j]``'s offset-binary pattern (zero where j >= n_inputs_c).
+The chip axis is a leading tensor dimension on one device.
+
+Staging: the (frames, y0) of a dispatch are copied into a preallocated
+device buffer that is reused while the padded shape stays the same (the
+readout server pads batches to powers of two, so the set of shapes is
+small). Reuse is safe across in-flight dispatches because every copy and
+kernel runs in order on one stream. The copy is a blocking copy from
+pageable host memory, so it also waits for the batches queued before it:
+device work of one batch overlaps only the host work that follows its
+copy.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.fabric import FabricConfig, FrontendSpec
+from repro_torch.core.quantize import (
+    FixedSpec,
+    quantize_pattern_device,
+    spec_device_params,
+)
+from repro_torch.data.smartpixel import N_T, N_X, N_Y
+from repro_torch.device import NotPortedError, resolve_device
+from repro_torch.kernels.lut_eval import ops as lut_ops
+from repro_torch.kernels.yprofile import ops as yp_ops
+
+SPARSE_NOT_PORTED = (
+    "sparse word-domain egress (score_frames_sparse, the popcount "
+    "compaction kernel B6) is not ported yet: ROADMAP queue A, sparse slice")
+
+
+@dataclasses.dataclass(frozen=True)
+class ChipFrontendSpec:
+    """Per-chip encode/decode contract of the fused frontend.
+
+    used_features: feature indices feeding the fabric, in input-bus order
+        (SynthResult.used_features).
+    spec: the chip's ap_fixed grid (int32-representable, W <= 31).
+    threshold_raw: integer-domain trigger cut — keep iff score <= cut.
+    """
+
+    used_features: Tuple[int, ...]
+    spec: FixedSpec
+    threshold_raw: int
+
+
+def default_frontend_spec(threshold_electrons: float = 800.0) -> FrontendSpec:
+    """The smart-pixel featurizer contract (13 y-profile bins + y0)."""
+    return FrontendSpec(
+        n_features=yp_ops.N_FEATURES,
+        frame_shape=(N_T, N_Y, N_X),
+        threshold_electrons=threshold_electrons,
+    )
+
+
+def validate_chip_frontend(config: FabricConfig, cs: ChipFrontendSpec,
+                           n_features: int) -> None:
+    """Named, fail-fast check that a chip is encodable from the
+    featurizer's output, raised at pack/swap time."""
+    W = cs.spec.width
+    if W > 31:
+        raise ValueError(
+            f"fused frontend quantizes in int32: spec width {W} > 31")
+    if len(cs.used_features) * W != config.n_inputs:
+        raise ValueError(
+            f"encode plan mismatch: {len(cs.used_features)} used features x "
+            f"W={W} bits != config n_inputs={config.n_inputs}")
+    if cs.used_features and max(cs.used_features) >= n_features:
+        raise ValueError(
+            f"chip reads feature {max(cs.used_features)} but the featurizer "
+            f"produces only {n_features}")
+    if len(config.output_nets) > 31:
+        raise ValueError(
+            "fused frontend decodes scores in int32: "
+            f"{len(config.output_nets)} output bits > 31")
+
+
+def _plan_row(
+    config: FabricConfig, cs: ChipFrontendSpec, J: int, O: int,
+) -> Dict[str, np.ndarray]:
+    """One chip's encode-plan row, zero-padded to the stack envelope."""
+    W = cs.spec.width
+    n_in = len(cs.used_features) * W
+    assert n_in <= J and len(config.output_nets) <= O
+    feat = np.zeros(J, np.int32)
+    bit = np.zeros(J, np.int32)
+    valid = np.zeros(J, np.int32)
+    j = np.arange(n_in)
+    if n_in:
+        feat[:n_in] = np.asarray(cs.used_features, np.int64)[j // W]
+        bit[:n_in] = j % W
+        valid[:n_in] = 1
+    weight = np.zeros(O, np.int64)
+    n_out = len(config.output_nets)
+    weight[:n_out] = 1 << np.arange(n_out)
+    if n_out:
+        weight[n_out - 1] = -(1 << (n_out - 1))  # two's-complement sign bit
+    row = {"feat_idx": feat, "bit_idx": bit, "bit_valid": valid,
+           "out_weight": weight.astype(np.int32),
+           "threshold_raw": np.int32(cs.threshold_raw)}
+    row.update(spec_device_params(cs.spec))
+    return row
+
+
+_PLAN_KEYS = ("feat_idx", "bit_idx", "bit_valid", "out_weight",
+              "threshold_raw", "scale", "rnd_off", "wrap_mask", "sign_bit",
+              "sat_lo", "sat_hi")
+
+
+def encode_bits(feats: torch.Tensor, plan: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+    """Stages 2-3: (C, B, 128) features -> (C, B, J) int32 0/1 input bits
+    (quantize every feature column to its chip's offset-binary pattern,
+    then gather bit ``bit_idx`` of feature ``feat_idx`` per input)."""
+    c1 = lambda a: a[:, None, None]                      # noqa: E731
+    u = quantize_pattern_device(
+        feats, scale=c1(plan["scale"]), rnd_off=c1(plan["rnd_off"]),
+        wrap_mask=c1(plan["wrap_mask"]), sign_bit=c1(plan["sign_bit"]),
+        sat_lo=c1(plan["sat_lo"]), sat_hi=c1(plan["sat_hi"]))
+    C, B = u.shape[0], u.shape[1]
+    J = plan["feat_idx"].shape[1]
+    idx = plan["feat_idx"][:, None, :].long().expand(C, B, J)
+    taken = torch.gather(u, 2, idx)
+    # patterns are < 2**31 (W <= 31), so the arithmetic shift is logical
+    return ((taken >> plan["bit_idx"][:, None, :]) & 1) \
+        * plan["bit_valid"][:, None, :]
+
+
+def score_features(
+    feats: torch.Tensor,                # (C, B, 128) f32
+    stack: lut_ops.PackedFabricStack,
+    plan: Dict[str, torch.Tensor],
+    valid: torch.Tensor,                # (C, B) bool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stages 2-5 from device features: (score (C, B) int32, keep (C, B)
+    bool, disagree counts (C, R) int32)."""
+    bits = encode_bits(feats, plan)
+    outs, disagree = lut_ops.fabric_eval_bits_voted(
+        stack.src, stack.tables, stack.output_nets, bits,
+        n_replicas=stack.n_replicas, n_inputs=stack.n_inputs,
+        in_seg=stack.in_seg)
+    return lut_ops.decode_scores_device(
+        outs, disagree, plan["out_weight"], plan["threshold_raw"], valid)
+
+
+def _score_frames_impl(
+    frames: torch.Tensor,       # (C, B, T, Y, X) f32
+    y0: torch.Tensor,           # (C, B) f32
+    stack: lut_ops.PackedFabricStack,
+    plan: Dict[str, torch.Tensor],
+    valid: torch.Tensor,        # (C, B) bool — kills padded event rows
+    *,
+    threshold_electrons: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dense fused body: featurize (stage 1) then ``score_features``."""
+    feats = yp_ops.yprofile_traced(frames, y0, threshold=threshold_electrons)
+    return score_features(feats, stack, plan, valid)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedFrontend:
+    """N configured chips' whole frontends, one asynchronous dispatch.
+
+    Built by ``pack_frontend``. ``score_frames*`` return device tensors
+    without synchronising; the readout server keeps batches in flight and
+    materializes them late.
+    """
+
+    stack: lut_ops.PackedFabricStack
+    chip_specs: Tuple[ChipFrontendSpec, ...]
+    plan: Dict[str, torch.Tensor]       # (C, ...) encode plan on device
+    batch_tile: int
+    threshold_electrons: float
+    # padded (C, B) -> reusable device staging buffers (frames, y0, valid)
+    staging: Dict[Tuple[int, int], Tuple[torch.Tensor, ...]] = (
+        dataclasses.field(default_factory=dict, compare=False, repr=False))
+
+    @property
+    def n_chips(self) -> int:
+        return self.stack.n_chips
+
+    @property
+    def n_replicas(self) -> int:
+        """TMR replica rows per chip (1 = no redundancy)."""
+        return self.stack.n_replicas
+
+    @property
+    def device(self) -> torch.device:
+        return self.stack.device
+
+    @property
+    def spec(self) -> FrontendSpec:
+        return default_frontend_spec(self.threshold_electrons)
+
+    def score_frames(self, frames, y0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(C, B, T, Y, X) charge + (C, B) y0 -> ((C, B) int32 raw scores,
+        (C, B) bool keep), decoded from the voted output on a TMR stack."""
+        score, keep, _ = self.score_frames_voted(frames, y0)
+        return score, keep
+
+    def score_frames_voted(
+        self, frames, y0, valid=None
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Like ``score_frames`` plus disagree_counts (C, n_replicas) int32:
+        events (among ``valid`` rows; None = all rows) where that replica's
+        output word was voted against."""
+        C, B = np.shape(frames)[0], np.shape(frames)[1]
+        f, z, v = self._stage(frames, y0, valid)
+        score, keep, dis = _score_frames_impl(
+            f, z, self.stack, self.plan, v,
+            threshold_electrons=self.threshold_electrons)
+        return score[:, :B], keep[:, :B], dis
+
+    def score_frames_sparse(self, frames, y0, valid=None):
+        raise NotPortedError(SPARSE_NOT_PORTED)
+
+    def _stage(self, frames, y0, valid):
+        """Copy one dispatch's inputs into the (reused) padded device
+        staging buffers; rows past B are zero and invalid."""
+        C, B = np.shape(frames)[0], np.shape(frames)[1]
+        assert C == self.n_chips, (C, self.n_chips)
+        Bp = -(-max(B, 1) // self.batch_tile) * self.batch_tile
+        bufs = self.staging.get((C, Bp))
+        if bufs is None:
+            dev = self.device
+            bufs = (torch.zeros((C, Bp, N_T, N_Y, N_X), dtype=torch.float32,
+                                device=dev),
+                    torch.zeros((C, Bp), dtype=torch.float32, device=dev),
+                    torch.zeros((C, Bp), dtype=torch.bool, device=dev))
+            self.staging[(C, Bp)] = bufs
+        f, z, v = bufs
+        f[:, :B].copy_(torch.as_tensor(frames, dtype=torch.float32))
+        z[:, :B].copy_(torch.as_tensor(y0, dtype=torch.float32))
+        if Bp != B:
+            f[:, B:].zero_()
+            z[:, B:].zero_()
+            v[:, B:].fill_(False)
+        if valid is None:
+            v[:, :B].fill_(True)
+        else:
+            v[:, :B].copy_(torch.as_tensor(valid, dtype=torch.bool))
+        return f, z, v
+
+    def swap_chip(
+        self, slot: int, config: FabricConfig, chip_spec: ChipFrontendSpec,
+        stack: Optional[lut_ops.PackedFabricStack] = None,
+    ) -> "FusedFrontend":
+        """Hot-swap one chip's whole frontend: fabric rows via
+        PackedFabricStack.swap_chip plus this chip's encode-plan row. A
+        caller that already swapped its own shared stack passes it via
+        ``stack``."""
+        validate_chip_frontend(config, chip_spec, self.spec.n_features)
+        if stack is None:
+            stack = self.stack.swap_chip(slot, config)
+        row = _plan_row(config, chip_spec, stack.n_inputs, stack.n_outputs)
+        plan = {}
+        for k in _PLAN_KEYS:
+            t = self.plan[k].clone()
+            t[slot] = torch.as_tensor(row[k], dtype=t.dtype)
+            plan[k] = t
+        specs = list(self.chip_specs)
+        specs[slot] = chip_spec
+        return dataclasses.replace(
+            self, stack=stack, plan=plan, chip_specs=tuple(specs))
+
+    def set_threshold(self, slot: int, threshold_raw: int) -> "FusedFrontend":
+        """Retarget one chip's trigger cut (plan row update, no repack)."""
+        specs = list(self.chip_specs)
+        specs[slot] = dataclasses.replace(
+            specs[slot], threshold_raw=int(threshold_raw))
+        plan = dict(self.plan)
+        plan["threshold_raw"] = self.plan["threshold_raw"].clone()
+        plan["threshold_raw"][slot] = int(threshold_raw)
+        return dataclasses.replace(self, plan=plan, chip_specs=tuple(specs))
+
+
+def pack_frontend(
+    configs: Sequence[FabricConfig],
+    chip_specs: Sequence[ChipFrontendSpec],
+    *,
+    band: Optional[bool] = None,
+    redundancy: str = "none",
+    layout: str = "bitsliced",
+    batch_tile: int = 128,
+    threshold_electrons: float = 800.0,
+    stack: Optional[lut_ops.PackedFabricStack] = None,
+    device=None,
+) -> FusedFrontend:
+    """Pack N (config, frontend-spec) pairs into one fused dispatch on
+    ``device`` (default: CUDA).
+
+    ``band``/``layout``/``redundancy`` feed the fabric stage as in
+    ``pack_fabrics`` (only layout="bitsliced" is ported).
+    ``batch_tile`` pads each dispatch's batch to a multiple of it. A caller
+    that already packed the configs shares them via ``stack``.
+    """
+    if len(configs) != len(chip_specs):
+        raise ValueError(f"{len(configs)} configs vs {len(chip_specs)} specs")
+    n_features = default_frontend_spec(threshold_electrons).n_features
+    for config, cs in zip(configs, chip_specs):
+        validate_chip_frontend(config, cs, n_features)
+    if stack is None:
+        stack = lut_ops.pack_fabrics(
+            list(configs), band=band, redundancy=redundancy, layout=layout,
+            device=device)
+    elif redundancy != "none" and stack.n_replicas == 1:
+        raise ValueError(
+            f"redundancy={redundancy!r} but the shared stack is not "
+            "redundant — pack it with pack_fabrics(redundancy=...)")
+    else:
+        lut_ops._check_layout(layout)
+    if device is not None and resolve_device(device).type != stack.device.type:
+        raise ValueError(f"stack lives on {stack.device}, not {device}")
+    assert stack.n_chips == len(configs), (stack.n_chips, len(configs))
+    rows = [
+        _plan_row(c, cs, stack.n_inputs, stack.n_outputs)
+        for c, cs in zip(configs, chip_specs)
+    ]
+    return FusedFrontend(
+        stack=stack,
+        chip_specs=tuple(chip_specs),
+        plan={k: torch.as_tensor(np.stack([r[k] for r in rows]),
+                                 device=stack.device) for k in _PLAN_KEYS},
+        batch_tile=batch_tile,
+        threshold_electrons=float(threshold_electrons),
+    )

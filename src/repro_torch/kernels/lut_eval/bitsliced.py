@@ -1,0 +1,272 @@
+"""Bit-sliced LUT evaluation: 32 events per 32-bit word (torch port).
+
+Bit ``e`` of word ``w`` is event ``w*32 + e``; every 4-LUT is a 15-op
+bitwise mux tree over whole words:
+
+    r_j = (s0 & t[2j+1]) | (~s0 & t[2j])        j = 0..7   (select on in0)
+    q_j = (s1 & r[2j+1]) | (~s1 & r[2j])        j = 0..3   (select on in1)
+    p_j = (s2 & q[2j+1]) | (~s2 & q[2j])        j = 0..1   (select on in2)
+    out =  s3 ? p1 : p0                                    (select on in3)
+
+with each truth-table entry broadcast to an all-ones / all-zeros word. The
+TMR vote is the per-bit identity (a&b)|(a&c)|(b&c) on the same words.
+
+Word representation: int32 tensors holding the uint32 bit pattern (this
+torch build has no ``~``, ``>>``, ``<<`` or gather for uint32 on the CPU).
+Bitwise ``&``, ``|``, ``^`` and ``~`` are the same on both; a right shift
+of an int32 is arithmetic, so every shift here is masked to the bits it
+keeps.
+
+``eval_seg_voted`` is the kernel wrapper: the level walk, vote and
+disagreement words in one CUDA launch (csrc/bitsliced.cu) on CUDA tensors,
+the plain twin ``eval_seg_voted_plain`` on CPU tensors.
+
+Array contract (the ``layout="bitsliced"`` packing, ops.py):
+  src         (R*C, L, M, 4)  int32 — per-LUT source nets in the padded
+                                      net layout; padded slots read net 0
+  tables      (R*C, L, M, 16) f32   — the scrub-loop truth-table image
+  output_nets (R*C, O)        int32 — const0-padded gather indices
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.tmr import N_REPLICAS, majority_vote_words
+from repro_torch.kernels import build
+
+WORD = 32
+# the device limit on dynamic shared memory per block (H100: 227 KB)
+SMEM_LIMIT_BYTES = 232448
+MAX_TILE = 32
+
+
+def pack_words(bits: torch.Tensor) -> torch.Tensor:
+    """Event-transpose: (..., B, n) 0/1 bits -> (..., W, n) int32 words.
+
+    W = ceil(B/32) (at least 1). The 32 shifted bits are disjoint powers
+    of two, summed in int64 (no overflow), then values >= 2**31 are mapped
+    to their two's-complement int32 explicitly.
+    """
+    B = bits.shape[-2]
+    W = max(-(-B // WORD), 1)
+    pad = W * WORD - B
+    b = bits.to(torch.int64)
+    if pad:
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    b = b.reshape(b.shape[:-2] + (W, WORD, b.shape[-1]))
+    shifts = torch.arange(WORD, dtype=torch.int64, device=b.device)[:, None]
+    v = torch.sum(b << shifts, dim=-2)
+    v = torch.where(v >= 2**31, v - 2**32, v)
+    return v.to(torch.int32)
+
+
+def unpack_words(words: torch.Tensor, n_events: int) -> torch.Tensor:
+    """Inverse event-transpose: (..., W, n) int32 -> (..., B, n) uint8.
+    Tail lanes (events >= n_events) are dropped."""
+    W = words.shape[-2]
+    shifts = torch.arange(WORD, dtype=torch.int32,
+                          device=words.device)[:, None]
+    b = (words[..., None, :] >> shifts) & 1     # masked: shift sign is moot
+    b = b.reshape(words.shape[:-2] + (W * WORD, words.shape[-1]))
+    return b[..., :n_events, :].to(torch.uint8)
+
+
+def input_words(bits: torch.Tensor, n_inputs: int, in_seg: int) -> torch.Tensor:
+    """(C, B, n_inputs) event bits -> (C, W, in_seg) input-segment words.
+
+    Column 0 is const0, column 1 const1 (all ones, tail lanes included),
+    columns 2..2+n_inputs the transposed input bits."""
+    words = pack_words(bits)                                # (C, W, n_in)
+    C, W = words.shape[0], words.shape[1]
+    seg = torch.zeros((C, W, in_seg), dtype=torch.int32, device=bits.device)
+    seg[:, :, 1] = -1
+    seg[:, :, 2 : 2 + n_inputs] = words
+    return seg
+
+
+def eval_words(
+    src: torch.Tensor,          # (C, L, M, 4) int32
+    tables: torch.Tensor,       # (C, L, M, 16) f32 (0.0/1.0)
+    output_nets: torch.Tensor,  # (C, O) int32
+    in_words: torch.Tensor,     # (C, W, in_seg) int32
+) -> torch.Tensor:
+    """Levelized word evaluation in torch ops: (C, W, O) int32 words.
+
+    The net buffer is [const0 | const1 | inputs | level 0 slots | ...];
+    each level gathers its 4 source words per LUT and runs the mux tree.
+    """
+    C, W, in_seg = in_words.shape
+    L, M = src.shape[1], src.shape[2]
+    vals = torch.zeros((C, W, in_seg + L * M), dtype=torch.int32,
+                       device=in_words.device)
+    vals[:, :, :in_seg] = in_words
+    tbl = torch.where(tables > 0.5, -1, 0).to(torch.int32)  # (C, L, M, 16)
+    for l in range(L):
+        idx = src[:, l].reshape(C, 1, M * 4).expand(C, W, M * 4).long()
+        g = torch.gather(vals, 2, idx).reshape(C, W, M, 4)
+        t = tbl[:, l][:, None]                              # (C, 1, M, 16)
+        for k in range(4):
+            s = g[:, :, :, k : k + 1]                       # (C, W, M, 1)
+            t = (s & t[..., 1::2]) | (~s & t[..., 0::2])
+        base = in_seg + l * M
+        vals[:, :, base : base + M] = t[..., 0]
+    O = output_nets.shape[-1]
+    out_idx = output_nets[:, None, :].long().expand(C, W, O)
+    return torch.gather(vals, 2, out_idx)
+
+
+def eval_seg_voted_plain(
+    src: torch.Tensor,
+    tables: torch.Tensor,
+    output_nets: torch.Tensor,
+    seg: torch.Tensor,          # (C, W, in_seg) — per LOGICAL chip
+    n_replicas: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the kernel: (voted (C, W, O), dis (C, R, W)) int32."""
+    C, W = seg.shape[0], seg.shape[1]
+    if n_replicas == 1:
+        out_w = eval_words(src, tables, output_nets, seg)
+        return out_w, torch.zeros((C, 1, W), dtype=torch.int32,
+                                  device=seg.device)
+    assert n_replicas == N_REPLICAS, n_replicas
+    rep = torch.repeat_interleave(seg, n_replicas, dim=0)   # (R*C, W, seg)
+    out_w = eval_words(src, tables, output_nets, rep)       # (R*C, W, O)
+    O = out_w.shape[2]
+    g = out_w.reshape(C, n_replicas, W, O)
+    voted_w = majority_vote_words(g[:, 0], g[:, 1], g[:, 2])  # (C, W, O)
+    diff = g ^ voted_w[:, None]                             # (C, R, W, O)
+    dis_w = torch.zeros((C, n_replicas, W), dtype=torch.int32,
+                        device=seg.device)
+    for j in range(O):
+        dis_w = dis_w | diff[..., j]
+    return voted_w, dis_w
+
+
+def word_tile(n_replicas: int, n_nets: int, n_words: int, n_chips: int = 1,
+              n_sms: int = 1) -> int:
+    """Words per block: as many as the net buffers of all replicas fit in
+    shared memory, at most MAX_TILE, and no more than leaves every one of
+    ``n_sms`` SMs a block of the ``n_chips`` x ``n_words`` grid."""
+    per_word = n_replicas * n_nets * 4
+    fit = SMEM_LIMIT_BYTES // per_word
+    if fit < 1:
+        raise ValueError(
+            f"one word's net buffer ({n_replicas} replicas x {n_nets} nets "
+            f"x 4 B = {per_word} B) exceeds {SMEM_LIMIT_BYTES} B of shared "
+            "memory")
+    spread = -(-n_chips * n_words // n_sms)
+    return max(1, min(fit, MAX_TILE, n_words, spread))
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _launch(src, tables, output_nets, seg, voted, dis, R, tile) -> None:
+    lib = build.load("bitsliced")
+    C, W, in_seg = seg.shape
+    L, M, O = src.shape[1], src.shape[2], output_nets.shape[1]
+    stream = torch.cuda.current_stream(seg.device).cuda_stream
+    code = lib.eval_words_voted_launch(
+        seg.data_ptr(), src.data_ptr(), tables.data_ptr(),
+        output_nets.data_ptr(), voted.data_ptr(), dis.data_ptr(),
+        C, R, W, in_seg, L, M, O, tile, stream)
+    build.check(lib, code, "bitsliced eval_words_voted kernel")
+
+
+def eval_seg_voted(
+    src: torch.Tensor,
+    tables: torch.Tensor,
+    output_nets: torch.Tensor,
+    seg: torch.Tensor,
+    n_replicas: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Level walk + vote + disagreement words over input-segment words:
+    (voted (C, W, O) int32, dis (C, R, W) int32; zeros for R=1). CUDA
+    tensors launch the kernel (counted in ``eval_seg_voted.launches``);
+    CPU tensors run ``eval_seg_voted_plain``."""
+    C, W, in_seg = seg.shape
+    R = n_replicas
+    if R not in (1, N_REPLICAS):
+        raise ValueError(f"n_replicas must be 1 or {N_REPLICAS}, got {R}")
+    if src.shape[0] != R * C or tables.shape[0] != R * C \
+            or output_nets.shape[0] != R * C:
+        raise ValueError(
+            f"stack rows {src.shape[0]}/{tables.shape[0]}/"
+            f"{output_nets.shape[0]} != n_replicas*chips = {R * C}")
+    if seg.device.type == "cpu":
+        return eval_seg_voted_plain(src, tables, output_nets, seg, R)
+    if any(t.device != seg.device for t in (src, tables, output_nets)):
+        raise ValueError("stack arrays and input words must share a device")
+    if (src.dtype, tables.dtype, output_nets.dtype, seg.dtype) != (
+            torch.int32, torch.float32, torch.int32, torch.int32):
+        raise ValueError("expected int32 src/output_nets/words, f32 tables")
+    L, M, O = src.shape[1], src.shape[2], output_nets.shape[1]
+    n_sms = torch.cuda.get_device_properties(seg.device).multi_processor_count
+    tile = word_tile(R, in_seg + L * M, W, C, n_sms)
+    src, tables = _aligned(src), _aligned(tables)
+    output_nets, seg = output_nets.contiguous(), seg.contiguous()
+    voted = torch.empty((C, W, O), dtype=torch.int32, device=seg.device)
+    dis = torch.empty((C, R, W), dtype=torch.int32, device=seg.device)
+    _launch(src, tables, output_nets, seg, voted, dis, R, tile)
+    eval_seg_voted.launches += 1
+    return voted, dis
+
+
+eval_seg_voted.launches = 0
+
+
+def eval_words_voted(
+    src: torch.Tensor,
+    tables: torch.Tensor,
+    output_nets: torch.Tensor,
+    bits: torch.Tensor,         # (C, B, n_inputs) — per LOGICAL chip
+    *,
+    n_replicas: int,
+    n_inputs: int,
+    in_seg: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Redundant evaluation stopped in the word domain: (voted output
+    words (C, W, O), per-replica disagreement words (C, R, W)), bit ``e``
+    of a disagreement word set iff that replica's output differs from the
+    vote for event ``w*32+e``."""
+    seg = input_words(bits, n_inputs, in_seg)
+    return eval_seg_voted(src, tables, output_nets, seg, n_replicas)
+
+
+def eval_bits_voted(
+    src: torch.Tensor,
+    tables: torch.Tensor,
+    output_nets: torch.Tensor,
+    bits: torch.Tensor,         # (C, B, n_inputs)
+    *,
+    n_replicas: int,
+    n_inputs: int,
+    in_seg: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(voted (C, B, O) uint8, disagree (C, R, B) bool)."""
+    B = bits.shape[1]
+    voted_w, dis_w = eval_words_voted(
+        src, tables, output_nets, bits,
+        n_replicas=n_replicas, n_inputs=n_inputs, in_seg=in_seg)
+    voted = unpack_words(voted_w, B)
+    dis = unpack_words(dis_w[..., None], B)[..., 0].to(torch.bool)
+    return voted, dis
+
+
+def eval_bits(
+    src: torch.Tensor,
+    tables: torch.Tensor,
+    output_nets: torch.Tensor,
+    bits: torch.Tensor,         # (C, B, n_inputs)
+    *,
+    n_inputs: int,
+    in_seg: int,
+) -> torch.Tensor:
+    """One replica per chip, no vote: (C, B, O) uint8."""
+    voted, _ = eval_bits_voted(src, tables, output_nets, bits, n_replicas=1,
+                               n_inputs=n_inputs, in_seg=in_seg)
+    return voted

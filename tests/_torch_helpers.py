@@ -1,0 +1,77 @@
+"""Shared fixtures-in-functions for the PyTorch-port conformance tests.
+
+Every helper builds the SAME object twice — once with the JAX package
+(``repro``), once with the port (``repro_torch``) — from the same seeds,
+so a test can hold the two against each other on identical inputs.
+"""
+import functools
+
+import numpy as np
+import torch
+
+import repro.core.tmr  # noqa: F401  (registers efpga_28nm_xl)
+import repro_torch.core.tmr  # noqa: F401
+from repro.core.bdt import GradientBoostedClassifier as JaxGBC
+from repro.core.quantize import FixedSpec as JaxSpec
+from repro.core.readout import ReadoutChip as JaxChip
+from repro.data.smartpixel import SmartPixelConfig as JaxSPC
+from repro.data.smartpixel import generate as jax_generate
+from repro.data.smartpixel import train_test_split as jax_split
+from repro_torch.core.bdt import GradientBoostedClassifier as PortGBC
+from repro_torch.core.quantize import FixedSpec as PortSpec
+from repro_torch.core.readout import ReadoutChip as PortChip
+from repro_torch.data.smartpixel import SmartPixelConfig as PortSPC
+from repro_torch.data.smartpixel import generate as port_generate
+from repro_torch.data.smartpixel import train_test_split as port_split
+
+# The suite runs under several xdist workers: one intra-op thread each
+# keeps the port's small CPU tensors from oversubscribing the cores the
+# JAX tests share.
+torch.set_num_threads(1)
+
+# One small chip recipe per registered fabric (the JAX package's
+# tests/test_frontend.py farm): (depth, leaves, n_estimators, spec).
+FABRIC_RECIPES = {
+    "efpga_130nm": (3, 5, 1, None),
+    "efpga_28nm": (4, 8, 1, None),
+    "efpga_28nm_xl": (3, 6, 2, (16, 8)),
+}
+
+
+def _train(gbc, chip_cls, spec_cls, spc, generate, split, fabric, depth,
+           leaves, n_estimators, spec, seed):
+    tr, _ = split(generate(spc(n_events=12_000, seed=seed)))
+    clf = gbc(n_estimators=n_estimators, max_depth=depth,
+              max_leaf_nodes=leaves, min_samples_leaf=200,
+              ).fit(tr["features"], tr["label"])
+    kw = {} if spec is None else {"spec": spec_cls(*spec)}
+    chip = chip_cls.build(clf, fabric=fabric, **kw)
+    chip.calibrate(tr["features"], tr["label"], target_sig_eff=0.95)
+    return chip
+
+
+@functools.lru_cache(maxsize=None)
+def chip_pair(fabric: str, seed: int = 5, depth=None, leaves=None):
+    """(JAX ReadoutChip, port ReadoutChip) trained identically."""
+    d, lv, n_est, spec = FABRIC_RECIPES[fabric]
+    d = d if depth is None else depth
+    lv = lv if leaves is None else leaves
+    jax_chip = _train(JaxGBC, JaxChip, JaxSpec, JaxSPC, jax_generate,
+                      jax_split, fabric, d, lv, n_est, spec, seed)
+    port_chip = _train(PortGBC, PortChip, PortSpec, PortSPC, port_generate,
+                       port_split, fabric, d, lv, n_est, spec, seed)
+    return jax_chip, port_chip
+
+
+@functools.lru_cache(maxsize=None)
+def frames(n_events: int = 256, seed: int = 9):
+    """Real smart-pixel frames + y0: (n, 8, 13, 21) f32, (n,) f32."""
+    dd = jax_generate(JaxSPC(n_events=n_events, seed=seed),
+                      return_frames=True)
+    return (dd["frames"].astype(np.float32),
+            dd["features"][:, 13].astype(np.float32))
+
+
+def as_int32(words) -> np.ndarray:
+    """JAX uint32 words -> the port's int32 bit patterns."""
+    return np.asarray(words).astype(np.uint32).view(np.int32)

@@ -29,6 +29,11 @@ def pytest_configure(config):
         "slow: long-running Pallas/system tests, excluded from the fast "
         'tier (-m "not slow")',
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's hand-written kernels); "
+        "skips with a reason where there is none",
+    )
 
 
 @pytest.hookimpl(hookwrapper=True)

@@ -1,0 +1,150 @@
+"""Fused frontend: frames -> (score, keep, disagree), port vs JAX.
+
+One stack holds a chip of every registered fabric (heterogeneous specs,
+used features and widths), TMR off and on:
+
+(a) given IDENTICAL features (the JAX featurizer's), the port's
+    post-featurize tail (quantize, bit gather, word walk + vote, decode,
+    cut) gives (score, keep, disagree) bit-identical to JAX's fused pass;
+(b) end to end from frames, every event matches except those whose
+    quantized used-feature pattern differs between the two featurizers
+    (summation-order flips, see test_torch_yprofile.py); those are at
+    most 1% of events, and even there the port's result equals the numpy
+    oracle fed with the port's own features.
+"""
+import pytest
+
+pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro.kernels import frontend as jax_fe  # noqa: E402
+from repro.kernels.yprofile import ops as jax_yp  # noqa: E402
+from repro_torch.core.fabric import FabricSim  # noqa: E402
+from repro_torch.core.quantize import quantize_raw  # noqa: E402
+from repro_torch.device import NotPortedError  # noqa: E402
+from repro_torch.kernels import frontend as port_fe  # noqa: E402
+from repro_torch.kernels.yprofile import ops as port_yp  # noqa: E402
+from tests._torch_helpers import FABRIC_RECIPES, chip_pair, frames  # noqa: E402
+
+B = 256
+REDUNDANCIES = ("none", "tmr")
+
+
+@pytest.fixture(scope="module")
+def farm():
+    """Chips, frames and the JAX side's features and fused results, built
+    once in setup."""
+    pairs = [chip_pair(f) for f in sorted(FABRIC_RECIPES)]
+    C = len(pairs)
+    fr, y0 = frames(C * B)
+    fr, y0 = fr.reshape(C, B, 8, 13, 21), y0.reshape(C, B)
+    jax_feats = np.array(jax_yp.yprofile_traced(
+        jnp.asarray(fr), jnp.asarray(y0), threshold=800.0, batch_tile=128,
+        interpret=True))
+    jax_out = {}
+    for red in REDUNDANCIES:
+        jf = jax_fe.pack_frontend([p[0].config for p in pairs],
+                                  [p[0].frontend_spec() for p in pairs],
+                                  layout="bitsliced", redundancy=red)
+        jax_out[red] = [np.asarray(x) for x in jf.score_frames_voted(fr, y0)]
+    return pairs, fr, y0, jax_feats, jax_out
+
+
+def _port_frontend(pairs, red):
+    return port_fe.pack_frontend([p[1].config for p in pairs],
+                                 [p[1].frontend_spec() for p in pairs],
+                                 redundancy=red, device="cpu")
+
+
+@pytest.mark.parametrize("red", REDUNDANCIES)
+def test_tail_from_identical_features_is_bit_identical(farm, red):
+    pairs, fr, y0, jax_feats, jax_out = farm
+    pf = _port_frontend(pairs, red)
+    valid = torch.ones((len(pairs), B), dtype=torch.bool)
+    got = port_fe.score_features(torch.as_tensor(jax_feats), pf.stack,
+                                 pf.plan, valid)
+    for g, want, what in zip(got, jax_out[red], ("score", "keep", "dis")):
+        np.testing.assert_array_equal(g.numpy(), want, err_msg=what)
+    assert got[2].shape == (len(pairs), pf.n_replicas)
+
+
+def _oracle(chip, feats):
+    outs, _ = FabricSim(chip.config).run(chip.encode_features(feats))
+    return chip.synth.decode_outputs(np.asarray(outs))
+
+
+@pytest.mark.parametrize("red", REDUNDANCIES)
+def test_frames_end_to_end_matches_up_to_featurizer_flips(farm, red):
+    pairs, fr, y0, jax_feats, jax_out = farm
+    pf = _port_frontend(pairs, red)
+    score, keep, dis = (x.numpy() for x in pf.score_frames_voted(fr, y0))
+    port_feats = port_yp.yprofile_traced(
+        torch.as_tensor(fr), torch.as_tensor(y0), threshold=800.0).numpy()
+    n_flip = n_mismatch = 0
+    for c, (_, chip) in enumerate(pairs):
+        used = list(chip.synth.used_features)
+        spec = chip.golden.spec
+        flip = (quantize_raw(port_feats[c][:, used], spec)
+                != quantize_raw(jax_feats[c][:, used], spec)).any(-1)
+        mism = (score[c] != jax_out[red][0][c]) | (keep[c] != jax_out[red][1][c])
+        assert not (mism & ~flip).any(), f"chip {c}: non-flip mismatch"
+        want = _oracle(chip, port_feats[c, :, :14])
+        np.testing.assert_array_equal(score[c], want)
+        np.testing.assert_array_equal(keep[c],
+                                      want <= chip.score_threshold_raw)
+        n_flip += int(flip.sum())
+        n_mismatch += int(mism.sum())
+    print(f"{red}: {n_flip} events with a quantization flip, "
+          f"{n_mismatch} score/keep mismatches of {score.size}")
+    assert n_flip <= 0.01 * score.size
+    assert not dis.any()
+
+
+def test_padding_rows_are_invalid_and_sliced(farm):
+    pairs, fr, y0, _, _ = farm
+    pf = _port_frontend(pairs, "none")
+    score, keep, _ = pf.score_frames_voted(fr[:, :70], y0[:, :70])
+    full, fkeep, _ = pf.score_frames_voted(fr, y0)
+    assert score.shape == (len(pairs), 70)
+    assert torch.equal(score, full[:, :70]) and torch.equal(keep,
+                                                           fkeep[:, :70])
+    assert (70, 128) == (score.shape[1], pf.staging[(3, 128)][0].shape[1])
+
+
+def test_swap_chip_and_threshold_update_plan_rows(farm):
+    pairs, fr, y0, _, _ = farm
+    pf = _port_frontend(pairs, "tmr")
+    new = chip_pair("efpga_130nm", seed=6)[1]
+    sw = pf.swap_chip(0, new.config, new.frontend_spec())
+    score, _, _ = sw.score_frames_voted(fr[:, :64], y0[:, :64])
+    feats = port_yp.yprofile(fr[0, :64], y0[0, :64], device="cpu").numpy()
+    np.testing.assert_array_equal(score[0].numpy(), _oracle(new, feats))
+    for k, v in pf.plan.items():
+        assert torch.equal(v[1:], sw.plan[k][1:]), k
+    st = sw.set_threshold(2, -7)
+    assert int(st.plan["threshold_raw"][2]) == -7
+    assert st.chip_specs[2].threshold_raw == -7
+    with pytest.raises(NotPortedError):
+        pf.score_frames_sparse(fr, y0)
+
+
+def test_scoring_backends_agree(farm):
+    """KernelBackend (fused, bit-sliced) == HostBackend (staged oracle) on
+    bits and on frames; the matmul layout is refused by name."""
+    from repro_torch.core.readout import HostBackend, KernelBackend
+
+    pairs, fr, y0, _, _ = farm
+    kb, hb = KernelBackend(device="cpu"), HostBackend(device="cpu")
+    for c, (_, chip) in enumerate(pairs):
+        bits = np.random.default_rng(c).integers(
+            0, 2, (45, chip.config.n_inputs)).astype(np.uint8)
+        np.testing.assert_array_equal(kb.score_bits(chip.config, bits),
+                                      hb.score_bits(chip.config, bits))
+        np.testing.assert_array_equal(
+            chip.infer_from_frames(fr[c, :50], y0[c, :50], backend=kb),
+            chip.infer_from_frames(fr[c, :50], y0[c, :50], backend=hb))
+    with pytest.raises(NotPortedError, match="ROADMAP"):
+        KernelBackend(layout="matmul")

@@ -1,0 +1,141 @@
+"""The PyTorch port stands alone: no JAX, nothing of the JAX package.
+
+* every ``repro_torch`` module imports in a subprocess where ``jax*`` and
+  ``repro``/``repro.*`` imports are blocked, and none of them got loaded;
+* no source line of the port (or of chip_smoke.py) imports them;
+* without CUDA, every entry point that is not handed ``device="cpu"``
+  raises the named DeviceUnavailableError instead of running on the CPU.
+"""
+import ctypes
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("jax")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.device import DeviceUnavailableError, resolve_device  # noqa: E402
+from tests._torch_helpers import chip_pair  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top == "jax" or top == "jaxlib" or top == "repro":
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_with_jax_and_repro_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT], capture_output=True,
+        text=True, cwd=ROOT, timeout=120,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    n_modules, bad = proc.stdout.split(maxsplit=1)
+    assert int(n_modules) >= 20 and bad.strip() == "[]", proc.stdout
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|jaxlib|repro)\b(?!_torch)"
+    r"|from\s+(jax|jaxlib|repro)\b(?!_torch))", re.M)
+
+
+def test_no_source_line_imports_jax_or_repro():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
+            for p in files for m in _FORBIDDEN.finditer(p.read_text())]
+    assert len(files) > 20 and not hits, hits
+
+
+def _entry_points():
+    from repro_torch.convert import plan_from_numpy
+    from repro_torch.core.readout import HostBackend, KernelBackend
+    from repro_torch.kernels.frontend import pack_frontend
+    from repro_torch.kernels.lut_eval.ops import pack_fabrics
+    from repro_torch.kernels.yprofile.ops import yprofile
+    from repro_torch.launch.readout_server import ReadoutServer
+
+    frames = np.zeros((2, 8, 13, 21), np.float32)
+    y0 = np.zeros(2, np.float32)
+    return {
+        "resolve_device": lambda: resolve_device(),
+        "yprofile": lambda: yprofile(frames, y0),
+        "pack_fabrics": lambda: pack_fabrics([_config()]),
+        "pack_frontend": lambda: pack_frontend([_config()], [_spec()]),
+        "ReadoutServer": lambda: ReadoutServer([_chip()]),
+        "KernelBackend.score_bits": lambda: KernelBackend().score_bits(
+            _config(), np.zeros((2, _config().n_inputs), np.uint8)),
+        "HostBackend.score_frames": lambda: HostBackend().score_frames(
+            _chip(), frames, y0),
+        "convert.plan_from_numpy": lambda: plan_from_numpy({}),
+    }
+
+
+def _chip():
+    return chip_pair("efpga_130nm")[1]
+
+
+def _config():
+    return _chip().config
+
+
+def _spec():
+    return _chip().frontend_spec()
+
+
+@pytest.mark.parametrize("name", [
+    "resolve_device", "yprofile", "pack_fabrics", "pack_frontend",
+    "ReadoutServer", "KernelBackend.score_bits", "HostBackend.score_frames",
+    "convert.plan_from_numpy"])
+def test_entry_point_without_cuda_raises_named_error(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(DeviceUnavailableError):
+        _entry_points()[name]()
+
+
+def test_explicit_cpu_is_accepted():
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}
+
+
+def test_ctypes_prototypes_match_the_cuda_sources():
+    """The argument types the wrappers bind (build.PROTOTYPES) follow each
+    launch function's C signature in csrc/, one for one (the sources
+    cannot be compiled here, so this is checked on the text)."""
+    from repro_torch.kernels import build
+
+    for src, (fn, argtypes) in build.PROTOTYPES.items():
+        text = (build.CSRC / f"{src}.cu").read_text()
+        m = re.search(rf"int {fn}\(([^)]*)\)", text)
+        assert m, (src, fn)
+        params = [re.sub(r"\s*\w+$", "", p.strip())
+                  for p in m.group(1).split(",")]
+        assert [_C_TYPES[p] for p in params] == list(argtypes), (src, params)

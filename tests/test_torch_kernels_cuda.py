@@ -1,0 +1,100 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Every test here carries the ``cuda`` marker and skips without a CUDA
+device (a CUDA kernel has no CPU mode). Unlike the other
+``test_torch_*.py`` files this one needs no JAX, so it runs where only
+the port is installed:
+
+    python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+The featurizer is held to |d| <= 2e-5 |x| + 1e-6 ke (summation order, see
+tests/test_torch_yprofile.py); the bit-sliced walk and the fused frontend
+downstream of identical features are exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.bdt import GradientBoostedClassifier
+from repro_torch.core.readout import ReadoutChip
+from repro_torch.data.smartpixel import SmartPixelConfig, generate
+from repro_torch.data.smartpixel import train_test_split
+from repro_torch.kernels import frontend as fe
+from repro_torch.kernels.lut_eval import bitsliced as bs
+from repro_torch.kernels.lut_eval import ops as lut_ops
+from repro_torch.kernels.yprofile import ops as yp
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def card():
+    """Two trained chips and real frames, once a card is known to exist."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
+    tr, _ = train_test_split(generate(SmartPixelConfig(n_events=12_000,
+                                                       seed=5)))
+    chips = []
+    for fabric, depth, leaves in (("efpga_130nm", 3, 5),
+                                  ("efpga_28nm", 4, 8)):
+        clf = GradientBoostedClassifier(
+            n_estimators=1, max_depth=depth, max_leaf_nodes=leaves,
+            min_samples_leaf=200).fit(tr["features"], tr["label"])
+        chips.append(ReadoutChip.build(clf, fabric=fabric))
+    dd = generate(SmartPixelConfig(n_events=512, seed=9), return_frames=True)
+    frames = dd["frames"].astype(np.float32).reshape(2, 256, 8, 13, 21)
+    y0 = dd["features"][:, 13].astype(np.float32).reshape(2, 256)
+    return chips, frames, y0
+
+
+def test_yprofile_kernel_matches_plain_twin(card):
+    _, frames, y0 = card
+    f = torch.as_tensor(frames, device="cuda")
+    z = torch.as_tensor(y0, device="cuda")
+    n0 = yp.yprofile_traced.launches
+    got = yp.yprofile_traced(f, z, threshold=800.0).cpu().numpy()
+    want = yp.yprofile_plain(f, z, 800.0).cpu().numpy()
+    assert yp.yprofile_traced.launches == n0 + 1
+    assert (np.abs(got - want) <= 2e-5 * np.abs(want) + 1e-6).all()
+
+
+@pytest.mark.parametrize("redundancy", ["none", "tmr"])
+def test_bitsliced_kernel_equals_plain_twin(card, redundancy):
+    chips, _, _ = card
+    stack = lut_ops.pack_fabrics([c.config for c in chips],
+                                 redundancy=redundancy, device="cuda")
+    bits = torch.as_tensor(np.random.default_rng(3).integers(
+        0, 2, (2, 1000, stack.n_inputs)), dtype=torch.int32, device="cuda")
+    seg = bs.input_words(bits, stack.n_inputs, stack.in_seg)
+    tables = stack.tables.clone()
+    if redundancy == "tmr":          # an upset replica: non-zero dis words
+        tables[1, :, :8, ::3] = 1.0 - tables[1, :, :8, ::3]
+    args = (stack.src, tables, stack.output_nets, seg, stack.n_replicas)
+    n0 = bs.eval_seg_voted.launches
+    got = bs.eval_seg_voted(*args)
+    want = bs.eval_seg_voted_plain(*args)
+    assert bs.eval_seg_voted.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_fused_frontend_on_card_equals_cpu_from_same_features(card):
+    chips, frames, y0 = card
+    on_card = fe.pack_frontend([c.config for c in chips],
+                               [c.frontend_spec() for c in chips],
+                               redundancy="tmr", device="cuda")
+    on_cpu = fe.pack_frontend([c.config for c in chips],
+                              [c.frontend_spec() for c in chips],
+                              redundancy="tmr", device="cpu")
+    feats = yp.yprofile_traced(torch.as_tensor(frames, device="cuda"),
+                               torch.as_tensor(y0, device="cuda"),
+                               threshold=800.0)
+    valid = torch.ones((2, 256), dtype=torch.bool)
+    got = fe.score_features(feats, on_card.stack, on_card.plan,
+                            valid.cuda())
+    want = fe.score_features(feats.cpu(), on_cpu.stack, on_cpu.plan, valid)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    score, keep, dis = on_card.score_frames_voted(frames, y0)
+    assert torch.equal(score.cpu(), want[0])
+    assert torch.equal(keep.cpu(), want[1])
