@@ -8,10 +8,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
   2. build   — nvcc builds every kernel source of the main path, in
                parallel, from src/repro_torch/kernels/csrc.
   3. kernels — each kernel against its plain PyTorch twin on the card, at
-               the main path's shapes: the featurizer (K1) at C=4,
+               the served shape (512 events per chip per dispatch) and
+               at a larger one: the featurizer (K1) at C=4, B=512 and
                B=8192 within |d| <= 2e-5 |x| + 1e-6 ke (summation order);
-               the bit-sliced fabric walk (K2) on the 4-chip envelope, 256
-               words, R=1 and R=3: exact. Times from CUDA events.
+               the bit-sliced fabric walk (K2) on the 4-chip envelope, 16
+               and 256 words, R=1 and R=3: exact. Times from CUDA events
+               at the larger shape.
   4. serve   — the readout server (ServerConfig() defaults, on cuda) takes
                8 FrameStream batches of 256 events per sensor from 4
                trained chips, hot-swaps chip 0 at batch 4 and flushes;
@@ -32,13 +34,19 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-ALU_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit peak
+# H100 SXM 32-bit integer/logic rate: 64 INT32 lanes per SM against the
+# 128 FP32 lanes (an FMA counted as two operations) of the published
+# 67 TFLOP/s float32 peak, at the same SM count and clock
+INT_OPS_PER_S = 67e12 / 4
 N_CHIPS = 4
 K1_BATCH = 8192
 K2_WORDS = 256
 SERVE_BATCHES = 8
 SERVE_EVENTS = 256
 RECONFIGURE_AT = 4
+# events per chip in one served dispatch: ServerConfig().max_batch (2048)
+# events over the 4 chips
+SERVED_B = 2048 // N_CHIPS
 
 
 def emit(phase, **kw):
@@ -90,26 +98,34 @@ def train_chip(seed, depth, leaves, threshold=0.97):
     return chip
 
 
-def check_k1(torch, yp):
-    """K1 at C=4, B=8192 against its twin; times and bound."""
-    C, B = N_CHIPS, K1_BATCH
-    g = torch.Generator(device="cuda").manual_seed(11)
+def k1_inputs(torch, C, B, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
     shape = (C, B, 8, 13, 21)
     hits = torch.rand(shape, generator=g, device="cuda") < 0.05
     frames = (torch.randn(shape, generator=g, device="cuda").abs() * 900.0
               * hits + torch.randn(shape, generator=g, device="cuda") * 40.0)
     y0 = torch.randn((C, B), generator=g, device="cuda") * 10.0
+    return frames, y0
+
+
+def check_k1(torch, yp):
+    """K1 against its twin at the served shape (C=4, B=SERVED_B) and at
+    C=4, B=8192; times and bound at the larger."""
     thr = 800.0
-    got = yp.yprofile_traced(frames, y0, threshold=thr)
-    want = yp.yprofile_plain(frames, y0, thr)
-    torch.cuda.synchronize()
-    if got.shape != (C, B, 128) or not torch.isfinite(got).all():
-        fail("kernels", "yprofile: bad shape or non-finite output")
-    err = (got - want).abs()
-    bad = int((err > 2e-5 * want.abs() + 1e-6).sum())
-    if bad:
-        fail("kernels", f"yprofile: {bad} features outside tolerance "
-                        f"(max |d| {float(err.max())})")
+    max_err = 0.0
+    for B in (SERVED_B, K1_BATCH):
+        frames, y0 = k1_inputs(torch, N_CHIPS, B, seed=11 + B)
+        got = yp.yprofile_traced(frames, y0, threshold=thr)
+        want = yp.yprofile_plain(frames, y0, thr)
+        torch.cuda.synchronize()
+        if got.shape != (N_CHIPS, B, 128) or not torch.isfinite(got).all():
+            fail("kernels", f"yprofile B={B}: bad shape or non-finite output")
+        err = (got - want).abs()
+        bad = int((err > 2e-5 * want.abs() + 1e-6).sum())
+        if bad:
+            fail("kernels", f"yprofile B={B}: {bad} features outside "
+                            f"tolerance (max |d| {float(err.max())})")
+        max_err = max(max_err, float(err.max()))
     nbytes = frames.numel() * 4 + y0.numel() * 4 + got.numel() * 4
     out = torch.empty_like(got)
     return {
@@ -117,14 +133,12 @@ def check_k1(torch, yp):
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/yprofile.cu",
         "replaces": "src/repro/kernels/yprofile/yprofile.py:78",
-        "shape": list(shape),
-        "max_abs_err": float(err.max()),
+        "checked_batches": [SERVED_B, K1_BATCH],
+        "timed_shape": list(frames.shape),
+        "max_abs_err": max_err,
         "tolerance": "|d| <= 2e-5*|x| + 1e-6 ke",
-        # the launch alone into a preallocated output, and the wrapper
-        # (checks, allocation, launch) as the frontend calls it
+        # the launch alone, into a preallocated output
         "ms": time_ms(lambda: yp._launch(frames, y0, thr, out)),
-        "wrapper_ms": time_ms(
-            lambda: yp.yprofile_traced(frames, y0, threshold=thr)),
         "plain_ms": time_ms(lambda: yp.yprofile_plain(frames, y0, thr)),
         "library_ms": time_ms(lambda: torch.sum(frames, dim=(2, 4))),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -134,75 +148,81 @@ def check_k1(torch, yp):
 
 
 def check_k2(torch, np, bs, lut_ops, chips):
-    """K2 on the 4-chip envelope, W=256 words, R=1 and R=3: exact."""
+    """K2 on the 4-chip envelope against its twin, R=1 and R=3, at the
+    served width (W=SERVED_B/32) and at W=256: exact, also on a TMR stack
+    with one upset replica. Times and bound at W=256."""
     configs = [c.config for c in chips]
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(12)
     out = {}
     for red in ("none", "tmr"):
         stack = lut_ops.pack_fabrics(configs, redundancy=red, device="cuda")
         R = stack.n_replicas
-        bits = torch.as_tensor(
-            rng.integers(0, 2, (N_CHIPS, K2_WORDS * 32, stack.n_inputs)),
-            dtype=torch.int32, device="cuda")
-        seg = bs.input_words(bits, stack.n_inputs, stack.in_seg)
-        args = (stack.src, stack.tables, stack.output_nets, seg, R)
-        # exactness, also on a stack whose replica 1 of chip 0 is upset
-        # (so the disagreement words are not trivially zero under TMR)
-        tables = stack.tables.clone()
+        # replica 1 of chip 0 upset, so that the disagreement words are
+        # not trivially zero under TMR
+        upset = stack.tables.clone()
         if R > 1:
-            tables[1, :, :8, ::3] = 1.0 - tables[1, :, :8, ::3]
-        for tb in (stack.tables, tables):
-            a = (stack.src, tb, stack.output_nets, seg, R)
-            got = bs.eval_seg_voted(*a)
-            want = bs.eval_seg_voted_plain(*a)
-            torch.cuda.synchronize()
-            for x, y, what in zip(got, want, ("voted", "disagree")):
-                if x.shape != y.shape or not torch.equal(x, y):
-                    fail("kernels", f"bitsliced R={R}: {what} words differ "
-                                    f"in {int((x != y).sum())} places")
-        n_dis = int((got[1] != 0).sum())
-        C, W, in_seg = seg.shape
-        L, M, O = stack.n_levels, stack.m_pad, stack.n_outputs
+            upset[1, :, :8, ::3] = 1.0 - upset[1, :, :8, ::3]
+        tiles = {}
+        for W in (SERVED_B // 32, K2_WORDS):
+            bits = torch.as_tensor(
+                rng.integers(0, 2, (N_CHIPS, W * 32, stack.n_inputs)),
+                dtype=torch.int32, device="cuda")
+            seg = bs.input_words(bits, stack.n_inputs, stack.in_seg)
+            for tb in (stack.tables, upset):
+                a = (stack.src, tb, stack.output_nets, seg, R)
+                got = bs.eval_seg_voted(*a)
+                want = bs.eval_seg_voted_plain(*a)
+                torch.cuda.synchronize()
+                for x, y, what in zip(got, want, ("voted", "disagree")):
+                    if x.shape != y.shape or not torch.equal(x, y):
+                        fail("kernels", f"bitsliced R={R} W={W}: {what} "
+                                        f"words differ in "
+                                        f"{int((x != y).sum())} places")
+            if R > 1 and not bool((got[1] != 0).any()):
+                fail("kernels", f"bitsliced R={R} W={W}: an upset replica "
+                                "gave no disagreement words")
+            C, _, in_seg = seg.shape
+            L, M, O = stack.n_levels, stack.m_pad, stack.n_outputs
+            tiles[W] = bs.word_tile(R, in_seg + L * M, W, C, n_sms)
+        # timed on what the last pass left: the W=K2_WORDS inputs
+        args = (stack.src, stack.tables, stack.output_nets, seg, R)
         n_luts = sum(c.n_luts for c in configs)
-        # 15 two-way selects of 3 bitwise ops per (replica, word, LUT), and
-        # per (word, output) the vote (5) + disagreement (2 per replica)
-        ops = 45 * R * W * n_luts + (C * W * O * (5 + 2 * R) if R > 1 else 0)
+        # least work: one LOP3 per two-way select (15 per replica, word
+        # and real LUT), 16 table-to-mask selects per replica and LUT, and
+        # per (word, output) one LOP3 for the 2-of-3 vote and one per
+        # replica for the disagreement word
+        ops = (15 * R * W * n_luts + 16 * R * n_luts
+               + (C * W * O * (1 + R) if R > 1 else 0))
         nbytes = (seg.numel() * 4 + stack.src.numel() * 4
                   + stack.tables.numel() * 4 + stack.output_nets.numel() * 4
                   + C * W * O * 4 + C * R * W * 4)
-        t_ops, t_bytes = ops / ALU_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-        tile = bs.word_tile(
-            R, in_seg + L * M, W, C,
-            torch.cuda.get_device_properties(0).multi_processor_count)
+        t_ops, t_bytes = ops / INT_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        tile = tiles[W]
         voted = torch.empty((C, W, O), dtype=torch.int32, device="cuda")
         dis = torch.empty((C, R, W), dtype=torch.int32, device="cuda")
-        out[red] = {
-            "R": R, "words": W, "luts": n_luts, "in_seg": in_seg,
-            "levels": L, "m_pad": M, "outputs": O,
-            "tile": tile,
-            "upset_disagree_words": n_dis,
+        out[f"R{R}"] = {
+            "words": W, "luts": n_luts, "in_seg": in_seg, "levels": L,
+            "m_pad": M, "outputs": O,
+            "tile": {str(w): t for w, t in tiles.items()},
             "ms": time_ms(lambda: bs._launch(
                 stack.src, stack.tables, stack.output_nets, seg, voted,
                 dis, R, tile), inner=20),
-            "wrapper_ms": time_ms(lambda: bs.eval_seg_voted(*args)),
             "plain_ms": time_ms(lambda: bs.eval_seg_voted_plain(*args),
                                 reps=10, inner=1),
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "ops": ops, "bytes": nbytes,
         }
-    tmr = out["tmr"]
     return {
         "name": "eval_words_voted",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitsliced.cu",
         "replaces": "src/repro/kernels/lut_eval/bitsliced.py:198",
+        "checked_words": [SERVED_B // 32, K2_WORDS],
         "max_abs_err": 0.0,
-        "ms": tmr["ms"], "plain_ms": tmr["plain_ms"],
-        "bound_ms": tmr["bound_ms"], "bound_by": tmr["bound_by"],
         "library_ms": None,
-        "at": "R=3 (TMR); R=1 in 'r1'",
-        "r1": out["none"], "r3": tmr,
+        "runs": out,
     }
 
 
@@ -331,15 +351,16 @@ def main():
         emit("serve", ok=True, card=card, **runs[red])
 
     kernels = []
-    for k, key in ((k1, "yprofile"), (k2, "eval_words_voted")):
+    # K2's row carries the times of its R=3 (TMR) run
+    for k, t, key in ((k1, k1, "yprofile"),
+                      (k2, k2["runs"]["R3"], "eval_words_voted")):
         kernels.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
             "launches": runs["none"]["launches"][key],
-            "launches_tmr": runs["tmr"]["launches"][key],
-            "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
-            "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
-            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "max_abs_err": k["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": k["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

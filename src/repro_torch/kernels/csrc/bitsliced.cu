@@ -7,10 +7,15 @@
 // the JAX package this is jnp that XLA compiles; a torch-op version costs
 // about 20 launches per level, so it gets a kernel of its own.
 //
-// Bound on the H100: integer ALU operations. Per (replica, word, LUT) the
-// 4-input mux tree is 15 two-way selects of 32-lane words; the inputs and
-// outputs are a few MB at most, so bytes are not the limit. Design for
-// that: a block owns one logical chip and a tile of `tile` words, and
+// Bound on the H100: per (replica, word, LUT) the 4-input mux tree is 15
+// two-way selects of 32-lane words, one LOP3 each, on the integer/logic
+// pipe (64 lanes per SM, a quarter of the float32 rate). The truth
+// tables are read whatever the word count, so on the 4-chip envelope the
+// bytes decide the bound at R=1 at every width and at R=3 up to about 600
+// words per chip, the integer operations beyond; at the served widths
+// either bound is under a microsecond, and what limits this kernel is the
+// latency of its per-level loads and barriers. Design: a block owns one logical chip and
+// a tile of `tile` words, and
 // keeps the whole net buffer of all R replicas for that tile in dynamic
 // shared memory (R * n_nets * tile * 4 bytes, opted in above 48 KB), so
 // the level walk never touches device memory except to read each LUT's

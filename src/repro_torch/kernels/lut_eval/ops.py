@@ -235,16 +235,14 @@ def pack_fabrics(
     band: bool | None = None,
     redundancy: str = "none",
     layout: str = "bitsliced",
-    geometry: StackGeometry | None = None,
     *,
     device=None,
 ) -> PackedFabricStack:
     """Stack N decoded bitstreams into one chip-batched structure on
     ``device`` (default: CUDA).
 
-    The shared geometry is the union envelope over all configs, or
-    ``geometry`` when given (every config must fit it). The band is a
-    fan-in-reach envelope validated at pack and swap time; the word
+    The shared geometry is the union envelope over all configs. The band
+    is a fan-in-reach envelope validated at pack and swap time; the word
     evaluator itself has no routing window. ``redundancy="tmr"`` packs
     three replica encodings of every chip as contiguous rows.
     """
@@ -255,25 +253,11 @@ def pack_fabrics(
     dev = resolve_device(device)
     n_replicas = N_REPLICAS if redundancy == "tmr" else 1
     geo = check_stackable(configs)
-    if geometry is not None:
-        for i, c in enumerate(configs):
-            if not geometry.admits(c):
-                raise ValueError(
-                    f"config {i} does not fit the requested envelope "
-                    f"{geometry} (levels={len(c.level_sizes)}, "
-                    f"widest={max(c.level_sizes, default=1)}, "
-                    f"inputs={c.n_inputs}, outputs={len(c.output_nets)}, "
-                    f"fanin_reach={c.fanin_reach()})")
-        geo = geometry
     L = geo.n_levels
     m_pad = _round_up(geo.max_level_size, 128)
     in_seg = _round_up(2 + geo.n_inputs, 128)
     n_pad = in_seg + L * m_pad
-    if geometry is not None:
-        band_k = (min(geometry.fanin_reach, L)
-                  if geometry.fanin_reach is not None else L)
-    else:
-        band_k = _band_choice(geo.fanin_reach or L, L, band)
+    band_k = _band_choice(geo.fanin_reach or L, L, band)
 
     slot_configs = [
         replicate_config(c, r) for c in configs for r in range(n_replicas)

@@ -283,15 +283,12 @@ class ReadoutServer:
         chips: Sequence[ReadoutChip],
         config: ServerConfig = ServerConfig(),
         clock=time.monotonic,
-        envelope: Optional[StackGeometry] = None,
         *,
         device=None,
     ):
         """``device`` is where the fused pass (kernel backend) or the
         featurizer (host backend) runs: None means CUDA, and without CUDA
-        only an explicit ``device="cpu"`` is accepted. ``envelope`` pins
-        the server's fixed geometry to a given StackGeometry instead of
-        the chips' union."""
+        only an explicit ``device="cpu"`` is accepted."""
         if not chips:
             raise ValueError("need at least one chip")
         self.device = resolve_device(device)
@@ -306,24 +303,10 @@ class ReadoutServer:
         # the server's FIXED envelope, validated on every hot-swap by
         # both backends (see the JAX package's server for the rationale)
         geo = check_stackable([c.config for c in self.chips])
-        if envelope is not None:
-            for i, c in enumerate(self.chips):
-                if not envelope.admits(c.config):
-                    raise ValueError(
-                        f"chip {i} does not fit the pinned envelope "
-                        f"{envelope} (levels={len(c.config.level_sizes)}, "
-                        f"widest={max(c.config.level_sizes, default=1)}, "
-                        f"inputs={c.config.n_inputs}, "
-                        f"outputs={len(c.config.output_nets)}, "
-                        f"fanin_reach={c.config.fanin_reach()})")
-            geo = envelope
-            banded = (envelope.fanin_reach is not None
-                      and envelope.fanin_reach < envelope.n_levels)
-        else:
-            banded = (
-                config.band is not False
-                and (geo.fanin_reach or geo.n_levels) < geo.n_levels
-            )
+        banded = (
+            config.band is not False
+            and (geo.fanin_reach or geo.n_levels) < geo.n_levels
+        )
         self.layout = config.effective_layout
         self.geometry: StackGeometry = dataclasses.replace(
             geo if banded else dataclasses.replace(geo, fanin_reach=None),
@@ -350,8 +333,6 @@ class ReadoutServer:
             self._stack = lut_ops.pack_fabrics(
                 [c.config for c in self.chips], band=config.band,
                 redundancy=config.redundancy, layout=self.layout,
-                geometry=(None if envelope is None else
-                          dataclasses.replace(self.geometry, frontend=None)),
                 device=self.device,
             )
 
