@@ -14,6 +14,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the bit-sliced fabric walk (K2) on the 4-chip envelope, 16
                and 256 words, R=1 and R=3: exact. Times from CUDA events
                at the larger shape.
+               The selection-matmul fabric kernels, dense (B2) and
+               banded (B3), on the same envelope at the served shape
+               (C=4, B=512) and with its TMR rows (12 rows, B=512): the
+               whole (C, B, N) net buffer exact. The BDT kernel (B4) on
+               the paper's chip at B=512 and B=65,536: exact.
   4. serve   — the readout server (ServerConfig() defaults, on cuda) takes
                8 FrameStream batches of 256 events per sensor from 4
                trained chips, hot-swaps chip 0 at batch 4 and flushes;
@@ -22,6 +27,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the featurizer kernel's own features. Repeated with
                redundancy="tmr": 0 disagreements. Launch counters are
                zeroed before and read after each run; both must be > 0.
+  5. §5      — the paper's proof of concept: examples/smartpixel_readout.py's
+               chip (500,000 events, seed 2024, 1 tree of depth 5 with 10
+               leaves, efpga_28nm) checked against its golden BDT with
+               ReadoutChip.verify_vs_golden through KernelBackend on cuda,
+               on every event in 65,536-event chunks: the default layout
+               (banded, B3), then band=False (dense, B2), then bdt_infer
+               (B4) on the same raw features. Every event must match; the
+               counters are zeroed before and read after, and each of B2,
+               B3 and B4 must have launched.
+  6. serve   — phase 4 again with ServerConfig(layout="matmul"), plain and
+     matmul    TMR: every event equal to the oracle, 0 disagreements, the
+               featurizer and the selection-matmul kernel launched.
 Then a `kernels` JSON line, the card's name and power limit, and the
 final line {"ok": true, "device": {...}}.
 """
@@ -34,6 +51,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 # H100 SXM 32-bit integer/logic rate: 64 INT32 lanes per SM against the
 # 128 FP32 lanes (an FMA counted as two operations) of the published
 # 67 TFLOP/s float32 peak, at the same SM count and clock
@@ -47,6 +65,10 @@ RECONFIGURE_AT = 4
 # events per chip in one served dispatch: ServerConfig().max_batch (2048)
 # events over the 4 chips
 SERVED_B = 2048 // N_CHIPS
+# examples/smartpixel_readout.py: events, seed, chunk
+S5_EVENTS = 500_000
+S5_SEED = 2024
+S5_CHUNK = 65_536
 
 
 def emit(phase, **kw):
@@ -156,7 +178,8 @@ def check_k2(torch, np, bs, lut_ops, chips):
     rng = np.random.default_rng(12)
     out = {}
     for red in ("none", "tmr"):
-        stack = lut_ops.pack_fabrics(configs, redundancy=red, device="cuda")
+        stack = lut_ops.pack_fabrics(configs, redundancy=red,
+                                     layout="bitsliced", device="cuda")
         R = stack.n_replicas
         # replica 1 of chip 0 upset, so that the disagreement words are
         # not trivially zero under TMR
@@ -226,16 +249,234 @@ def check_k2(torch, np, bs, lut_ops, chips):
     }
 
 
-def serve(torch, np, chips, swap_chip, blocks, redundancy, yp, bs):
+def check_lut(torch, np, le, lut_ops, chips, band):
+    """B2 (band=False: dense) or B3 (band=None: the 4-chip envelope packs
+    banded) against its twin at the served shape, C=4 and B=SERVED_B, and
+    on the TMR stack's 12 rows: the whole net buffer exact. Times and
+    bound on the 12 rows."""
+    configs = [c.config for c in chips]
+    layout = "dense" if band is False else "banded"
+    name = "lut_eval" if band is False else "lut_eval_banded"
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(13)
+    checked = []
+    for red in ("none", "tmr"):
+        stack = lut_ops.pack_fabrics(configs, band=band, redundancy=red,
+                                     device="cuda")
+        if stack.layout != layout:
+            fail("kernels", f"{name}: the envelope packs {stack.layout}, "
+                            f"not {layout}")
+        rows = stack.tables.shape[0]
+        bits = torch.as_tensor(
+            rng.integers(0, 2, (rows, SERVED_B, stack.n_inputs)),
+            dtype=torch.int32, device="cuda")
+        ext = lut_ops._bits_ext(bits, stack.n_inputs, stack.in_seg)
+        win = stack.win_base if stack.banded else None
+        fn = (le.lut_eval_banded_stacked if stack.banded
+              else le.lut_eval_stacked)
+        got = fn(ext, stack.sel, stack.tables, stack.level_base,
+                 *([win] if stack.banded else []),
+                 n_nets_pad=stack.n_nets_pad)
+        want = le.lut_eval_plain(ext, stack.sel, stack.tables,
+                                 stack.level_base, win,
+                                 n_nets_pad=stack.n_nets_pad)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail("kernels", f"{name} rows={rows}: net buffer differs in "
+                            f"{int((got != want).sum())} places")
+        checked.append(rows)
+    C, B = rows, SERVED_B
+    L, n_rows, M4 = stack.sel.shape[1], stack.sel.shape[2], stack.sel.shape[3]
+    N = stack.n_nets_pad
+    flops = 2 * C * B * L * n_rows * M4
+    # bits in, sel, tables, level_base (and win_base), the buffer out
+    nbytes = (ext.numel() * 4 + stack.sel.numel() * 2
+              + stack.tables.numel() * 4 + L * 4 * (1 if win is None else 2)
+              + C * B * N * 4)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    tile = le.lut_tile(N, M4 // 4, B, C, n_sms)
+    out = torch.empty_like(got)
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lut_eval.cu",
+        "replaces": ("src/repro/kernels/lut_eval/lut_eval.py:86"
+                     if band is False else
+                     "src/repro/kernels/lut_eval/lut_eval.py:167"),
+        "checked_rows": checked, "events": B, "levels": L,
+        "sel_rows": n_rows, "n_nets_pad": N, "tile": tile,
+        "max_abs_err": 0.0,
+        "ms": time_ms(lambda: le._launch(ext, stack.sel, stack.tables,
+                                         stack.level_base, win, out, tile)),
+        "plain_ms": time_ms(lambda: le.lut_eval_plain(
+            ext, stack.sel, stack.tables, stack.level_base, win,
+            n_nets_pad=N), reps=10, inner=1),
+        "library_ms": None,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+
+
+def paper_chip():
+    """examples/smartpixel_readout.py's chip, through the port's copy of
+    the toolchain: (chip, test split, train split)."""
+    from repro_torch.core.bdt import GradientBoostedClassifier
+    from repro_torch.core.readout import ReadoutChip
+    from repro_torch.data.smartpixel import (
+        SmartPixelConfig, generate, train_test_split)
+
+    data = generate(SmartPixelConfig(n_events=S5_EVENTS, seed=S5_SEED))
+    tr, te = train_test_split(data)
+    clf = GradientBoostedClassifier(
+        n_estimators=1, max_depth=5, max_leaf_nodes=10, min_samples_leaf=500
+    ).fit(tr["features"], tr["label"])
+    return ReadoutChip.build(clf, fabric="efpga_28nm"), te, tr
+
+
+def check_bdt(torch, np, bdt, bdt_ops, chip, X):
+    """B4 on the paper chip's golden ensemble against its twin, at B=512
+    and B=S5_CHUNK raw feature rows of X: exact. Times and bound at the
+    larger."""
+    packed = bdt_ops.pack_ensemble(chip.golden, X.shape[1], device="cuda")
+    arrays = (packed.featsel, packed.thr, packed.root_onehot, packed.left,
+              packed.right, packed.value_hi, packed.value_lo)
+    x_raw = chip.golden.quantize_features(X[:S5_CHUNK]).astype(np.int32)
+    for B in (SERVED_B, S5_CHUNK):
+        x = torch.as_tensor(x_raw[:B], device="cuda")
+        got = bdt.bdt_traverse(x, *arrays, depth=packed.depth)
+        want = bdt.bdt_traverse_plain(x, *arrays, depth=packed.depth)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail("kernels", f"bdt_infer B={B}: {int((got != want).sum())} "
+                            "outputs differ from the twin")
+    B, F = x.shape
+    P, depth = packed.featsel.shape[1], packed.depth
+    # multiply-adds per event: feature select, 2 routing products per
+    # step, the two readout products
+    flops = 2 * B * (F * P + depth * 2 * P * P + 2 * P * bdt.OUT_COLS)
+    nbytes = (x.numel() * 4 + sum(a.numel() * 4 for a in arrays)
+              + B * bdt.OUT_COLS * 4)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tile = bdt.bdt_tile(P, B, n_sms)
+    out = torch.empty_like(got)
+    return {
+        "name": "bdt_infer",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bdt_infer.cu",
+        "replaces": "src/repro/kernels/bdt_infer/bdt_infer.py:68",
+        "checked_batches": [SERVED_B, S5_CHUNK], "nodes": P, "depth": depth,
+        "tile": tile, "max_abs_err": 0.0,
+        "ms": time_ms(lambda: bdt._launch(x, *arrays, out, depth, tile)),
+        "plain_ms": time_ms(lambda: bdt.bdt_traverse_plain(
+            x, *arrays, depth=depth), reps=10, inner=1),
+        "library_ms": None,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+
+
+def section5(torch, np, chip, te, tr, counters):
+    """The paper's §5 check on every event: fabric (banded, then dense)
+    and bdt_infer against the golden BDT, with the launch counts of the
+    run."""
+    from repro_torch.core.readout import KernelBackend
+    from repro_torch.kernels.bdt_infer import ops as bdt_ops
+    from repro_torch.kernels.lut_eval import lut_eval as le
+    from repro_torch.kernels.lut_eval import ops as lut_ops
+
+    def chunks():
+        # the example's order: the test split, then the train split
+        for split in (te, tr):
+            for lo in range(0, len(split["features"]), S5_CHUNK):
+                yield split["features"][lo : lo + S5_CHUNK]
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    reset(counters)
+    runs = {}
+    for layout, backend in (("banded", KernelBackend(device="cuda")),
+                            ("dense", KernelBackend(band=False,
+                                                    device="cuda"))):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        n = n_match = 0
+        for X in chunks():
+            v = chip.verify_vs_golden(X, backend=backend)
+            n += int(v["n"])
+            n_match += int(v["n_match"])
+        dt = time.monotonic() - t0
+        packed = backend._packed.get(chip.config)
+        if ("banded" if packed.banded else "dense") != layout:
+            fail("s5", f"KernelBackend packed the chip {layout!r}? "
+                       f"band_k={packed.band_k}, levels={packed.n_levels}")
+        if n != S5_EVENTS or n_match != n:
+            fail("s5", f"{layout}: {n_match} of {n} events match the "
+                       "golden BDT")
+        # the kernel alone on one full chunk of this chip
+        bits = torch.as_tensor(chip.encode_features(next(chunks())),
+                               dtype=torch.int32, device="cuda")
+        ext = lut_ops._bits_ext(bits, packed.n_inputs, packed.in_seg)
+        win = packed.win_base if packed.banded else None
+        out = torch.empty((1, len(bits), packed.n_nets_pad),
+                          dtype=torch.float32, device="cuda")
+        tile = le.lut_tile(packed.n_nets_pad, packed.m_pad, len(bits), 1,
+                           n_sms)
+        runs[layout] = {
+            "events": n, "n_match": n_match, "seconds": dt,
+            "events_per_s": n / dt, "sel_rows": packed.sel.shape[1],
+            "band_k": packed.band_k, "tile": tile,
+            "chunk_kernel_ms": time_ms(lambda: le._launch(
+                ext[None], packed.sel[None], packed.tables[None],
+                packed.level_base, win, out, tile), reps=10, inner=2),
+        }
+    packed = bdt_ops.pack_ensemble(chip.golden, 14, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    n = n_match = 0
+    for X in chunks():
+        x_raw = chip.golden.quantize_features(X)
+        got = bdt_ops.bdt_infer(packed, x_raw).cpu().numpy()
+        n += len(X)
+        n_match += int((got == chip.golden.decision_function_raw(x_raw)).sum())
+    dt = time.monotonic() - t0
+    if n != S5_EVENTS or n_match != n:
+        fail("s5", f"bdt_infer: {n_match} of {n} events match the golden "
+                   "BDT")
+    runs["bdt_infer"] = {"events": n, "n_match": n_match, "seconds": dt,
+                         "events_per_s": n / dt}
+    launches = read(counters)
+    for k in ("lut_eval", "lut_eval_banded", "bdt_infer"):
+        if launches[k] <= 0:
+            fail("s5", f"kernel {k} never launched")
+    return runs, launches
+
+
+def reset(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read(counters):
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def serve(torch, np, chips, swap_chip, blocks, redundancy, yp, counters,
+          layout=None):
     """One server run over the pre-generated blocks; returns its results
     checked against the oracle, with the launch counts of the run."""
     from repro_torch.core.fabric import FabricSim
     from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
 
-    server = ReadoutServer(list(chips), ServerConfig(redundancy=redundancy),
-                           device="cuda")
-    yp.yprofile_traced.launches = 0
-    bs.eval_seg_voted.launches = 0
+    server = ReadoutServer(
+        list(chips), ServerConfig(redundancy=redundancy, layout=layout),
+        device="cuda")
+    # the fabric kernel this server's stack runs
+    fabric = {"bitsliced": "eval_words_voted", "banded": "lut_eval_banded",
+              "dense": "lut_eval"}[server._stack.layout]
+    phase = "serve" if layout is None else "serve_matmul"
+    reset(counters)
     where = {}                       # seq -> (step, sensor, row)
     results = []
     for step in range(SERVE_BATCHES):
@@ -249,13 +490,12 @@ def serve(torch, np, chips, swap_chip, blocks, redundancy, yp, bs):
             results += server.poll()
     results += server.flush()
     torch.cuda.synchronize()
-    launches = {"yprofile": yp.yprofile_traced.launches,
-                "eval_words_voted": bs.eval_seg_voted.launches}
+    launches = read(counters)
     rep = server.report()
 
     seqs = [r.seq for r in results]
     if sorted(seqs) != sorted(where) or len(set(seqs)) != len(seqs):
-        fail("serve", f"{redundancy}: drained {len(seqs)} results for "
+        fail(phase, f"{redundancy}: drained {len(seqs)} results for "
                       f"{len(where)} submitted events (or duplicates)")
     got = {r.seq: (r.score_raw, r.keep) for r in results}
     mism = 0
@@ -275,14 +515,15 @@ def serve(torch, np, chips, swap_chip, blocks, redundancy, yp, bs):
                 if got[seq_of[row]] != (int(score[row]), bool(keep[row])):
                     mism += 1
     if mism:
-        fail("serve", f"{redundancy}: {mism} events differ from the oracle")
+        fail(phase, f"{redundancy}: {mism} events differ from the oracle")
     if rep["seu_disagreement_total"]:
-        fail("serve", f"{redundancy}: {rep['seu_disagreement_total']} "
-                      "replica disagreements on a healthy stack")
-    for k, n in launches.items():
-        if n <= 0:
-            fail("serve", f"{redundancy}: kernel {k} never launched")
-    return {"redundancy": redundancy, "events": len(results),
+        fail(phase, f"{redundancy}: {rep['seu_disagreement_total']} "
+                    "replica disagreements on a healthy stack")
+    for k in ("yprofile", fabric):
+        if launches[k] <= 0:
+            fail(phase, f"{redundancy}: kernel {k} never launched")
+    return {"layout": rep["layout"], "stack": server._stack.layout,
+            "redundancy": redundancy, "events": len(results),
             "oracle_mismatches": mism,
             "disagreements": rep["seu_disagreement_total"],
             "launches": launches, "events_per_s": rep["events_per_s"],
@@ -305,9 +546,19 @@ def main():
 
     from repro_torch.data.pipeline import FrameStream, FrameStreamConfig
     from repro_torch.kernels import build
+    from repro_torch.kernels.bdt_infer import bdt_infer as bdt
+    from repro_torch.kernels.bdt_infer import ops as bdt_ops
     from repro_torch.kernels.lut_eval import bitsliced as bs
+    from repro_torch.kernels.lut_eval import lut_eval as le
     from repro_torch.kernels.lut_eval import ops as lut_ops
     from repro_torch.kernels.yprofile import ops as yp
+
+    # each kernel wrapper's launch counter, by the kernel's name
+    counters = {"yprofile": yp.yprofile_traced,
+                "eval_words_voted": bs.eval_seg_voted,
+                "lut_eval": le.lut_eval_stacked,
+                "lut_eval_banded": le.lut_eval_banded_stacked,
+                "bdt_infer": bdt.bdt_traverse}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -332,14 +583,25 @@ def main():
     chips = [train_chip(2024 + i, depth=5 - (i % 2), leaves=10 - (i % 3))
              for i in range(N_CHIPS)]
     swap_chip = train_chip(31, depth=4, leaves=8)
+    s5_chip, te, tr = paper_chip()
+    c5 = s5_chip.config
     emit("train", ok=True, seconds=time.monotonic() - t0,
          luts=[c.config.n_luts for c in chips],
-         levels=[len(c.config.level_sizes) for c in chips])
+         levels=[len(c.config.level_sizes) for c in chips],
+         s5_chip={"luts": c5.n_luts, "levels": len(c5.level_sizes),
+                  "fanin_reach": c5.fanin_reach(), "inputs": c5.n_inputs,
+                  "outputs": len(c5.output_nets)})
 
     k1 = check_k1(torch, yp)
     emit("kernel_yprofile", ok=True, **k1)
     k2 = check_k2(torch, np, bs, lut_ops, chips)
     emit("kernel_eval_words_voted", ok=True, **k2)
+    b2 = check_lut(torch, np, le, lut_ops, chips, band=False)
+    emit("kernel_lut_eval", ok=True, **b2)
+    b3 = check_lut(torch, np, le, lut_ops, chips, band=None)
+    emit("kernel_lut_eval_banded", ok=True, **b3)
+    b4 = check_bdt(torch, np, bdt, bdt_ops, s5_chip, te["features"])
+    emit("kernel_bdt_infer", ok=True, **b4)
 
     stream = FrameStream(FrameStreamConfig(n_sensors=N_CHIPS,
                                            batch=SERVE_EVENTS))
@@ -347,17 +609,33 @@ def main():
               for step in range(SERVE_BATCHES)]
     runs = {}
     for red in ("none", "tmr"):
-        runs[red] = serve(torch, np, chips, swap_chip, blocks, red, yp, bs)
+        runs[red] = serve(torch, np, chips, swap_chip, blocks, red, yp,
+                          counters)
         emit("serve", ok=True, card=card, **runs[red])
 
+    t0 = time.monotonic()
+    s5_runs, s5_launches = section5(torch, np, s5_chip, te, tr, counters)
+    emit("s5", ok=True, card=card, seconds=time.monotonic() - t0,
+         launches=s5_launches, **s5_runs)
+
+    for red in ("none", "tmr"):
+        run = serve(torch, np, chips, swap_chip, blocks, red, yp, counters,
+                    layout="matmul")
+        emit("serve_matmul", ok=True, card=card, **run)
+
     kernels = []
-    # K2's row carries the times of its R=3 (TMR) run
-    for k, t, key in ((k1, k1, "yprofile"),
-                      (k2, k2["runs"]["R3"], "eval_words_voted")):
+    # K2's row carries the times of its R=3 (TMR) run; K1 and K2 count
+    # their launches in the served stream, B2-B4 in the §5 check
+    for k, t, n in ((k1, k1, runs["none"]["launches"]["yprofile"]),
+                    (k2, k2["runs"]["R3"],
+                     runs["none"]["launches"]["eval_words_voted"]),
+                    (b2, b2, s5_launches["lut_eval"]),
+                    (b3, b3, s5_launches["lut_eval_banded"]),
+                    (b4, b4, s5_launches["bdt_infer"])):
         kernels.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
-            "launches": runs["none"]["launches"][key],
+            "launches": n,
             "max_abs_err": k["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -6,8 +6,10 @@ plain dicts together with the stack's static ints; this module builds the
 port's stack and plan from them on a given device. It imports nothing of
 the JAX package: the dicts are the whole interface.
 
-Only the bit-sliced layout exists in the port, so a stack whose ``sel``
-field is set (the matmul layout) is refused with NotPortedError.
+A matmul stack carries ``sel`` and a bit-sliced one ``src``; the other is
+None. ``np.asarray`` of a JAX bf16 array is an ``ml_dtypes`` bfloat16
+array, which torch does not take, so ``sel`` goes through float32 (exact
+for its 0/1 entries) to torch.bfloat16.
 """
 from __future__ import annotations
 
@@ -16,13 +18,12 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from repro_torch.device import NotPortedError, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.kernels.frontend import _PLAN_KEYS
-from repro_torch.kernels.lut_eval.ops import MATMUL_NOT_PORTED, PackedFabricStack
+from repro_torch.kernels.lut_eval.ops import PackedFabricStack
 
-_STACK_ARRAYS = {"src": torch.int32, "tables": torch.float32,
-                 "level_base": torch.int32, "output_nets": torch.int32,
-                 "win_base": torch.int32}
+_STACK_ARRAYS = {"tables": torch.float32, "level_base": torch.int32,
+                 "output_nets": torch.int32, "win_base": torch.int32}
 _STACK_STATICS = ("n_inputs", "n_outputs", "n_nets_pad", "m_pad",
                   "n_levels", "in_seg", "band_k", "n_replicas")
 
@@ -31,13 +32,19 @@ def stack_from_numpy(fields: Mapping[str, object], device=None
                      ) -> PackedFabricStack:
     """{array field: np.ndarray, static field: int | tuple} -> the port's
     PackedFabricStack on ``device`` (default: CUDA)."""
-    if fields.get("sel") is not None:
-        raise NotPortedError(MATMUL_NOT_PORTED)
-    if fields.get("src") is None:
-        raise ValueError("stack fields carry no 'src': not a bit-sliced stack")
+    sel, src = fields.get("sel"), fields.get("src")
+    if (sel is None) == (src is None):
+        raise ValueError("stack fields must carry exactly one of 'sel' "
+                         "(matmul layout) and 'src' (bit-sliced layout)")
     dev = resolve_device(device)
     arrays = {k: torch.as_tensor(np.array(fields[k]), dtype=dt, device=dev)
               for k, dt in _STACK_ARRAYS.items()}
+    if sel is not None:
+        arrays["sel"] = torch.as_tensor(
+            np.asarray(sel, np.float32)).to(dev, torch.bfloat16)
+    else:
+        arrays["src"] = torch.as_tensor(np.array(src), dtype=torch.int32,
+                                        device=dev)
     statics = {k: int(fields[k]) for k in _STACK_STATICS}
     return PackedFabricStack(
         **arrays, **statics,

@@ -5,9 +5,9 @@
 
 ``ReadoutChip``, ``ScoringBackend`` and ``HostBackend`` are copies of the
 JAX package's core/readout.py (numpy; the staged frames path featurizes
-with this port's yprofile). ``KernelBackend`` runs the bit-sliced fabric
-evaluator and the fused frontend on a torch device (CUDA by default);
-only ``layout="bitsliced"`` is ported.
+with this port's yprofile). ``KernelBackend`` runs the fabric kernels
+(selection matmul by default, or bit-sliced) and the fused frontend on a
+torch device (CUDA by default).
 """
 from __future__ import annotations
 
@@ -127,16 +127,20 @@ class HostBackend(ScoringBackend):
 
 
 class KernelBackend(ScoringBackend):
-    """The bit-sliced fabric evaluator and the fused frontend on a torch
-    device (None = CUDA). ``band`` is the fan-in-reach envelope used when
-    packing; ``layout="matmul"`` (the selection-matmul kernels) is not
-    ported and raises NotPortedError.
+    """The fabric kernels and the fused frontend on a torch device (None =
+    CUDA).
+
+    ``layout="matmul"`` (default, as in the reference) evaluates through
+    the selection-matmul kernels; ``band`` picks their routing layout when
+    packing: None bands it whenever the config's fan-in reach makes that
+    cheaper, True/False force it. ``layout="bitsliced"`` runs the
+    32-events-per-word evaluator, where the band is a reach envelope.
     """
 
     name = "kernel"
 
     def __init__(self, batch_tile: int = 128, band: Optional[bool] = None,
-                 layout: str = "bitsliced", device=None):
+                 layout: str = "matmul", device=None):
         from repro_torch.kernels.lut_eval import ops as lut_ops
 
         lut_ops._check_layout(layout)
@@ -146,24 +150,19 @@ class KernelBackend(ScoringBackend):
         self.device = device
 
         def build(config):
-            return lut_ops.pack_fabrics([config], band=self.band,
-                                        layout=self.layout,
-                                        device=self.device)
+            return lut_ops.pack_fabric(config, band=self.band,
+                                       layout=self.layout,
+                                       device=self.device)
 
         self._packed = _ConfigCache(build)
         self._frontends = _ConfigCache(None)
 
     def score_bits(self, config: FabricConfig, bits: np.ndarray) -> np.ndarray:
-        import torch
-
         from repro_torch.kernels.lut_eval import ops as lut_ops
 
-        stack = self._packed.get(config)
-        b = torch.as_tensor(np.asarray(bits, np.int32), device=stack.device)
-        outs, _ = lut_ops.fabric_eval_bits_voted(
-            stack.src, stack.tables, stack.output_nets, b[None],
-            n_replicas=1, n_inputs=stack.n_inputs, in_seg=stack.in_seg)
-        return outs[0].cpu().numpy()
+        return lut_ops.fabric_eval(
+            self._packed.get(config), bits, batch_tile=self.batch_tile
+        ).cpu().numpy()
 
     def score_frames(
         self,

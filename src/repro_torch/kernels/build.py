@@ -36,8 +36,13 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 PROTOTYPES = {
     "yprofile": ("yprofile_launch", (_P, _P, _P, _LL, _F, _P)),
     "bitsliced": ("eval_words_voted_launch", (_P,) * 6 + (_I,) * 8 + (_P,)),
+    "lut_eval": ("lut_eval_launch", (_P,) * 6 + (_I,) * 8 + (_P,)),
+    "bdt_infer": ("bdt_infer_launch", (_P,) * 9 + (_I,) * 5 + (_P,)),
 }
 KERNELS = tuple(PROTOTYPES)
+
+# the device limit on dynamic shared memory per block (H100: 227 KB)
+SMEM_LIMIT_BYTES = 232448
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -120,6 +125,13 @@ def load(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def aligned(x):
+    """``x`` contiguous and 16-byte aligned, as the kernels' vector loads
+    need (a copy only when it is not)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -4,7 +4,9 @@
       -> yprofile                 (CUDA kernel, kernels/yprofile)
       -> ap_fixed quantize        (core/quantize device path, int32)
       -> offset-binary bit gather (per-chip encode plan, below)
-      -> bit-sliced fabric walk   (CUDA kernel with the TMR vote folded in)
+      -> fabric evaluation        (selection-matmul kernel + TMR vote, or
+                                   the bit-sliced kernel with the vote
+                                   folded in)
       -> score decode + keep/drop (two's-complement weights, int32 cut)
 
 No stage materializes on the host: the feature tensor, the bit tensor and
@@ -159,9 +161,10 @@ def score_features(
     bool, disagree counts (C, R) int32)."""
     bits = encode_bits(feats, plan)
     outs, disagree = lut_ops.fabric_eval_bits_voted(
-        stack.src, stack.tables, stack.output_nets, bits,
-        n_replicas=stack.n_replicas, n_inputs=stack.n_inputs,
-        in_seg=stack.in_seg)
+        stack.sel, stack.tables, stack.level_base, stack.win_base,
+        stack.output_nets, bits, n_replicas=stack.n_replicas,
+        n_inputs=stack.n_inputs, n_nets_pad=stack.n_nets_pad,
+        in_seg=stack.in_seg, src=stack.src)
     return lut_ops.decode_scores_device(
         outs, disagree, plan["out_weight"], plan["threshold_raw"], valid)
 
@@ -303,7 +306,7 @@ def pack_frontend(
     *,
     band: Optional[bool] = None,
     redundancy: str = "none",
-    layout: str = "bitsliced",
+    layout: str = "matmul",
     batch_tile: int = 128,
     threshold_electrons: float = 800.0,
     stack: Optional[lut_ops.PackedFabricStack] = None,
@@ -313,7 +316,7 @@ def pack_frontend(
     ``device`` (default: CUDA).
 
     ``band``/``layout``/``redundancy`` feed the fabric stage as in
-    ``pack_fabrics`` (only layout="bitsliced" is ported).
+    ``pack_fabrics``.
     ``batch_tile`` pads each dispatch's batch to a multiple of it. A caller
     that already packed the configs shares them via ``stack``.
     """

@@ -37,8 +37,6 @@ from repro_torch.core.tmr import N_REPLICAS, majority_vote_words
 from repro_torch.kernels import build
 
 WORD = 32
-# the device limit on dynamic shared memory per block (H100: 227 KB)
-SMEM_LIMIT_BYTES = 232448
 MAX_TILE = 32
 
 
@@ -150,19 +148,14 @@ def word_tile(n_replicas: int, n_nets: int, n_words: int, n_chips: int = 1,
     shared memory, at most MAX_TILE, and no more than leaves every one of
     ``n_sms`` SMs a block of the ``n_chips`` x ``n_words`` grid."""
     per_word = n_replicas * n_nets * 4
-    fit = SMEM_LIMIT_BYTES // per_word
+    fit = build.SMEM_LIMIT_BYTES // per_word
     if fit < 1:
         raise ValueError(
             f"one word's net buffer ({n_replicas} replicas x {n_nets} nets "
-            f"x 4 B = {per_word} B) exceeds {SMEM_LIMIT_BYTES} B of shared "
-            "memory")
+            f"x 4 B = {per_word} B) exceeds {build.SMEM_LIMIT_BYTES} B of "
+            "shared memory")
     spread = -(-n_chips * n_words // n_sms)
     return max(1, min(fit, MAX_TILE, n_words, spread))
-
-
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _launch(src, tables, output_nets, seg, voted, dis, R, tile) -> None:
@@ -207,7 +200,7 @@ def eval_seg_voted(
     L, M, O = src.shape[1], src.shape[2], output_nets.shape[1]
     n_sms = torch.cuda.get_device_properties(seg.device).multi_processor_count
     tile = word_tile(R, in_seg + L * M, W, C, n_sms)
-    src, tables = _aligned(src), _aligned(tables)
+    src, tables = build.aligned(src), build.aligned(tables)
     output_nets, seg = output_nets.contiguous(), seg.contiguous()
     voted = torch.empty((C, W, O), dtype=torch.int32, device=seg.device)
     dis = torch.empty((C, R, W), dtype=torch.int32, device=seg.device)

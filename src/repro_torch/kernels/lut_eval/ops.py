@@ -1,24 +1,38 @@
-"""Packing + serving entry points of the bit-sliced fabric evaluator.
+"""Packing + serving entry points of the fabric evaluators (torch port).
 
-The bit-sliced half of the JAX package's kernels/lut_eval/ops.py:
-``pack_fabrics`` stacks N decoded bitstreams into one ``PackedFabricStack``
+The JAX package's kernels/lut_eval/ops.py, both device layouts:
+
+* ``layout="matmul"`` (the default, as in the reference): the one-hot
+  selection tensor ``sel`` routes every level through a selection product
+  (lut_eval.py, dense or banded, csrc/lut_eval.cu on the card);
+* ``layout="bitsliced"``: compact ``src`` gather indices, 32 events per
+  word (bitsliced.py, csrc/bitsliced.cu on the card).
+
+``pack_fabric`` packs one decoded bitstream into a ``PackedFabric`` and
+``fabric_eval`` evaluates a batch of events on it (the §5 path of
+``ReadoutChip.verify_vs_golden`` through ``KernelBackend``).
+``pack_fabrics`` stacks N bitstreams into one ``PackedFabricStack``
 sharing a padded geometry (the chip axis is the leading tensor dimension
 on one device), ``swap_chip`` hot-swaps one chip's rows, and
 ``fabric_eval_bits_voted`` + ``decode_scores_device`` are the fabric and
 decode stages of the fused frontend.
 
-The matmul layout (the Pallas selection-matmul kernels, dense and banded)
-is not ported yet: ``layout="matmul"`` raises ``NotPortedError``.
+Routing is packed *banded* whenever it is cheaper: level l's selection
+rows cover only [input segment | window of the K preceding levels], K the
+fan-in reach, and the dense layout is the fallback when K >= L. For the
+bit-sliced layout the band is a pure reach envelope validated at pack and
+swap time.
 
 Redundancy: ``pack_fabrics(..., redundancy="tmr")`` packs three
 placement-distinct replica encodings of every chip (core.tmr.
-replicate_config) as contiguous rows ``slot*3 .. slot*3+2``; the vote runs
-inside the bit-sliced kernel.
+replicate_config) as contiguous rows ``slot*3 .. slot*3+2``; the matmul
+layout evaluates every row and votes in torch ops, the bit-sliced kernel
+votes inside the launch.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,17 +43,72 @@ from repro_torch.core.fabric import (
     check_stackable,
     packed_table_image,
 )
-from repro_torch.core.tmr import N_REPLICAS, replicate_config
-from repro_torch.device import NotPortedError, resolve_device
+from repro_torch.core.tmr import N_REPLICAS, majority_vote, replicate_config
+from repro_torch.device import resolve_device
 from repro_torch.kernels.lut_eval import bitsliced as _bitsliced
+from repro_torch.kernels.lut_eval.lut_eval import (
+    lut_eval,
+    lut_eval_banded,
+    lut_eval_banded_stacked,
+    lut_eval_stacked,
+)
 
-MATMUL_NOT_PORTED = (
-    "layout='matmul' (the Pallas selection-matmul lut_eval kernels) is not "
-    "ported yet: ROADMAP queue B, items B2/B3")
+LAYOUTS = ("matmul", "bitsliced")
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def _check_no_ffs(c: FabricConfig) -> None:
+    if c.n_ffs:
+        raise ValueError(
+            "lut_eval kernel handles combinational modules (the readout "
+            "classifier); sequential firmware uses core.fabric.FabricSim"
+        )
+
+
+def _sel_tensor(sel: np.ndarray, device) -> torch.Tensor:
+    """0/1 float32 selection -> bf16 on ``device`` (exact for 0/1)."""
+    return torch.as_tensor(sel, dtype=torch.float32).to(
+        device=device, dtype=torch.bfloat16)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedFabric:
+    """Device-tensor form of one decoded bitstream.
+
+    ``band_k`` < ``n_levels`` means the selection tensor is banded: ``sel``
+    has ``in_seg + band_k*m_pad`` rows per level and ``win_base[l]`` is the
+    window's read offset into the full net buffer. ``layout="bitsliced"``
+    replaces ``sel`` (then None) with the compact ``src`` gather indices.
+    ``tables`` is the same scrub-loop image in both layouts.
+    """
+
+    sel: Optional[torch.Tensor]   # (L, n_rows, 4*M) bf16 0/1
+    tables: torch.Tensor          # (L, M, 16) f32
+    level_base: torch.Tensor      # (L,) int32
+    output_nets: torch.Tensor     # (n_outputs,) int32 (padded layout)
+    win_base: torch.Tensor        # (L,) int32 — banded window read offsets
+    n_inputs: int
+    n_nets_pad: int
+    m_pad: int
+    n_levels: int
+    in_seg: int
+    band_k: int
+    src: Optional[torch.Tensor] = None   # (L, M, 4) int32 — bitsliced only
+
+    @property
+    def banded(self) -> bool:
+        return self.band_k < self.n_levels
+
+    @property
+    def bitsliced(self) -> bool:
+        return self.src is not None
+
+    @property
+    def device(self) -> torch.device:
+        return self.tables.device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,10 +119,10 @@ class PackedFabricStack:
     zero-padded and ``output_nets`` is padded with net 0 (const0). With
     ``n_replicas`` > 1 the leading axis holds the replica rows of each
     logical chip contiguously (chip ``c`` -> rows ``c*R .. c*R+R-1``); the
-    width tuples stay per logical chip.
+    width tuples stay per logical chip. Exactly one of ``sel`` (matmul
+    layout) and ``src`` (bit-sliced layout) is set.
     """
 
-    src: torch.Tensor          # (R*C, L, M, 4) int32
     tables: torch.Tensor       # (R*C, L, M, 16) f32
     level_base: torch.Tensor   # (L,) int32 — shared
     output_nets: torch.Tensor  # (R*C, n_outputs_max) int32
@@ -68,6 +137,8 @@ class PackedFabricStack:
     in_seg: int
     band_k: int
     n_replicas: int = 1
+    sel: Optional[torch.Tensor] = None   # (R*C, L, n_rows, 4*M) bf16 0/1
+    src: Optional[torch.Tensor] = None   # (R*C, L, M, 4) int32
 
     @property
     def n_chips(self) -> int:
@@ -81,6 +152,17 @@ class PackedFabricStack:
     @property
     def banded(self) -> bool:
         return self.band_k < self.n_levels
+
+    @property
+    def bitsliced(self) -> bool:
+        return self.src is not None
+
+    @property
+    def layout(self) -> str:
+        """'bitsliced', 'banded' or 'dense' — how this stack evaluates."""
+        if self.bitsliced:
+            return "bitsliced"
+        return "banded" if self.banded else "dense"
 
     def _envelope(self) -> StackGeometry:
         return StackGeometry(
@@ -108,33 +190,34 @@ class PackedFabricStack:
         redundant stack all replica rows are re-encoded."""
         self._check_admits(config)
         R = self.n_replicas
+        pack_one = _pack_arrays_bitsliced if self.bitsliced else _pack_arrays
         packed = [
-            _pack_arrays_bitsliced(
-                replicate_config(config, r) if R > 1 else config,
-                self.n_levels, self.m_pad, self.in_seg, self.n_outputs,
-                band_k=self.band_k if self.banded else None)
+            pack_one(replicate_config(config, r) if R > 1 else config,
+                     self.n_levels, self.m_pad, self.in_seg, self.n_outputs,
+                     band_k=self.band_k if self.banded else None)
             for r in range(R)
         ]
         lo = slot * R
 
-        def rows(old: torch.Tensor, k: int, dtype) -> torch.Tensor:
+        def rows(old: torch.Tensor, k: int) -> torch.Tensor:
             new = old.clone()
             new[lo : lo + R] = torch.as_tensor(
-                np.stack([p[k] for p in packed]), dtype=dtype,
-                device=old.device)
+                np.stack([p[k] for p in packed])).to(old.device, old.dtype)
             return new
 
+        routing = (dict(src=rows(self.src, 0)) if self.bitsliced
+                   else dict(sel=rows(self.sel, 0)))
         each_in = list(self.n_inputs_each)
         each_out = list(self.n_outputs_each)
         each_in[slot] = config.n_inputs
         each_out[slot] = len(config.output_nets)
         return dataclasses.replace(
             self,
-            src=rows(self.src, 0, torch.int32),
-            tables=rows(self.tables, 1, torch.float32),
-            output_nets=rows(self.output_nets, 2, torch.int32),
+            tables=rows(self.tables, 1),
+            output_nets=rows(self.output_nets, 2),
             n_inputs_each=tuple(each_in),
             n_outputs_each=tuple(each_out),
+            **routing,
         )
 
 
@@ -169,6 +252,51 @@ def _net_layout(
     return remap, lut_level, pos
 
 
+def _pack_arrays(
+    c: FabricConfig,
+    L: int,
+    m_pad: int,
+    in_seg: int,
+    n_out_pad: int,
+    band_k: int | None = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pack one config into the matmul (L, m_pad, in_seg) geometry.
+
+    band_k=None packs the dense layout: sel rows are the full padded net
+    space. With band_k=K, sel rows are [input segment | K-level window]
+    and every level source row is shifted by its consumer level's window
+    start max(0, l-K)*m_pad.
+
+    Returns (sel (L, n_rows, 4*M) f32 0/1, tables (L, M, 16) f32 — the
+    scrub-loop image —, output_nets (n_out_pad,) int32, const0-padded).
+    """
+    _check_no_ffs(c)
+    assert len(c.level_sizes) <= L
+    assert max(c.level_sizes, default=1) <= m_pad
+    assert 2 + c.n_inputs <= in_seg
+    K = L if band_k is None else min(band_k, L)
+    n_rows = in_seg + K * m_pad
+    remap, lut_level, pos = _net_layout(c, m_pad, in_seg)
+    sel = np.zeros((L, n_rows, 4 * m_pad), np.float32)
+    tables = packed_table_image(c, L, m_pad).astype(np.float32)
+    if c.n_luts:
+        src = remap[c.lut_inputs]                  # (n_luts, 4) dense rows
+        shift = np.maximum(lut_level - K, 0) * m_pad
+        rows = np.where(src >= in_seg, src - shift[:, None], src)
+        if band_k is not None:
+            bad = (src >= in_seg) & ((rows < in_seg) | (rows >= n_rows))
+            if bad.any():
+                raise ValueError(
+                    f"fan-in reach exceeds band: K={K} but a LUT reads "
+                    f"{int(bad.sum())} net(s) from outside its window"
+                )
+        cols = np.arange(4)[None, :] * m_pad + pos[:, None]
+        sel[lut_level[:, None], rows, cols] = 1.0
+    out_nets = np.zeros(n_out_pad, np.int64)  # pad with net 0 == const0
+    out_nets[: len(c.output_nets)] = remap[c.output_nets]
+    return sel, tables, out_nets.astype(np.int32)
+
+
 def _pack_arrays_bitsliced(
     c: FabricConfig,
     L: int,
@@ -185,11 +313,7 @@ def _pack_arrays_bitsliced(
     int32). ``band_k=K`` enforces the fan-in-reach envelope: a LUT at
     level l may only read nets from levels [l-K, l).
     """
-    if c.n_ffs:
-        raise ValueError(
-            "lut_eval kernel handles combinational modules (the readout "
-            "classifier); sequential firmware uses core.fabric.FabricSim"
-        )
+    _check_no_ffs(c)
     assert len(c.level_sizes) <= L
     assert max(c.level_sizes, default=1) <= m_pad
     assert 2 + c.n_inputs <= in_seg
@@ -214,9 +338,7 @@ def _pack_arrays_bitsliced(
 
 
 def _check_layout(layout: str) -> None:
-    if layout == "matmul":
-        raise NotPortedError(MATMUL_NOT_PORTED)
-    if layout != "bitsliced":
+    if layout not in LAYOUTS:
         raise ValueError(
             f"unknown layout {layout!r} (expected 'matmul' or 'bitsliced')")
 
@@ -230,21 +352,66 @@ def _band_choice(reach: int, L: int, band: bool | None) -> int:
     return K if (band and K < L) else L
 
 
+def pack_fabric(
+    config: FabricConfig,
+    band: bool | None = None,
+    layout: str = "matmul",
+    *,
+    device=None,
+) -> PackedFabric:
+    """Pack one decoded bitstream on ``device`` (default: CUDA). band=None
+    bands the selection tensor when the config's fan-in reach is narrower
+    than its depth; band=False forces the dense layout. For
+    layout="bitsliced" the band is a pure reach budget."""
+    _check_layout(layout)
+    _check_no_ffs(config)
+    dev = resolve_device(device)
+    c = config
+    L = max(len(c.level_sizes), 1)
+    m_pad = _round_up(max(c.level_sizes, default=1), 128)
+    in_seg = _round_up(2 + c.n_inputs, 128)
+    band_k = _band_choice(c.fanin_reach(), L, band)
+    bitsliced = layout == "bitsliced"
+    pack_one = _pack_arrays_bitsliced if bitsliced else _pack_arrays
+    routing, tables, out_nets = pack_one(
+        c, L, m_pad, in_seg, len(c.output_nets),
+        band_k=band_k if band_k < L else None)
+    return PackedFabric(
+        sel=None if bitsliced else _sel_tensor(routing, dev),
+        src=torch.as_tensor(routing, device=dev) if bitsliced else None,
+        tables=torch.as_tensor(tables, device=dev),
+        level_base=torch.as_tensor(
+            [in_seg + l * m_pad for l in range(L)], dtype=torch.int32,
+            device=dev),
+        output_nets=torch.as_tensor(out_nets, device=dev),
+        win_base=torch.as_tensor(_win_base(L, band_k, m_pad, in_seg),
+                                 device=dev),
+        n_inputs=c.n_inputs,
+        n_nets_pad=in_seg + L * m_pad,
+        m_pad=m_pad,
+        n_levels=L,
+        in_seg=in_seg,
+        band_k=band_k,
+    )
+
+
 def pack_fabrics(
     configs: Sequence[FabricConfig],
     band: bool | None = None,
     redundancy: str = "none",
-    layout: str = "bitsliced",
+    layout: str = "matmul",
     *,
     device=None,
 ) -> PackedFabricStack:
     """Stack N decoded bitstreams into one chip-batched structure on
     ``device`` (default: CUDA).
 
-    The shared geometry is the union envelope over all configs. The band
-    is a fan-in-reach envelope validated at pack and swap time; the word
-    evaluator itself has no routing window. ``redundancy="tmr"`` packs
+    The shared geometry is the union envelope over all configs, and the
+    band is shared too: K = the widest fan-in reach of the stack (dense
+    when the window would span every level). ``redundancy="tmr"`` packs
     three replica encodings of every chip as contiguous rows.
+    ``layout="bitsliced"`` packs the word layout's gather indices instead
+    of the selection tensor.
     """
     if redundancy not in ("none", "tmr"):
         raise ValueError(
@@ -256,60 +423,179 @@ def pack_fabrics(
     L = geo.n_levels
     m_pad = _round_up(geo.max_level_size, 128)
     in_seg = _round_up(2 + geo.n_inputs, 128)
-    n_pad = in_seg + L * m_pad
     band_k = _band_choice(geo.fanin_reach or L, L, band)
+    bitsliced = layout == "bitsliced"
+    pack_one = _pack_arrays_bitsliced if bitsliced else _pack_arrays
 
     slot_configs = [
         replicate_config(c, r) for c in configs for r in range(n_replicas)
     ] if n_replicas > 1 else list(configs)
     packed = [
-        _pack_arrays_bitsliced(c, L, m_pad, in_seg, geo.n_outputs,
-                               band_k=band_k if band_k < L else None)
+        pack_one(c, L, m_pad, in_seg, geo.n_outputs,
+                 band_k=band_k if band_k < L else None)
         for c in slot_configs
     ]
 
-    def stack(k: int, dtype) -> torch.Tensor:
-        return torch.as_tensor(np.stack([p[k] for p in packed]), dtype=dtype,
-                               device=dev)
+    def stack(k: int) -> torch.Tensor:
+        return torch.as_tensor(np.stack([p[k] for p in packed]), device=dev)
 
+    if bitsliced:
+        routing = dict(src=stack(0))
+    else:   # one slot at a time to bf16: no float32 copy of the whole stack
+        routing = dict(sel=torch.stack([_sel_tensor(p[0], dev)
+                                        for p in packed]))
     return PackedFabricStack(
-        src=stack(0, torch.int32),
-        tables=stack(1, torch.float32),
+        tables=stack(1),
         level_base=torch.as_tensor(
             [in_seg + l * m_pad for l in range(L)], dtype=torch.int32,
             device=dev),
-        output_nets=stack(2, torch.int32),
+        output_nets=stack(2),
         win_base=torch.as_tensor(_win_base(L, band_k, m_pad, in_seg),
                                  device=dev),
         n_inputs=geo.n_inputs,
         n_outputs=geo.n_outputs,
         n_inputs_each=tuple(c.n_inputs for c in configs),
         n_outputs_each=tuple(len(c.output_nets) for c in configs),
-        n_nets_pad=n_pad,
+        n_nets_pad=in_seg + L * m_pad,
         m_pad=m_pad,
         n_levels=L,
         in_seg=in_seg,
         band_k=band_k,
         n_replicas=n_replicas,
+        **routing,
     )
 
 
-def fabric_eval_bits_voted(
-    src: torch.Tensor,
+def _bits_ext(bits: torch.Tensor, n_inputs: int, in_seg: int) -> torch.Tensor:
+    """(..., B, n_inputs) 0/1 -> (..., B, in_seg) f32 input segment
+    [const0, const1, inputs, 0-pad]."""
+    ext = torch.zeros(bits.shape[:-1] + (in_seg,), dtype=torch.float32,
+                      device=bits.device)
+    ext[..., 1] = 1.0
+    ext[..., 2 : 2 + n_inputs] = bits[..., :n_inputs].to(torch.float32)
+    return ext
+
+
+def _eval_packed(packed: PackedFabric, bits: torch.Tensor) -> torch.Tensor:
+    """(B, n_inputs) device bits -> (B, n_outputs) uint8 on one fabric."""
+    if packed.bitsliced:
+        return _bitsliced.eval_bits(
+            packed.src[None], packed.tables[None], packed.output_nets[None],
+            bits[None], n_inputs=packed.n_inputs, in_seg=packed.in_seg)[0]
+    ext = _bits_ext(bits, packed.n_inputs, packed.in_seg)
+    if packed.banded:
+        vals = lut_eval_banded(ext, packed.sel, packed.tables,
+                               packed.level_base, packed.win_base,
+                               n_nets_pad=packed.n_nets_pad)
+    else:
+        vals = lut_eval(ext, packed.sel, packed.tables, packed.level_base,
+                        n_nets_pad=packed.n_nets_pad)
+    return vals[:, packed.output_nets.long()].to(torch.uint8)
+
+
+def fabric_eval(
+    config_or_packed,
+    bits,
+    batch_tile: int = 128,
+    band: bool | None = None,
+    layout: str = "matmul",
+    *,
+    device=None,
+) -> torch.Tensor:
+    """Evaluate a batch of events on one configured fabric.
+
+    bits: (B, n_inputs) 0/1 -> (B, n_outputs) uint8 on the packed
+    fabric's device. B is padded up to a ``batch_tile`` multiple, as the
+    reference pads it. ``band``/``layout``/``device`` apply when packing a
+    raw config (ignored for an already-packed fabric)."""
+    packed = (
+        config_or_packed
+        if isinstance(config_or_packed, PackedFabric)
+        else pack_fabric(config_or_packed, band=band, layout=layout,
+                         device=device)
+    )
+    b = torch.as_tensor(np.asarray(bits), dtype=torch.int32,
+                        device=packed.device)
+    B = b.shape[0]
+    Bp = _round_up(max(B, 1), batch_tile)
+    if Bp != B:
+        b = torch.nn.functional.pad(b, (0, 0, 0, Bp - B))
+    return _eval_packed(packed, b)[:B]
+
+
+def fabric_eval_bits(
+    sel: Optional[torch.Tensor],
     tables: torch.Tensor,
+    level_base: torch.Tensor,
+    win_base: torch.Tensor,
+    output_nets: torch.Tensor,
+    bits: torch.Tensor,         # (C, B, n_inputs_max)
+    *,
+    n_inputs: int,
+    n_nets_pad: int,
+    in_seg: int,
+    src: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Chip-batched evaluation of device-resident bits: (C, B, O) uint8.
+
+    A non-None ``src`` selects the bit-sliced layout (``sel`` is None
+    then). For the matmul layout, fewer ``sel`` rows than the padded net
+    space means the banded kernel."""
+    if src is not None:
+        return _bitsliced.eval_bits(src, tables, output_nets, bits,
+                                    n_inputs=n_inputs, in_seg=in_seg)
+    ext = _bits_ext(bits, n_inputs, in_seg)
+    if sel.shape[2] < n_nets_pad:
+        vals = lut_eval_banded_stacked(ext, sel, tables, level_base,
+                                       win_base, n_nets_pad=n_nets_pad)
+    else:
+        vals = lut_eval_stacked(ext, sel, tables, level_base,
+                                n_nets_pad=n_nets_pad)        # (C, B, N)
+    C, B = bits.shape[0], bits.shape[1]
+    idx = output_nets[:, None, :].long().expand(C, B, output_nets.shape[1])
+    return torch.gather(vals, 2, idx).to(torch.uint8)
+
+
+def fabric_eval_bits_voted(
+    sel: Optional[torch.Tensor],
+    tables: torch.Tensor,
+    level_base: torch.Tensor,
+    win_base: torch.Tensor,
     output_nets: torch.Tensor,
     bits: torch.Tensor,         # (C, B, n_inputs_max) — per LOGICAL chip
     *,
     n_replicas: int,
     n_inputs: int,
+    n_nets_pad: int,
     in_seg: int,
+    src: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Redundant evaluation of device-resident bits through the word
-    evaluator (vote folded into the kernel): (voted output bits (C, B, O)
-    uint8, disagree (C, R, B) bool; all False for n_replicas == 1)."""
-    return _bitsliced.eval_bits_voted(
-        src, tables, output_nets, bits,
-        n_replicas=n_replicas, n_inputs=n_inputs, in_seg=in_seg)
+    """Redundant evaluation of device-resident bits: (voted output bits
+    (C, B, O) uint8, disagree (C, R, B) bool; all False for
+    n_replicas == 1).
+
+    The bit-sliced layout (non-None ``src``) votes inside its kernel. The
+    matmul layout repeats each chip's events for its R replica rows,
+    evaluates all R*C rows in one launch, and then takes the 2-of-3 vote
+    and the replica-vs-vote disagreement in torch ops."""
+    if src is not None:
+        return _bitsliced.eval_bits_voted(
+            src, tables, output_nets, bits,
+            n_replicas=n_replicas, n_inputs=n_inputs, in_seg=in_seg)
+    C, B = bits.shape[0], bits.shape[1]
+    rep = (torch.repeat_interleave(bits, n_replicas, dim=0)
+           if n_replicas > 1 else bits)
+    outs = fabric_eval_bits(
+        sel, tables, level_base, win_base, output_nets, rep,
+        n_inputs=n_inputs, n_nets_pad=n_nets_pad, in_seg=in_seg)
+    if n_replicas == 1:
+        return outs, torch.zeros((C, 1, B), dtype=torch.bool,
+                                 device=bits.device)
+    assert n_replicas == N_REPLICAS, n_replicas
+    g = outs.reshape(C, n_replicas, B, outs.shape[-1])
+    voted = majority_vote(g[:, 0], g[:, 1], g[:, 2])        # (C, B, O)
+    disagree = torch.any(g != voted[:, None], dim=-1)       # (C, R, B)
+    return voted, disagree
 
 
 def decode_scores_device(

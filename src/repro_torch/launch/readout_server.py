@@ -5,8 +5,8 @@ The core loop of the JAX package's launch/readout_server.py:
     submit_frames(chip, frames, y0)   RAW charge frames
       -> micro-batch queue            (coalesce: max_batch / max_latency)
       -> one fused device pass        (kernels/frontend.py: yprofile ->
-                                       quantize -> bit gather -> bit-sliced
-                                       fabric walk + TMR vote -> score ->
+                                       quantize -> bit gather -> fabric
+                                       kernel + TMR vote -> score ->
                                        keep/drop)
       -> pinned host copy, drained    (poll never blocks; flush does)
       -> per-chip trigger report      (rates, reduction, link bytes,
@@ -25,8 +25,8 @@ has completed, and up to ``pipeline_depth`` batches stay in flight.
 
 Not ported yet (each raises NotPortedError — nothing is silently
 ignored): the features path (``submit``/``submit_batch``), sparse egress,
-scrubbing, deadline admission and the degrade ladder, per-tenant quotas
-and ``layout="matmul"``. See ROADMAP queue A.
+scrubbing, deadline admission and the degrade ladder, and per-tenant
+quotas. See ROADMAP queue A.
 """
 from __future__ import annotations
 
@@ -67,8 +67,8 @@ class ServerConfig:
     package's ServerConfig, validated on construction with named errors.
 
     Ported: max_batch, max_latency_s, backend ("kernel" | "host"),
-    batch_tile, band, layout (None/"bitsliced"), redundancy ("none" |
-    "tmr"), pipeline_depth, threshold_electrons, bits_per_hit,
+    batch_tile, band, layout (None | "matmul" | "bitsliced"), redundancy
+    ("none" | "tmr"), pipeline_depth, threshold_electrons, bits_per_hit,
     hit_rate_hz. Every other knob must keep its default: a non-default
     value raises NotPortedError naming the ROADMAP item.
     """
@@ -229,10 +229,6 @@ class ServerConfig:
                 raise NotPortedError(
                     f"ServerConfig.{name}={getattr(self, name)!r} is not "
                     f"ported yet: ROADMAP queue A, {item}")
-        if self.layout == "matmul":
-            raise NotPortedError(
-                "ServerConfig.layout='matmul' is not ported yet: ROADMAP "
-                "queue B, items B2/B3 (the selection-matmul kernels)")
 
     @property
     def n_replicas(self) -> int:

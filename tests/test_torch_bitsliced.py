@@ -43,7 +43,8 @@ def _stacks(redundancy, band):
     j = jax_ops.pack_fabrics([p[0].config for p in pairs], band=band,
                              redundancy=redundancy, layout="bitsliced")
     p = port_ops.pack_fabrics([p[1].config for p in pairs], band=band,
-                              redundancy=redundancy, device="cpu")
+                              redundancy=redundancy, layout="bitsliced",
+                              device="cpu")
     return pairs, j, p
 
 

@@ -1,7 +1,8 @@
 """Fused frontend: frames -> (score, keep, disagree), port vs JAX.
 
 One stack holds a chip of every registered fabric (heterogeneous specs,
-used features and widths), TMR off and on:
+used features and widths), TMR off and on, in the bit-sliced layout and
+(for (a)) in the default selection-matmul layout:
 
 (a) given IDENTICAL features (the JAX featurizer's), the port's
     post-featurize tail (quantize, bit gather, word walk + vote, decode,
@@ -53,10 +54,24 @@ def farm():
     return pairs, fr, y0, jax_feats, jax_out
 
 
-def _port_frontend(pairs, red):
+@pytest.fixture(scope="module")
+def matmul_out(farm):
+    """JAX's fused pass with layout="matmul" (its default), in setup."""
+    pairs, fr, y0, _, _ = farm
+    out = {}
+    for red in REDUNDANCIES:
+        jf = jax_fe.pack_frontend([p[0].config for p in pairs],
+                                  [p[0].frontend_spec() for p in pairs],
+                                  redundancy=red)
+        assert jf.stack.sel is not None
+        out[red] = [np.asarray(x) for x in jf.score_frames_voted(fr, y0)]
+    return out
+
+
+def _port_frontend(pairs, red, layout="bitsliced"):
     return port_fe.pack_frontend([p[1].config for p in pairs],
                                  [p[1].frontend_spec() for p in pairs],
-                                 redundancy=red, device="cpu")
+                                 redundancy=red, layout=layout, device="cpu")
 
 
 @pytest.mark.parametrize("red", REDUNDANCIES)
@@ -69,6 +84,31 @@ def test_tail_from_identical_features_is_bit_identical(farm, red):
     for g, want, what in zip(got, jax_out[red], ("score", "keep", "dis")):
         np.testing.assert_array_equal(g.numpy(), want, err_msg=what)
     assert got[2].shape == (len(pairs), pf.n_replicas)
+
+
+@pytest.mark.parametrize("red", REDUNDANCIES)
+def test_matmul_tail_from_identical_features_is_bit_identical(
+        farm, matmul_out, red):
+    """(a) for the matmul layout: pack_frontend's default, as in JAX."""
+    pairs, _, _, jax_feats, _ = farm
+    pf = port_fe.pack_frontend([p[1].config for p in pairs],
+                               [p[1].frontend_spec() for p in pairs],
+                               redundancy=red, device="cpu")
+    assert pf.stack.layout == "banded" and pf.stack.src is None
+    valid = torch.ones((len(pairs), B), dtype=torch.bool)
+    got = port_fe.score_features(torch.as_tensor(jax_feats), pf.stack,
+                                 pf.plan, valid)
+    for g, want, what in zip(got, matmul_out[red], ("score", "keep", "dis")):
+        np.testing.assert_array_equal(g.numpy(), want, err_msg=what)
+
+
+def test_matmul_and_bitsliced_frontends_agree_on_frames(farm):
+    pairs, fr, y0, _, _ = farm
+    a = _port_frontend(pairs, "tmr", layout="matmul")
+    b = _port_frontend(pairs, "tmr")
+    for x, y in zip(a.score_frames_voted(fr[:, :100], y0[:, :100]),
+                    b.score_frames_voted(fr[:, :100], y0[:, :100])):
+        assert torch.equal(x, y)
 
 
 def _oracle(chip, feats):
@@ -132,19 +172,23 @@ def test_swap_chip_and_threshold_update_plan_rows(farm):
 
 
 def test_scoring_backends_agree(farm):
-    """KernelBackend (fused, bit-sliced) == HostBackend (staged oracle) on
-    bits and on frames; the matmul layout is refused by name."""
+    """KernelBackend == HostBackend (staged oracle) on bits and on frames,
+    in the default matmul layout and in the bit-sliced one; an unknown
+    layout is refused by name."""
     from repro_torch.core.readout import HostBackend, KernelBackend
 
     pairs, fr, y0, _, _ = farm
-    kb, hb = KernelBackend(device="cpu"), HostBackend(device="cpu")
-    for c, (_, chip) in enumerate(pairs):
-        bits = np.random.default_rng(c).integers(
-            0, 2, (45, chip.config.n_inputs)).astype(np.uint8)
-        np.testing.assert_array_equal(kb.score_bits(chip.config, bits),
-                                      hb.score_bits(chip.config, bits))
-        np.testing.assert_array_equal(
-            chip.infer_from_frames(fr[c, :50], y0[c, :50], backend=kb),
-            chip.infer_from_frames(fr[c, :50], y0[c, :50], backend=hb))
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        KernelBackend(layout="matmul")
+    hb = HostBackend(device="cpu")
+    for kb in (KernelBackend(device="cpu"),
+               KernelBackend(layout="bitsliced", device="cpu")):
+        for c, (_, chip) in enumerate(pairs):
+            bits = np.random.default_rng(c).integers(
+                0, 2, (45, chip.config.n_inputs)).astype(np.uint8)
+            np.testing.assert_array_equal(kb.score_bits(chip.config, bits),
+                                          hb.score_bits(chip.config, bits))
+            np.testing.assert_array_equal(
+                chip.infer_from_frames(fr[c, :50], y0[c, :50], backend=kb),
+                chip.infer_from_frames(fr[c, :50], y0[c, :50], backend=hb))
+    assert KernelBackend(device="cpu").layout == "matmul"
+    with pytest.raises(ValueError, match="layout"):
+        KernelBackend(layout="gather")

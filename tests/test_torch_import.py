@@ -73,8 +73,10 @@ def test_no_source_line_imports_jax_or_repro():
 def _entry_points():
     from repro_torch.convert import plan_from_numpy
     from repro_torch.core.readout import HostBackend, KernelBackend
+    from repro_torch.kernels.bdt_infer.ops import bdt_infer, pack_ensemble
     from repro_torch.kernels.frontend import pack_frontend
-    from repro_torch.kernels.lut_eval.ops import pack_fabrics
+    from repro_torch.kernels.lut_eval.ops import (
+        fabric_eval, pack_fabric, pack_fabrics)
     from repro_torch.kernels.yprofile.ops import yprofile
     from repro_torch.launch.readout_server import ReadoutServer
 
@@ -91,6 +93,13 @@ def _entry_points():
         "HostBackend.score_frames": lambda: HostBackend().score_frames(
             _chip(), frames, y0),
         "convert.plan_from_numpy": lambda: plan_from_numpy({}),
+        "pack_fabric": lambda: pack_fabric(_config()),
+        "fabric_eval": lambda: fabric_eval(
+            _config(), np.zeros((2, _config().n_inputs), np.uint8)),
+        "pack_ensemble": lambda: pack_ensemble(_chip().golden, 14),
+        "bdt_infer": lambda: bdt_infer(_chip().golden,
+                                       np.zeros((2, 14), np.int32),
+                                       n_features=14),
     }
 
 
@@ -109,7 +118,8 @@ def _spec():
 @pytest.mark.parametrize("name", [
     "resolve_device", "yprofile", "pack_fabrics", "pack_frontend",
     "ReadoutServer", "KernelBackend.score_bits", "HostBackend.score_frames",
-    "convert.plan_from_numpy"])
+    "convert.plan_from_numpy", "pack_fabric", "fabric_eval", "pack_ensemble",
+    "bdt_infer"])
 def test_entry_point_without_cuda_raises_named_error(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

@@ -8,7 +8,8 @@ the port is installed:
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 The featurizer is held to |d| <= 2e-5 |x| + 1e-6 ke (summation order, see
-tests/test_torch_yprofile.py); the bit-sliced walk and the fused frontend
+tests/test_torch_yprofile.py); the bit-sliced walk, the selection-matmul
+fabric kernels (dense and banded), the BDT kernel and the fused frontend
 downstream of identical features are exact.
 """
 import numpy as np
@@ -20,7 +21,10 @@ from repro_torch.core.readout import ReadoutChip
 from repro_torch.data.smartpixel import SmartPixelConfig, generate
 from repro_torch.data.smartpixel import train_test_split
 from repro_torch.kernels import frontend as fe
+from repro_torch.kernels.bdt_infer import bdt_infer as bdt
+from repro_torch.kernels.bdt_infer import ops as bdt_ops
 from repro_torch.kernels.lut_eval import bitsliced as bs
+from repro_torch.kernels.lut_eval import lut_eval as le
 from repro_torch.kernels.lut_eval import ops as lut_ops
 from repro_torch.kernels.yprofile import ops as yp
 
@@ -62,7 +66,8 @@ def test_yprofile_kernel_matches_plain_twin(card):
 def test_bitsliced_kernel_equals_plain_twin(card, redundancy):
     chips, _, _ = card
     stack = lut_ops.pack_fabrics([c.config for c in chips],
-                                 redundancy=redundancy, device="cuda")
+                                 redundancy=redundancy, layout="bitsliced",
+                                 device="cuda")
     bits = torch.as_tensor(np.random.default_rng(3).integers(
         0, 2, (2, 1000, stack.n_inputs)), dtype=torch.int32, device="cuda")
     seg = bs.input_words(bits, stack.n_inputs, stack.in_seg)
@@ -79,13 +84,22 @@ def test_bitsliced_kernel_equals_plain_twin(card, redundancy):
 
 
 def test_fused_frontend_on_card_equals_cpu_from_same_features(card):
+    _frontend_on_card_equals_cpu(card, "bitsliced")
+
+
+def test_matmul_fused_frontend_on_card_equals_cpu(card):
+    _frontend_on_card_equals_cpu(card, "matmul")
+
+
+def _frontend_on_card_equals_cpu(card, layout):
     chips, frames, y0 = card
     on_card = fe.pack_frontend([c.config for c in chips],
                                [c.frontend_spec() for c in chips],
-                               redundancy="tmr", device="cuda")
+                               redundancy="tmr", layout=layout,
+                               device="cuda")
     on_cpu = fe.pack_frontend([c.config for c in chips],
                               [c.frontend_spec() for c in chips],
-                              redundancy="tmr", device="cpu")
+                              redundancy="tmr", layout=layout, device="cpu")
     feats = yp.yprofile_traced(torch.as_tensor(frames, device="cuda"),
                                torch.as_tensor(y0, device="cuda"),
                                threshold=800.0)
@@ -98,3 +112,46 @@ def test_fused_frontend_on_card_equals_cpu_from_same_features(card):
     score, keep, dis = on_card.score_frames_voted(frames, y0)
     assert torch.equal(score.cpu(), want[0])
     assert torch.equal(keep.cpu(), want[1])
+
+
+@pytest.mark.parametrize("band", [None, False])
+@pytest.mark.parametrize("redundancy", ["none", "tmr"])
+def test_lut_eval_kernels_equal_plain_twin(card, band, redundancy):
+    """B3 (band=None packs these chips banded) and B2 (band=False)."""
+    chips, _, _ = card
+    stack = lut_ops.pack_fabrics([c.config for c in chips], band=band,
+                                 redundancy=redundancy, device="cuda")
+    assert stack.layout == ("banded" if band is None else "dense")
+    rows = stack.tables.shape[0]
+    bits = torch.as_tensor(np.random.default_rng(4).integers(
+        0, 2, (rows, 300, stack.n_inputs)), device="cuda")
+    ext = lut_ops._bits_ext(bits, stack.n_inputs, stack.in_seg)
+    win = stack.win_base if stack.banded else None
+    fn = le.lut_eval_banded_stacked if stack.banded else le.lut_eval_stacked
+    n0 = fn.launches
+    got = fn(ext, stack.sel, stack.tables, stack.level_base,
+             *([win] if stack.banded else []), n_nets_pad=stack.n_nets_pad)
+    want = le.lut_eval_plain(ext, stack.sel, stack.tables, stack.level_base,
+                             win, n_nets_pad=stack.n_nets_pad)
+    assert fn.launches == n0 + 1
+    assert torch.equal(got, want)
+
+
+def test_bdt_infer_kernel_equals_plain_twin_and_golden(card):
+    tr, _ = train_test_split(generate(SmartPixelConfig(n_events=12_000,
+                                                       seed=5)))
+    ens = GradientBoostedClassifier(n_estimators=3, max_depth=5).fit(
+        tr["features"], tr["label"]).quantized()
+    packed = bdt_ops.pack_ensemble(ens, 14, device="cuda")
+    rng = np.random.default_rng(0)
+    x = rng.integers(ens.spec.raw_min, ens.spec.raw_max, (1000, 14))
+    xt = torch.as_tensor(x, dtype=torch.int32, device="cuda")
+    arrays = (packed.featsel, packed.thr, packed.root_onehot, packed.left,
+              packed.right, packed.value_hi, packed.value_lo)
+    n0 = bdt.bdt_traverse.launches
+    got = bdt.bdt_traverse(xt, *arrays, depth=packed.depth)
+    want = bdt.bdt_traverse_plain(xt, *arrays, depth=packed.depth)
+    assert bdt.bdt_traverse.launches == n0 + 1
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(bdt_ops.bdt_infer(packed, x).cpu().numpy(),
+                                  ens.decision_function_raw(x))

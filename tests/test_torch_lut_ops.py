@@ -6,8 +6,9 @@
   TMR) and agrees with JAX's swap;
 * ``decode_scores_device`` / ``decode_plan`` are exact;
 * ``convert`` carries a JAX stack and encode plan across: the result
-  equals the port's own pack and scores identically;
-* the matmul layout raises NotPortedError.
+  equals the port's own pack and scores identically, for the matmul
+  layout's bf16 ``sel`` too (tests/test_torch_lut_eval.py holds the
+  matmul packing and kernels against JAX in full).
 """
 import dataclasses
 
@@ -22,7 +23,6 @@ import torch  # noqa: E402
 from repro.kernels import frontend as jax_fe  # noqa: E402
 from repro.kernels.lut_eval import ops as jax_ops  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.device import NotPortedError  # noqa: E402
 from repro_torch.kernels import frontend as port_fe  # noqa: E402
 from repro_torch.kernels.lut_eval import ops as port_ops  # noqa: E402
 from tests._torch_helpers import chip_pair, frames  # noqa: E402
@@ -43,7 +43,7 @@ def _pack_both(pairs, **kw):
     j = jax_ops.pack_fabrics([p[0].config for p in pairs],
                              layout="bitsliced", **kw)
     p = port_ops.pack_fabrics([p[1].config for p in pairs], device="cpu",
-                              **kw)
+                              layout="bitsliced", **kw)
     return j, p
 
 
@@ -120,7 +120,8 @@ def test_convert_round_trips_jax_stack_and_plan(pairs, redundancy):
         {k: np.asarray(v) for k, v in jf.plan.items()}, device="cpu")
     own = port_fe.pack_frontend([p[1].config for p in pairs],
                                 [p[1].frontend_spec() for p in pairs],
-                                redundancy=redundancy, device="cpu")
+                                redundancy=redundancy, layout="bitsliced",
+                                device="cpu")
     _assert_stack_equal(jf.stack, stack)
     _assert_stack_equal(jf.stack, own.stack)
     for k, v in own.plan.items():
@@ -135,8 +136,27 @@ def test_convert_round_trips_jax_stack_and_plan(pairs, redundancy):
 
 
 def test_matmul_layout_not_ported(pairs):
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        port_ops.pack_fabrics([pairs[0][1].config], layout="matmul",
+    """Once the refusal of layout="matmul"; the layout is ported now, so
+    this holds the default (matmul) pack and its conversion from a JAX
+    stack (bf16 ``sel`` through float32) to JAX's arrays, and an unknown
+    layout or a stack with neither routing array is still refused."""
+    jax_stack = jax_ops.pack_fabrics([p[0].config for p in pairs])
+    own = port_ops.pack_fabrics([p[1].config for p in pairs], device="cpu")
+    fields = {k: np.asarray(getattr(jax_stack, k))
+              for k in _ARRAYS if k != "src"}
+    fields.update({k: getattr(jax_stack, k) for k in _STATICS})
+    fields.update(sel=np.asarray(jax_stack.sel), src=None)
+    converted = convert.stack_from_numpy(fields, device="cpu")
+    for stack in (own, converted):
+        assert stack.layout == jax_stack.layout and stack.src is None
+        assert stack.sel.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            stack.sel.float().numpy(), np.asarray(jax_stack.sel, np.float32))
+        for k in ("tables", "output_nets", "level_base", "win_base"):
+            np.testing.assert_array_equal(getattr(stack, k).numpy(),
+                                          np.asarray(getattr(jax_stack, k)))
+    with pytest.raises(ValueError, match="layout"):
+        port_ops.pack_fabrics([pairs[0][1].config], layout="gather",
                               device="cpu")
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        convert.stack_from_numpy({"sel": np.zeros(1)}, device="cpu")
+    with pytest.raises(ValueError, match="exactly one"):
+        convert.stack_from_numpy({"sel": None, "src": None}, device="cpu")

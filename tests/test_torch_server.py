@@ -2,11 +2,12 @@
 
 One seeded FrameStream — 2 chips x 3 batches x 64 events, chip 0
 hot-swapped after the first batch — goes through the port's server on
-the CPU and the JAX server. Per event (seq, chip, score, keep) and the
-report's trigger counters must agree; the only events allowed to differ
-are those whose quantized used-feature pattern differs between the two
-featurizers (summation-order flips, see test_torch_yprofile.py). Knobs
-the port does not carry yet raise NotPortedError.
+the CPU and the JAX server, in the default (bit-sliced) layout and with
+``layout="matmul"``. Per event (seq, chip, score, keep) and the report's
+trigger counters must agree; the only events allowed to differ are those
+whose quantized used-feature pattern differs between the two featurizers
+(summation-order flips, see test_torch_yprofile.py). Knobs the port does
+not carry yet raise NotPortedError.
 """
 import dataclasses
 
@@ -56,6 +57,19 @@ def stream():
                            clock=lambda: 0.0)
         jax_runs[red] = _drive(server, swap[0], blocks)
     return pairs, swap, blocks, jax_runs
+
+
+@pytest.fixture(scope="module")
+def matmul_runs(stream):
+    """The JAX server's runs with layout="matmul", in setup."""
+    pairs, swap, blocks, _ = stream
+    runs = {}
+    for red in ("none", "tmr"):
+        server = JaxServer([p[0] for p in pairs],
+                           JaxConfig(redundancy=red, layout="matmul"),
+                           clock=lambda: 0.0)
+        runs[red] = _drive(server, swap[0], blocks)
+    return runs
 
 
 def _flip_seqs(pairs, swap, blocks, jax_features):
@@ -111,6 +125,39 @@ def test_server_events_and_counters_match_jax(stream, backend, red):
             {"staged_featurize", "staged_encode", "staged_score"} <= stages)
 
 
+@pytest.mark.parametrize("red", ["none", "tmr"])
+def test_matmul_server_events_and_counters_match_jax(stream, matmul_runs,
+                                                     red):
+    """ServerConfig(layout="matmul") serves through the selection-matmul
+    kernels' twins (banded here) with the vote in torch ops; it agrees with
+    the JAX server's matmul run and, exactly, with the port's bit-sliced
+    server."""
+    pairs, swap, blocks, _ = stream
+    server = ReadoutServer([p[1] for p in pairs],
+                           ServerConfig(layout="matmul", redundancy=red),
+                           clock=lambda: 0.0, device="cpu")
+    assert server._stack.layout == "banded" and server.layout == "matmul"
+    got, rep = _drive(server, swap[1], blocks)
+    want, jrep = matmul_runs[red]
+    assert sorted(got) == sorted(want)
+    diff = {q for q in got if got[q] != want[q]}
+    assert diff <= _flip_seqs(pairs, swap[1], blocks, _jax_features)
+    for pc, jc in zip(rep["per_chip"], jrep["per_chip"]):
+        assert pc["n_in"] == jc["n_in"]
+        assert pc["seu_disagreements"] == jc["seu_disagreements"] == [0] * (
+            3 if red == "tmr" else 1)
+    assert rep["layout"] == jrep["layout"] == "matmul"
+    bitsliced = ReadoutServer([p[1] for p in pairs],
+                              ServerConfig(redundancy=red),
+                              clock=lambda: 0.0, device="cpu")
+    assert _drive(bitsliced, swap[1], blocks)[0] == got
+
+
+def test_default_layout_stays_bitsliced():
+    assert ServerConfig().effective_layout == "bitsliced"
+    assert ServerConfig(layout="matmul").effective_layout == "matmul"
+
+
 def test_host_and_kernel_backends_agree_exactly(stream):
     pairs, swap, blocks, _ = stream
     runs = [_drive(ReadoutServer([p[1] for p in pairs],
@@ -144,7 +191,8 @@ def test_config_fields_and_defaults_match_jax():
     dict(deadline_us=100.0, overload_policy="shed"),
     dict(degrade_rungs=("scrub_relax",)), dict(degrade_window=8),
     dict(degrade_enter_frac=0.6), dict(degrade_exit_frac=0.1),
-    dict(min_batch=16), dict(tenant_quota_queued=4), dict(layout="matmul")])
+    dict(min_batch=16), dict(tenant_quota_queued=4),
+    dict(deadline_us=100.0, overload_policy="degrade")])
 def test_unported_knob_raises_not_ported(knob):
     with pytest.raises(NotPortedError, match="ROADMAP"):
         ServerConfig(**knob)
