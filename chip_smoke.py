@@ -32,8 +32,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                leaves, efpga_28nm) checked against its golden BDT with
                ReadoutChip.verify_vs_golden through KernelBackend on cuda,
                on every event in 65,536-event chunks: the default layout
-               (banded, B3), then band=False (dense, B2), then bdt_infer
-               (B4) on the same raw features. Every event must match; the
+               (banded, B3), then band=False (dense, B2), then the
+               bit-sliced layout (K2, for its rate), then bdt_infer (B4)
+               on the same raw features. Every event must match; B3 and B2
+               are also held against their twin on the whole net buffer
+               of the first full chunk (C=1, B=65,536), exact. The
                counters are zeroed before and read after, and each of B2,
                B3 and B4 must have launched.
   6. serve   — phase 4 again with ServerConfig(layout="matmul"), plain and
@@ -379,9 +382,9 @@ def check_bdt(torch, np, bdt, bdt_ops, chip, X):
 
 
 def section5(torch, np, chip, te, tr, counters):
-    """The paper's §5 check on every event: fabric (banded, then dense)
-    and bdt_infer against the golden BDT, with the launch counts of the
-    run."""
+    """The paper's §5 check on every event: fabric (banded, dense, then
+    bit-sliced) and bdt_infer against the golden BDT, with the launch
+    counts of the run; B3 and B2 against their twin on one full chunk."""
     from repro_torch.core.readout import KernelBackend
     from repro_torch.kernels.bdt_infer import ops as bdt_ops
     from repro_torch.kernels.lut_eval import lut_eval as le
@@ -396,9 +399,13 @@ def section5(torch, np, chip, te, tr, counters):
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     reset(counters)
     runs = {}
-    for layout, backend in (("banded", KernelBackend(device="cuda")),
-                            ("dense", KernelBackend(band=False,
-                                                    device="cuda"))):
+    # the default layout (banded B3), then band=False (dense B2), then the
+    # bit-sliced layout that was KernelBackend's default before the matmul
+    # layout was ported, for its rate
+    for layout, backend in (
+            ("banded", KernelBackend(device="cuda")),
+            ("dense", KernelBackend(band=False, device="cuda")),
+            ("bitsliced", KernelBackend(layout="bitsliced", device="cuda"))):
         torch.cuda.synchronize()
         t0 = time.monotonic()
         n = n_match = 0
@@ -408,29 +415,45 @@ def section5(torch, np, chip, te, tr, counters):
             n_match += int(v["n_match"])
         dt = time.monotonic() - t0
         packed = backend._packed.get(chip.config)
-        if ("banded" if packed.banded else "dense") != layout:
-            fail("s5", f"KernelBackend packed the chip {layout!r}? "
-                       f"band_k={packed.band_k}, levels={packed.n_levels}")
+        packed_as = ("bitsliced" if packed.bitsliced
+                     else "banded" if packed.banded else "dense")
+        if packed_as != layout:
+            fail("s5", f"KernelBackend packed the chip {packed_as!r}, not "
+                       f"{layout!r}: band_k={packed.band_k}, "
+                       f"levels={packed.n_levels}")
         if n != S5_EVENTS or n_match != n:
             fail("s5", f"{layout}: {n_match} of {n} events match the "
                        "golden BDT")
-        # the kernel alone on one full chunk of this chip
+        runs[layout] = {"events": n, "n_match": n_match, "seconds": dt,
+                        "events_per_s": n / dt}
+        if packed.bitsliced:
+            continue
+        # the kernel alone on the first full chunk, at the shape this path
+        # gives it (C=1, B=S5_CHUNK): the whole net buffer against the twin
         bits = torch.as_tensor(chip.encode_features(next(chunks())),
                                dtype=torch.int32, device="cuda")
-        ext = lut_ops._bits_ext(bits, packed.n_inputs, packed.in_seg)
+        ext = lut_ops._bits_ext(bits, packed.n_inputs, packed.in_seg)[None]
         win = packed.win_base if packed.banded else None
+        arrays = (ext, packed.sel[None], packed.tables[None],
+                  packed.level_base, win)
         out = torch.empty((1, len(bits), packed.n_nets_pad),
                           dtype=torch.float32, device="cuda")
         tile = le.lut_tile(packed.n_nets_pad, packed.m_pad, len(bits), 1,
                            n_sms)
-        runs[layout] = {
-            "events": n, "n_match": n_match, "seconds": dt,
-            "events_per_s": n / dt, "sel_rows": packed.sel.shape[1],
-            "band_k": packed.band_k, "tile": tile,
-            "chunk_kernel_ms": time_ms(lambda: le._launch(
-                ext[None], packed.sel[None], packed.tables[None],
-                packed.level_base, win, out, tile), reps=10, inner=2),
-        }
+        le._launch(*arrays, out, tile)
+        want = le.lut_eval_plain(*arrays, n_nets_pad=packed.n_nets_pad)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            fail("s5", f"{layout}: the net buffer of a {len(bits)}-event "
+                       f"chunk differs from the twin in "
+                       f"{int((out != want).sum())} places")
+        del want
+        runs[layout].update({
+            "sel_rows": packed.sel.shape[1], "band_k": packed.band_k,
+            "tile": tile, "chunk_checked_events": len(bits),
+            "chunk_kernel_ms": time_ms(lambda: le._launch(*arrays, out, tile),
+                                       reps=10, inner=2),
+        })
     packed = bdt_ops.pack_ensemble(chip.golden, 14, device="cuda")
     torch.cuda.synchronize()
     t0 = time.monotonic()

@@ -47,8 +47,6 @@ from repro_torch.core.tmr import N_REPLICAS, majority_vote, replicate_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.lut_eval import bitsliced as _bitsliced
 from repro_torch.kernels.lut_eval.lut_eval import (
-    lut_eval,
-    lut_eval_banded,
     lut_eval_banded_stacked,
     lut_eval_stacked,
 )
@@ -477,20 +475,16 @@ def _bits_ext(bits: torch.Tensor, n_inputs: int, in_seg: int) -> torch.Tensor:
 
 
 def _eval_packed(packed: PackedFabric, bits: torch.Tensor) -> torch.Tensor:
-    """(B, n_inputs) device bits -> (B, n_outputs) uint8 on one fabric."""
-    if packed.bitsliced:
-        return _bitsliced.eval_bits(
-            packed.src[None], packed.tables[None], packed.output_nets[None],
-            bits[None], n_inputs=packed.n_inputs, in_seg=packed.in_seg)[0]
-    ext = _bits_ext(bits, packed.n_inputs, packed.in_seg)
-    if packed.banded:
-        vals = lut_eval_banded(ext, packed.sel, packed.tables,
-                               packed.level_base, packed.win_base,
-                               n_nets_pad=packed.n_nets_pad)
-    else:
-        vals = lut_eval(ext, packed.sel, packed.tables, packed.level_base,
-                        n_nets_pad=packed.n_nets_pad)
-    return vals[:, packed.output_nets.long()].to(torch.uint8)
+    """(B, n_inputs) device bits -> (B, n_outputs) uint8 on one fabric:
+    the chip-batched ``fabric_eval_bits`` at C=1."""
+    def one(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        return None if t is None else t[None]
+
+    return fabric_eval_bits(
+        one(packed.sel), packed.tables[None], packed.level_base,
+        packed.win_base, packed.output_nets[None], bits[None],
+        n_inputs=packed.n_inputs, n_nets_pad=packed.n_nets_pad,
+        in_seg=packed.in_seg, src=one(packed.src))[0]
 
 
 def fabric_eval(

@@ -135,11 +135,9 @@ def test_convert_round_trips_jax_stack_and_plan(pairs, redundancy):
         assert torch.equal(a, b)
 
 
-def test_matmul_layout_not_ported(pairs):
-    """Once the refusal of layout="matmul"; the layout is ported now, so
-    this holds the default (matmul) pack and its conversion from a JAX
-    stack (bf16 ``sel`` through float32) to JAX's arrays, and an unknown
-    layout or a stack with neither routing array is still refused."""
+def test_matmul_pack_and_convert_equal_jax(pairs):
+    """The default (matmul) pack and its conversion from a JAX stack (bf16
+    ``sel`` through float32) equal JAX's arrays."""
     jax_stack = jax_ops.pack_fabrics([p[0].config for p in pairs])
     own = port_ops.pack_fabrics([p[1].config for p in pairs], device="cpu")
     fields = {k: np.asarray(getattr(jax_stack, k))
@@ -155,6 +153,16 @@ def test_matmul_layout_not_ported(pairs):
         for k in ("tables", "output_nets", "level_base", "win_base"):
             np.testing.assert_array_equal(getattr(stack, k).numpy(),
                                           np.asarray(getattr(jax_stack, k)))
+
+
+def test_matmul_layout_not_ported(pairs):
+    """The name is kept from when layout="matmul" was refused; both layouts
+    are ported now, and what is still refused is a layout that neither
+    package has, and a converted stack with neither routing array."""
+    for layout in ("matmul", "bitsliced"):
+        stack = port_ops.pack_fabrics([pairs[0][1].config], layout=layout,
+                                      device="cpu")
+        assert (stack.sel is None) == (layout == "bitsliced")
     with pytest.raises(ValueError, match="layout"):
         port_ops.pack_fabrics([pairs[0][1].config], layout="gather",
                               device="cpu")
