@@ -16,9 +16,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                at the larger shape.
                The selection-matmul fabric kernels, dense (B2) and
                banded (B3), on the same envelope at the served shape
-               (C=4, B=512) and with its TMR rows (12 rows, B=512): the
-               whole (C, B, N) net buffer exact. The BDT kernel (B4) on
-               the paper's chip at B=512 and B=65,536: exact.
+               (C=4, B=512), with its TMR rows (12 rows, B=512), and on a
+               synthetic 0/1 sel of the 4-row stack's shape (empty
+               columns, one 1, two, and more than the kernel's column
+               lists hold, at random rows of the window): the whole
+               (C, B, N) net buffer exact. B2/B3 bounds count the ones of
+               sel times the events (a gather), beside the dense
+               tensor-core product count (dense_product_bound_ms). The
+               BDT kernel (B4) on the paper's chip at B=512 and
+               B=65,536: exact.
   4. serve   — the readout server (ServerConfig() defaults, on cuda) takes
                8 FrameStream batches of 256 events per sensor from 4
                trained chips, hot-swaps chip 0 at batch 4 and flushes;
@@ -36,7 +42,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                bit-sliced layout (K2, for its rate), then bdt_infer (B4)
                on the same raw features. Every event must match; B3 and B2
                are also held against their twin on the whole net buffer
-               of the first full chunk (C=1, B=65,536), exact. The
+               of the first full chunk (C=1, B=65,536), exact, and timed
+               there beside the twin and the chunk's bounds. The
                counters are zeroed before and read after, and each of B2,
                B3 and B4 must have launched.
   6. serve   — phase 4 again with ServerConfig(layout="matmul"), plain and
@@ -55,6 +62,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+FP32_OPS_PER_S = 67e12         # H100 SXM float32 peak outside the tensor cores
 # H100 SXM 32-bit integer/logic rate: 64 INT32 lanes per SM against the
 # 128 FP32 lanes (an FMA counted as two operations) of the published
 # 67 TFLOP/s float32 peak, at the same SM count and clock
@@ -252,16 +260,73 @@ def check_k2(torch, np, bs, lut_ops, chips):
     }
 
 
+def synthetic_sel(np, shape, seed):
+    """A 0/1 selection of `shape` (C, L, rows, 4M) that no packing makes:
+    each column holds 0, 1, 2 or LIST_CAP + 1 ones (about 40/40/10/10%)
+    at random rows, so some read window rows of levels not written yet,
+    or of the level's own slots, and the several-ones columns go past the
+    kernel's column lists."""
+    from repro_torch.kernels.lut_eval.lut_eval import LIST_CAP
+
+    C, L, rows, M4 = shape
+    rng = np.random.default_rng(seed)
+    sel = np.zeros(shape, np.float32)
+    count = rng.choice([0, 1, 2, LIST_CAP + 1], size=(C, L, M4),
+                       p=[0.4, 0.4, 0.1, 0.1])
+    at = rng.integers(0, rows, size=(C, L, M4, LIST_CAP + 1))
+    c, l, j, p = np.nonzero(np.arange(LIST_CAP + 1) < count[..., None])
+    sel[c, l, at[c, l, j, p], j] = 1.0
+    return sel, count
+
+
+def lut_counts(sel, tables, ext, out, win):
+    """Bytes and operations of one B2/B3 call on these inputs: bits in,
+    sel, tables, level_base (and win_base), the buffer out; the ones of
+    sel times the events plus 4M index/table steps per level and event;
+    and the dense tensor-core product count it replaced."""
+    C, L, n_rows, M4 = sel.shape
+    B, N = out.shape[1], out.shape[2]
+    nbytes = (ext.numel() * 4 + sel.numel() * 2 + tables.numel() * 4
+              + L * 4 * (1 if win is None else 2) + C * B * N * 4)
+    ops = B * int((sel != 0).sum()) + C * B * L * M4
+    t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    flops = 2 * C * B * L * n_rows * M4
+    return {
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "dense_product_bound_ms": max(flops / BF16_FLOPS_PER_S,
+                                      t_bytes) * 1e3,
+        "ops": ops, "bytes": nbytes, "dense_product_flops": flops,
+    }
+
+
 def check_lut(torch, np, le, lut_ops, chips, band):
     """B2 (band=False: dense) or B3 (band=None: the 4-chip envelope packs
     banded) against its twin at the served shape, C=4 and B=SERVED_B, and
-    on the TMR stack's 12 rows: the whole net buffer exact. Times and
-    bound on the 12 rows."""
+    on the TMR stack's 12 rows, then on a synthetic 0/1 sel of the
+    4-chip stack's shape with empty, one-hot and several-ones columns:
+    the whole net buffer exact. Times and bound on the 12 rows."""
     configs = [c.config for c in chips]
     layout = "dense" if band is False else "banded"
     name = "lut_eval" if band is False else "lut_eval_banded"
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(13)
+
+    def run(stack, sel, tables, ext, what):
+        win = stack.win_base if stack.banded else None
+        fn = (le.lut_eval_banded_stacked if stack.banded
+              else le.lut_eval_stacked)
+        got = fn(ext, sel, tables, stack.level_base,
+                 *([win] if stack.banded else []),
+                 n_nets_pad=stack.n_nets_pad)
+        want = le.lut_eval_plain(ext, sel, tables, stack.level_base, win,
+                                 n_nets_pad=stack.n_nets_pad)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail("kernels", f"{name} {what}: net buffer differs in "
+                            f"{int((got != want).sum())} places")
+        return got, win
+
     checked = []
     for red in ("none", "tmr"):
         stack = lut_ops.pack_fabrics(configs, band=band, redundancy=red,
@@ -274,30 +339,22 @@ def check_lut(torch, np, le, lut_ops, chips, band):
             rng.integers(0, 2, (rows, SERVED_B, stack.n_inputs)),
             dtype=torch.int32, device="cuda")
         ext = lut_ops._bits_ext(bits, stack.n_inputs, stack.in_seg)
-        win = stack.win_base if stack.banded else None
-        fn = (le.lut_eval_banded_stacked if stack.banded
-              else le.lut_eval_stacked)
-        got = fn(ext, stack.sel, stack.tables, stack.level_base,
-                 *([win] if stack.banded else []),
-                 n_nets_pad=stack.n_nets_pad)
-        want = le.lut_eval_plain(ext, stack.sel, stack.tables,
-                                 stack.level_base, win,
-                                 n_nets_pad=stack.n_nets_pad)
-        torch.cuda.synchronize()
-        if got.shape != want.shape or not torch.equal(got, want):
-            fail("kernels", f"{name} rows={rows}: net buffer differs in "
-                            f"{int((got != want).sum())} places")
+        if red == "none":
+            sel, count = synthetic_sel(np, tuple(stack.sel.shape), seed=14)
+            tables = torch.as_tensor(
+                rng.integers(0, 2, tuple(stack.tables.shape)),
+                dtype=torch.float32, device="cuda")
+            run(stack, torch.as_tensor(sel, dtype=torch.bfloat16,
+                                       device="cuda"), tables, ext,
+                "synthetic sel")
+            synthetic = {"columns_by_ones": {
+                str(k): int((count == k).sum())
+                for k in np.unique(count)}}
+        got, win = run(stack, stack.sel, stack.tables, ext, f"rows={rows}")
         checked.append(rows)
-    C, B = rows, SERVED_B
     L, n_rows, M4 = stack.sel.shape[1], stack.sel.shape[2], stack.sel.shape[3]
     N = stack.n_nets_pad
-    flops = 2 * C * B * L * n_rows * M4
-    # bits in, sel, tables, level_base (and win_base), the buffer out
-    nbytes = (ext.numel() * 4 + stack.sel.numel() * 2
-              + stack.tables.numel() * 4 + L * 4 * (1 if win is None else 2)
-              + C * B * N * 4)
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    tile = le.lut_tile(N, M4 // 4, B, C, n_sms)
+    tile = le.lut_tile(N, M4 // 4, SERVED_B, rows, n_sms)
     out = torch.empty_like(got)
     return {
         "name": name,
@@ -306,8 +363,9 @@ def check_lut(torch, np, le, lut_ops, chips, band):
         "replaces": ("src/repro/kernels/lut_eval/lut_eval.py:86"
                      if band is False else
                      "src/repro/kernels/lut_eval/lut_eval.py:167"),
-        "checked_rows": checked, "events": B, "levels": L,
+        "checked_rows": checked, "events": SERVED_B, "levels": L,
         "sel_rows": n_rows, "n_nets_pad": N, "tile": tile,
+        "synthetic": synthetic,
         "max_abs_err": 0.0,
         "ms": time_ms(lambda: le._launch(ext, stack.sel, stack.tables,
                                          stack.level_base, win, out, tile)),
@@ -315,9 +373,7 @@ def check_lut(torch, np, le, lut_ops, chips, band):
             ext, stack.sel, stack.tables, stack.level_base, win,
             n_nets_pad=N), reps=10, inner=1),
         "library_ms": None,
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "flops": flops, "bytes": nbytes,
+        **lut_counts(stack.sel, stack.tables, ext, out, win),
     }
 
 
@@ -448,11 +504,17 @@ def section5(torch, np, chip, te, tr, counters):
                        f"chunk differs from the twin in "
                        f"{int((out != want).sum())} places")
         del want
+        counts = lut_counts(arrays[1], arrays[2], ext, out, win)
         runs[layout].update({
             "sel_rows": packed.sel.shape[1], "band_k": packed.band_k,
             "tile": tile, "chunk_checked_events": len(bits),
             "chunk_kernel_ms": time_ms(lambda: le._launch(*arrays, out, tile),
                                        reps=10, inner=2),
+            "chunk_plain_ms": time_ms(lambda: le.lut_eval_plain(
+                *arrays, n_nets_pad=packed.n_nets_pad), reps=5, inner=1),
+            "chunk_bound_ms": counts["bound_ms"],
+            "chunk_bound_by": counts["bound_by"],
+            "chunk_dense_product_bound_ms": counts["dense_product_bound_ms"],
         })
     packed = bdt_ops.pack_ensemble(chip.golden, 14, device="cuda")
     torch.cuda.synchronize()
@@ -664,6 +726,14 @@ def main():
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": k["library_ms"],
         })
+    # B2/B3: the tensor-core product count their bound used before the
+    # gather, and their time and bound at the §5 chunk shape
+    for row, layout in ((kernels[2], "dense"), (kernels[3], "banded")):
+        k = b2 if layout == "dense" else b3
+        row["dense_product_bound_ms"] = k["dense_product_bound_ms"]
+        row.update({key: s5_runs[layout][key] for key in (
+            "chunk_kernel_ms", "chunk_plain_ms", "chunk_bound_ms",
+            "chunk_dense_product_bound_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

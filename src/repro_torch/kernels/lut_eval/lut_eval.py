@@ -23,6 +23,18 @@ both; a null window pointer selects the dense row view) and count the
 launch; on CPU tensors they run the plain twins below. The C=1 forms
 ``lut_eval`` / ``lut_eval_banded`` slice the stacked ones.
 
+The kernel does not multiply: ``sel`` is a one-hot selection (the
+packing writes exactly one 1 in each column of a real LUT input and none
+in a padded slot), so a first pass lists, per (chip, level, column), the
+rows holding a 1 (``LIST_CAP`` of them, and a count), and the main pass
+sums the buffer values at those rows from shared memory. A column with
+more ones than ``LIST_CAP``, or an entry other than 0/1, is summed by
+walking ``sel`` itself, so the result is the product for any ``sel``.
+Exactness contract: with 0/1 buffer values (0/1 ``bits_ext`` and
+``tables``, as the packing makes them) every column sum is a small
+integer, exact in float32 in any order, so the kernel's buffer equals
+``lut_eval_plain``'s bit for bit (``torch.equal``) for any 0/1 ``sel``.
+
 Array contract (the ``layout="matmul"`` packing, ops.py):
   bits_ext   (C, B, in_seg)   f32  — [const0, const1, inputs, 0-pad]
   sel        (C, L, rows, 4M) bf16 — 0/1 selection
@@ -39,7 +51,10 @@ import torch
 
 from repro_torch.kernels import build
 
-TILES = (32, 16, 8)
+TILES = (32, 16, 8, 4)
+# rows listed per selection column by the kernel's first pass (kCap in
+# csrc/lut_eval.cu; the launch refuses another value)
+LIST_CAP = 4
 
 
 def lut_eval_plain(
@@ -83,18 +98,25 @@ def lut_eval_plain(
     return vals
 
 
+def smem_bytes(n_nets: int, m_pad: int, tile: int) -> int:
+    """Shared memory of one block: the net buffer and the result staging
+    ((N + M) x tile f32), and two level stages of tables (M x 16 f32),
+    column lists (4M x LIST_CAP int32) and counts (4M int32)."""
+    stage = 16 * m_pad + 4 * m_pad * LIST_CAP + 4 * m_pad
+    return ((n_nets + m_pad) * tile + 2 * stage) * 4
+
+
 def lut_tile(n_nets: int, m_pad: int, n_events: int, n_chips: int = 1,
              n_sms: int = 1) -> int:
-    """Events per block: the largest of TILES whose net buffer and result
-    staging ((N + M) x tile x 4 B) fit in shared memory and that still
-    gives every one of ``n_sms`` SMs a block; else the smallest that
-    fits."""
+    """Events per block: the largest of TILES whose ``smem_bytes`` fit in
+    shared memory and that still gives every one of ``n_sms`` SMs a
+    block; else the smallest that fits."""
     fits = [t for t in TILES
-            if (n_nets + m_pad) * t * 4 <= build.SMEM_LIMIT_BYTES]
+            if smem_bytes(n_nets, m_pad, t) <= build.SMEM_LIMIT_BYTES]
     if not fits:
         raise ValueError(
-            f"an {TILES[-1]}-event net buffer ({n_nets} nets + {m_pad} "
-            f"staging x {TILES[-1]} x 4 B) exceeds "
+            f"a {TILES[-1]}-event block ({n_nets} nets, m_pad {m_pad}: "
+            f"{smem_bytes(n_nets, m_pad, TILES[-1])} B) exceeds "
             f"{build.SMEM_LIMIT_BYTES} B of shared memory")
     for t in fits:
         if n_chips * -(-n_events // t) >= n_sms:
@@ -103,16 +125,22 @@ def lut_tile(n_nets: int, m_pad: int, n_events: int, n_chips: int = 1,
 
 
 def _launch(bits_ext, sel, tables, level_base, win_base, out, tile) -> None:
+    """Both passes: the column lists (scratch from ``torch.empty``), then
+    the evaluation into ``out``."""
     lib = build.load("lut_eval")
     C, B, in_seg = bits_ext.shape
     L, rows, M = sel.shape[1], sel.shape[2], sel.shape[3] // 4
+    lists = torch.empty((C, L, 4 * M, LIST_CAP), dtype=torch.int32,
+                        device=bits_ext.device)
+    counts = torch.empty((C, L, 4 * M), dtype=torch.int32,
+                         device=bits_ext.device)
     stream = torch.cuda.current_stream(bits_ext.device).cuda_stream
     code = lib.lut_eval_launch(
         bits_ext.data_ptr(), sel.data_ptr(), tables.data_ptr(),
         level_base.data_ptr(),
         None if win_base is None else win_base.data_ptr(),
-        out.data_ptr(), C, B, in_seg, L, rows, M, out.shape[2], tile,
-        stream)
+        lists.data_ptr(), counts.data_ptr(), out.data_ptr(), C, B, in_seg,
+        L, rows, M, out.shape[2], tile, LIST_CAP, stream)
     build.check(lib, code, "lut_eval kernel")
 
 
@@ -151,6 +179,11 @@ def _run(bits_ext, sel, tables, level_base, win_base, n_nets_pad):
                          "level_base/win_base")
     C, B = bits_ext.shape[0], bits_ext.shape[1]
     M = sel.shape[3] // 4
+    if M % 2 or n_nets_pad % 4:
+        raise ValueError(f"the kernel reads sel rows and writes buffer "
+                         f"rows in 16-byte units: M must be even and "
+                         f"n_nets_pad a multiple of 4, got M={M}, "
+                         f"n_nets_pad={n_nets_pad}")
     n_sms = torch.cuda.get_device_properties(
         bits_ext.device).multi_processor_count
     tile = lut_tile(n_nets_pad, M, B, C, n_sms)

@@ -9,8 +9,10 @@ the port is installed:
 
 The featurizer is held to |d| <= 2e-5 |x| + 1e-6 ke (summation order, see
 tests/test_torch_yprofile.py); the bit-sliced walk, the selection-matmul
-fabric kernels (dense and banded), the BDT kernel and the fused frontend
-downstream of identical features are exact.
+fabric kernels (dense and banded, also on a synthetic 0/1 ``sel`` with
+empty and several-ones columns, and at the §5 chunk shape), the BDT
+kernel and the fused frontend downstream of identical features are
+exact.
 """
 import numpy as np
 import pytest
@@ -135,6 +137,85 @@ def test_lut_eval_kernels_equal_plain_twin(card, band, redundancy):
                              win, n_nets_pad=stack.n_nets_pad)
     assert fn.launches == n0 + 1
     assert torch.equal(got, want)
+
+
+def _synthetic_sel(shape, rng):
+    """A 0/1 selection no packing makes: 0, 1, 2 or LIST_CAP + 1 ones per
+    column at random rows (some in window rows of levels not written yet,
+    or of the level's own slots)."""
+    C, L, rows, M4 = shape
+    sel = np.zeros(shape, np.float32)
+    count = rng.choice([0, 1, 2, le.LIST_CAP + 1], size=(C, L, M4))
+    at = rng.integers(0, rows, size=(C, L, M4, le.LIST_CAP + 1))
+    c, l, j, p = np.nonzero(np.arange(le.LIST_CAP + 1) < count[..., None])
+    sel[c, l, at[c, l, j, p], j] = 1.0
+    return torch.as_tensor(sel, dtype=torch.bfloat16, device="cuda")
+
+
+@pytest.mark.parametrize("band", [None, False])
+def test_lut_eval_kernels_on_synthetic_sel(card, band):
+    """B3/B2 on four chip rows of the envelope's shape with a synthetic
+    sel and random 0/1 tables: empty and several-ones columns (past the
+    column lists) equal the twin exactly."""
+    chips, _, _ = card
+    stack = lut_ops.pack_fabrics([c.config for c in chips], band=band,
+                                 device="cuda")
+    rng = np.random.default_rng(6)
+    _, L, rows, M4 = stack.sel.shape
+    sel = _synthetic_sel((4, L, rows, M4), rng)
+    assert int((sel.float().sum(dim=2) > le.LIST_CAP).sum()) > 0
+    tables = torch.as_tensor(rng.integers(0, 2, (4, L, M4 // 4, 16)),
+                             dtype=torch.float32, device="cuda")
+    bits = torch.as_tensor(rng.integers(0, 2, (4, 300, stack.n_inputs)),
+                           device="cuda")
+    ext = lut_ops._bits_ext(bits, stack.n_inputs, stack.in_seg)
+    win = stack.win_base if stack.banded else None
+    fn = le.lut_eval_banded_stacked if stack.banded else le.lut_eval_stacked
+    got = fn(ext, sel, tables, stack.level_base,
+             *([win] if stack.banded else []), n_nets_pad=stack.n_nets_pad)
+    want = le.lut_eval_plain(ext, sel, tables, stack.level_base, win,
+                             n_nets_pad=stack.n_nets_pad)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("band", [None, False])
+def test_lut_eval_kernels_at_section5_chunk_shape(card, band):
+    """B3/B2 at the §5 path's shape (C=1, B=65,536): exact, and faster
+    than the plain twin (CUDA events; the times are printed)."""
+    chips, _, _ = card
+    packed = lut_ops.pack_fabric(chips[1].config, band=band, device="cuda")
+    bits = torch.as_tensor(np.random.default_rng(8).integers(
+        0, 2, (65_536, packed.n_inputs)), device="cuda")
+    ext = lut_ops._bits_ext(bits, packed.n_inputs, packed.in_seg)[None]
+    win = packed.win_base if packed.banded else None
+    arrays = (ext, packed.sel[None], packed.tables[None], packed.level_base,
+              win)
+    got = (le.lut_eval_banded_stacked(*arrays, n_nets_pad=packed.n_nets_pad)
+           if packed.banded else
+           le.lut_eval_stacked(*arrays[:4], n_nets_pad=packed.n_nets_pad))
+    want = le.lut_eval_plain(*arrays, n_nets_pad=packed.n_nets_pad)
+    assert torch.equal(got, want)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tile = le.lut_tile(packed.n_nets_pad, packed.m_pad, 65_536, 1, n_sms)
+
+    def ms(fn, n=5):
+        fn()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n
+
+    kernel = ms(lambda: le._launch(*arrays, got, tile))
+    plain = ms(lambda: le.lut_eval_plain(*arrays,
+                                         n_nets_pad=packed.n_nets_pad))
+    print(f"{'banded' if packed.banded else 'dense'} chunk: "
+          f"kernel {kernel:.4f} ms, plain {plain:.4f} ms, "
+          f"{torch.cuda.get_device_name(0)}")
+    assert kernel < plain
 
 
 def test_bdt_infer_kernel_equals_plain_twin_and_golden(card):

@@ -2,7 +2,9 @@
 
 * ``pack_fabric`` / ``pack_fabrics`` (layout="matmul", the default)
   arrays equal JAX's element for element: dense and banded, TMR on and
-  off, and after ``swap_chip``;
+  off, and after ``swap_chip``; the reference's ``sel`` has exactly one
+  1 in each column of a real LUT slot and none in a padded one, the fact
+  the kernel's column lists rest on;
 * the plain twins of the two kernels equal JAX's Pallas kernels
   (interpret mode) on the same arrays, carried across by ``convert``,
   and ``fabric_eval_ref``: the whole (C, B, N) net buffer, exactly;
@@ -112,18 +114,44 @@ def _bits_ext(stack, rows, seed):
                               stack.in_seg)
 
 
+def _converted(pairs, band, redundancy):
+    """The JAX stack and its arrays carried across by ``convert``."""
+    j = jax_ops.pack_fabrics([p[0].config for p in pairs], band=band,
+                             redundancy=redundancy)
+    fields = {k: np.asarray(getattr(j, k)) for k in _ARRAYS}
+    fields.update({k: getattr(j, k) for k in _STATICS})
+    fields.update(sel=np.asarray(j.sel), src=None)
+    return j, convert.stack_from_numpy(fields, device="cpu")
+
+
+@pytest.mark.parametrize("redundancy", ["none", "tmr"])
+@pytest.mark.parametrize("band", [None, False])
+def test_packed_sel_is_one_hot_per_column(pairs, redundancy, band):
+    """What the kernel's column lists rest on, on the reference's own
+    arrays: every column of a real LUT slot holds exactly one 1 (a LUT4
+    has 4 inputs), a padded slot's columns hold none."""
+    _, p = _converted(pairs, band, redundancy)
+    C, L, _, M4 = p.sel.shape
+    M, R = p.m_pad, p.n_replicas
+    ones = p.sel.float().sum(dim=2).reshape(C, L, 4, M)
+    assert set(torch.unique(ones).tolist()) <= {0.0, 1.0}
+    assert set(torch.unique(p.sel.float()).tolist()) == {0.0, 1.0}
+    for row in range(C):
+        sizes = pairs[row // R][0].config.level_sizes
+        real = torch.zeros((L, M), dtype=torch.bool)
+        for lvl, n in enumerate(sizes):
+            real[lvl, :n] = True
+        want = real[:, None, :].expand(L, 4, M).float()
+        assert torch.equal(ones[row], want), row
+
+
 @pytest.mark.parametrize("redundancy", ["none", "tmr"])
 @pytest.mark.parametrize("band", [None, False])
 def test_twins_equal_jax_kernels_on_converted_arrays(pairs, redundancy,
                                                       band):
     """The JAX stack's own arrays, carried across by ``convert``, through
     the port's twin and JAX's Pallas kernel (interpret): same buffer."""
-    j = jax_ops.pack_fabrics([p[0].config for p in pairs], band=band,
-                             redundancy=redundancy)
-    fields = {k: np.asarray(getattr(j, k)) for k in _ARRAYS}
-    fields.update({k: getattr(j, k) for k in _STATICS})
-    fields.update(sel=np.asarray(j.sel), src=None)
-    p = convert.stack_from_numpy(fields, device="cpu")
+    j, p = _converted(pairs, band, redundancy)
     ext = _bits_ext(p, p.tables.shape[0], seed=7)
     e = jnp.asarray(ext.numpy())
     if p.banded:
@@ -209,11 +237,16 @@ def test_kernel_wrappers_refuse_mismatched_arrays(pairs):
     with pytest.raises(ValueError, match="tables"):
         port_le.lut_eval_stacked(ext, p.sel, p.tables[:, :-1], p.level_base,
                                  n_nets_pad=p.n_nets_pad)
+    # net buffer + staging, and two stages of tables, lists and counts
+    assert port_le.smem_bytes(1920, 128, 16) == (
+        (1920 + 128) * 16 + 2 * 128 * (16 + 4 * port_le.LIST_CAP + 4)) * 4
     assert port_le.lut_tile(1920, 128, 512, 12, 132) == 16
-    assert port_le.lut_tile(1792, 128, 65536, 1, 132) == 16
+    assert port_le.lut_tile(1920, 128, 65536, 1, 132) == 16
     assert port_le.lut_tile(1024, 128, 65536, 1, 132) == 32
+    # too few events for every SM at any tile: the smallest that fits
+    assert port_le.lut_tile(1920, 128, 64, 1, 132) == 4
     with pytest.raises(ValueError, match="shared memory"):
-        port_le.lut_tile(8000, 128, 512)
+        port_le.lut_tile(20000, 128, 512)
 
 
 @pytest.fixture(scope="module")
