@@ -12,8 +12,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                at a larger one: the featurizer (K1) at C=4, B=512 and
                B=8192 within |d| <= 2e-5 |x| + 1e-6 ke (summation order);
                the bit-sliced fabric walk (K2) on the 4-chip envelope, 16
-               and 256 words, R=1 and R=3: exact. Times from CUDA events
-               at the larger shape.
+               and 256 words, R=1 and R=3: exact, timed at both widths.
+               Times from CUDA events at the larger shape; K2's and B4's
+               `ms` from replaying a CUDA graph of the calls (`stream_ms`
+               back to back from the host, whose launch cost sets calls
+               this short).
                The selection-matmul fabric kernels, dense (B2) and
                banded (B3), on the same envelope at the served shape
                (C=4, B=512), with its TMR rows (12 rows, B=512), and on a
@@ -24,7 +27,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                sel times the events (a gather), beside the dense
                tensor-core product count (dense_product_bound_ms). The
                BDT kernel (B4) on the paper's chip at B=512 and
-               B=65,536: exact.
+               B=65,536, and on synthetic arrays that leave the one-hot
+               form (BDT_RECIPES: the kernel's literal path) or keep it at
+               extreme leaf values: exact. Its bound counts the walk (bytes
+               bound it), beside the product form's count.
   4. serve   — the readout server (ServerConfig() defaults, on cuda) takes
                8 FrameStream batches of 256 events per sensor from 4
                trained chips, hot-swaps chip 0 at batch 4 and flushes;
@@ -112,6 +118,39 @@ def time_ms(fn, reps=20, inner=5, warm=3):
     return float(np.median(samples))
 
 
+def graph_ms(fn, reps=20, inner=20):
+    """Median over `reps` CUDA-event samples of one replay of a CUDA
+    graph holding `inner` calls of `fn`, per call: the device's time
+    without the host's launch cost, which sets the back-to-back time of
+    a kernel of a few microseconds. `fn` must launch on the current
+    stream, read when it is called."""
+    import numpy as np
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        samples.append(a.elapsed_time(b) / inner)
+    return float(np.median(samples))
+
+
 def train_chip(seed, depth, leaves, threshold=0.97):
     """examples/serve_readout.py's chip recipe, through the port's copy of
     the synthesis toolchain."""
@@ -183,10 +222,11 @@ def check_k1(torch, yp):
 def check_k2(torch, np, bs, lut_ops, chips):
     """K2 on the 4-chip envelope against its twin, R=1 and R=3, at the
     served width (W=SERVED_B/32) and at W=256: exact, also on a TMR stack
-    with one upset replica. Times and bound at W=256."""
+    with one upset replica. Times and bound at both widths."""
     configs = [c.config for c in chips]
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(12)
+    n_luts = sum(c.n_luts for c in configs)
     out = {}
     for red in ("none", "tmr"):
         stack = lut_ops.pack_fabrics(configs, redundancy=red,
@@ -197,7 +237,6 @@ def check_k2(torch, np, bs, lut_ops, chips):
         upset = stack.tables.clone()
         if R > 1:
             upset[1, :, :8, ::3] = 1.0 - upset[1, :, :8, ::3]
-        tiles = {}
         for W in (SERVED_B // 32, K2_WORDS):
             bits = torch.as_tensor(
                 rng.integers(0, 2, (N_CHIPS, W * 32, stack.n_inputs)),
@@ -218,36 +257,40 @@ def check_k2(torch, np, bs, lut_ops, chips):
                                 "gave no disagreement words")
             C, _, in_seg = seg.shape
             L, M, O = stack.n_levels, stack.m_pad, stack.n_outputs
-            tiles[W] = bs.word_tile(R, in_seg + L * M, W, C, n_sms)
-        # timed on what the last pass left: the W=K2_WORDS inputs
-        args = (stack.src, stack.tables, stack.output_nets, seg, R)
-        n_luts = sum(c.n_luts for c in configs)
-        # least work: one LOP3 per two-way select (15 per replica, word
-        # and real LUT), 16 table-to-mask selects per replica and LUT, and
-        # per (word, output) one LOP3 for the 2-of-3 vote and one per
-        # replica for the disagreement word
-        ops = (15 * R * W * n_luts + 16 * R * n_luts
-               + (C * W * O * (1 + R) if R > 1 else 0))
-        nbytes = (seg.numel() * 4 + stack.src.numel() * 4
-                  + stack.tables.numel() * 4 + stack.output_nets.numel() * 4
-                  + C * W * O * 4 + C * R * W * 4)
-        t_ops, t_bytes = ops / INT_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-        tile = tiles[W]
-        voted = torch.empty((C, W, O), dtype=torch.int32, device="cuda")
-        dis = torch.empty((C, R, W), dtype=torch.int32, device="cuda")
-        out[f"R{R}"] = {
-            "words": W, "luts": n_luts, "in_seg": in_seg, "levels": L,
-            "m_pad": M, "outputs": O,
-            "tile": {str(w): t for w, t in tiles.items()},
-            "ms": time_ms(lambda: bs._launch(
-                stack.src, stack.tables, stack.output_nets, seg, voted,
-                dis, R, tile), inner=20),
-            "plain_ms": time_ms(lambda: bs.eval_seg_voted_plain(*args),
-                                reps=10, inner=1),
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops": ops, "bytes": nbytes,
-        }
+            tile = bs.word_tile(R, in_seg, L, M, W, C, n_sms)
+            scratch = bs.scratch_for(C, R, L, M, "cuda")
+            args = (stack.src, stack.tables, stack.output_nets, seg, R)
+            # least work: one LOP3 per two-way select (15 per replica,
+            # word and real LUT), 16 table-to-mask selects per replica and
+            # LUT, and per (word, output) one LOP3 for the 2-of-3 vote and
+            # one per replica for the disagreement word
+            ops = (15 * R * W * n_luts + 16 * R * n_luts
+                   + (C * W * O * (1 + R) if R > 1 else 0))
+            nbytes = (seg.numel() * 4 + stack.src.numel() * 4
+                      + stack.tables.numel() * 4
+                      + stack.output_nets.numel() * 4
+                      + C * W * O * 4 + C * R * W * 4)
+            t_ops, t_bytes = ops / INT_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+            voted = torch.empty((C, W, O), dtype=torch.int32, device="cuda")
+            dis = torch.empty((C, R, W), dtype=torch.int32, device="cuda")
+
+            def k2_call():
+                bs._launch(stack.src, stack.tables, stack.output_nets, seg,
+                           scratch, voted, dis, R, tile)
+            out[f"R{R}_W{W}"] = {
+                "words": W, "luts": n_luts, "in_seg": in_seg, "levels": L,
+                "m_pad": M, "outputs": O, "tile": tile,
+                # both passes, the descriptors and the walk: replayed from
+                # a CUDA graph, and back to back from the host, whose
+                # launch cost sets a call this short
+                "ms": graph_ms(k2_call),
+                "stream_ms": time_ms(k2_call, inner=20),
+                "plain_ms": time_ms(lambda: bs.eval_seg_voted_plain(*args),
+                                    reps=10, inner=1),
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "ops": ops, "bytes": nbytes,
+            }
     return {
         "name": "eval_words_voted",
         "route": "cuda",
@@ -393,47 +436,167 @@ def paper_chip():
     return ReadoutChip.build(clf, fabric="efpga_28nm"), te, tr
 
 
-def check_bdt(torch, np, bdt, bdt_ops, chip, X):
-    """B4 on the paper chip's golden ensemble against its twin, at B=512
-    and B=S5_CHUNK raw feature rows of X: exact. Times and bound at the
-    larger."""
-    packed = bdt_ops.pack_ensemble(chip.golden, X.shape[1], device="cuda")
-    arrays = (packed.featsel, packed.thr, packed.root_onehot, packed.left,
-              packed.right, packed.value_hi, packed.value_lo)
-    x_raw = chip.golden.quantize_features(X[:S5_CHUNK]).astype(np.int32)
-    for B in (SERVED_B, S5_CHUNK):
-        x = torch.as_tensor(x_raw[:B], device="cuda")
-        got = bdt.bdt_traverse(x, *arrays, depth=packed.depth)
-        want = bdt.bdt_traverse_plain(x, *arrays, depth=packed.depth)
-        torch.cuda.synchronize()
-        if got.shape != want.shape or not torch.equal(got, want):
-            fail("kernels", f"bdt_infer B={B}: {int((got != want).sum())} "
-                            "outputs differ from the twin")
+# ways to leave the one-hot form of ops.pack_ensemble's arrays (the
+# walk's precondition), and one that keeps it at extreme leaf values
+BDT_RECIPES = ("left_two_ones", "featsel_two_ones", "root_two",
+               "shared_node", "big_leaves")
+
+
+def bdt_nodes(np, left, right, root):
+    """The nodes the packed trees reach from their roots (children are
+    the argmax of a one-hot row), and the internal ones among them."""
+    seen, todo = set(), list(np.nonzero(root[0])[0])
+    while todo:
+        p = int(todo.pop())
+        if p not in seen:
+            seen.add(p)
+            todo += [int(np.argmax(left[p])), int(np.argmax(right[p]))]
+    reached = np.array(sorted(seen))
+    inner = reached[[left[p, p] != 1.0 for p in reached]]
+    return reached, inner
+
+
+def synthetic_ensemble(np, arrays, x, recipe, seed=0):
+    """A copy of packed BDT arrays (numpy, pack_ensemble's names and
+    shapes) and of raw features x broken as `recipe` says:
+      left_two_ones    the first root's left row gets a second 1 (its
+                       right child), so mass doubles down that path;
+      featsel_two_ones the first root's featsel column gets a second
+                       feature, and rows with int32-extreme values of the
+                       two are appended to x, so the MAC wraps;
+      root_two         the first root's entry is 2.0;
+      shared_node      a padding slot becomes one more root whose
+                       children are the first root's, so two trees reach
+                       the same nodes;
+      big_leaves       every reached leaf gets values near +-2^27 in all
+                       128 columns, split into hi/lo as the packer splits
+                       them (one-hot form kept).
+    Every sum stays an integer below 2^24, where any summation order
+    gives the same float32 result."""
+    a = {k: np.array(v, copy=True) for k, v in arrays.items()}
+    rng = np.random.default_rng(seed)
+    F, P = a["featsel"].shape
+    reached, inner = bdt_nodes(np, a["left"], a["right"], a["root_onehot"])
+    r0 = int(np.nonzero(a["root_onehot"][0])[0][0])
+    lc, rc = int(np.argmax(a["left"][r0])), int(np.argmax(a["right"][r0]))
+    f0 = int(np.argmax(a["featsel"][:, r0]))
+    if recipe == "left_two_ones":
+        a["left"][r0, rc] = 1.0
+    elif recipe == "featsel_two_ones":
+        f1 = (f0 + 1) % F
+        a["featsel"][f1, r0] = 1
+        ext = np.array([2**31 - 1, -2**31, 2**30, -2**30, 1, -1], np.int64)
+        rows = x[:48].astype(np.int64)
+        rows[:, f0] = rng.choice(ext, len(rows))
+        rows[:, f1] = rng.choice(ext, len(rows))
+        x = np.concatenate([x, rows.astype(np.int32)])
+    elif recipe == "root_two":
+        a["root_onehot"][0, r0] = 2.0
+    elif recipe == "shared_node":
+        q = int(reached.max()) + 1
+        if q >= P:
+            raise ValueError("no padding slot for a shared-node tree")
+        a["root_onehot"][0, q] = 1.0
+        a["featsel"][f0, q] = 1
+        a["thr"][0, q] = a["thr"][0, r0]
+        a["left"][q] = 0.0
+        a["right"][q] = 0.0
+        a["left"][q, lc] = 1.0
+        a["right"][q, rc] = 1.0
+    elif recipe == "big_leaves":
+        leaves = np.setdiff1d(reached, inner)
+        mag = rng.integers(2**27 - 2**20, 2**27, (len(leaves), 128))
+        value = mag * rng.choice([-1, 1], mag.shape)
+        a["value_hi"][leaves] = (value >> 14).astype(np.float32)
+        a["value_lo"][leaves] = (value & 0x3FFF).astype(np.float32)
+    else:
+        raise ValueError(f"unknown recipe {recipe!r}")
+    return a, x
+
+
+def bdt_counts(bdt, x, arrays, depth):
+    """Bytes and operations of one B4 call on these inputs: x in, every
+    array once, the (B, 128) output out; per event and tree `depth`
+    compare/select pairs and 2 x 128 readout adds, per event 128
+    shift-adds; and the dense product count of the TPU's form."""
     B, F = x.shape
-    P, depth = packed.featsel.shape[1], packed.depth
-    # multiply-adds per event: feature select, 2 routing products per
-    # step, the two readout products
-    flops = 2 * B * (F * P + depth * 2 * P * P + 2 * P * bdt.OUT_COLS)
+    P = arrays[0].shape[1]
+    n_trees = int((arrays[2] != 0).sum())
     nbytes = (x.numel() * 4 + sum(a.numel() * 4 for a in arrays)
               + B * bdt.OUT_COLS * 4)
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    int_ops = B * (n_trees * depth * 2 + bdt.OUT_COLS * 2)
+    adds = B * n_trees * 2 * bdt.OUT_COLS
+    # an FMA counts as two operations in the float32 peak, an add as one
+    t_ops = int_ops / INT_OPS_PER_S + adds / (FP32_OPS_PER_S / 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    # multiply-adds per event of the product form: feature select, 2
+    # routing products per step, the two readout products
+    flops = 2 * B * (F * P + depth * 2 * P * P + 2 * P * bdt.OUT_COLS)
+    return {
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "dense_product_bound_ms": max(flops / BF16_FLOPS_PER_S,
+                                      t_bytes) * 1e3,
+        "trees": n_trees, "ops": int_ops + adds, "bytes": nbytes,
+        "dense_product_flops": flops,
+    }
+
+
+def check_bdt(torch, np, bdt, bdt_ops, chip, X):
+    """B4 on the paper chip's golden ensemble against its twin, at B=512
+    and B=S5_CHUNK raw feature rows of X, and at B=512 on each of
+    BDT_RECIPES' synthetic arrays: exact. Times and bound at the larger."""
+    packed = bdt_ops.pack_ensemble(chip.golden, X.shape[1], device="cuda")
+    names = ("featsel", "thr", "root_onehot", "left", "right", "value_hi",
+             "value_lo")
+    arrays = tuple(getattr(packed, k) for k in names)
+    depth = packed.depth
+    x_raw = chip.golden.quantize_features(X[:S5_CHUNK]).astype(np.int32)
+
+    def held(what, x, arrays):
+        got = bdt.bdt_traverse(x, *arrays, depth=depth)
+        want = bdt.bdt_traverse_plain(x, *arrays, depth=depth)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail("kernels", f"bdt_infer {what}: {int((got != want).sum())} "
+                            "outputs differ from the twin")
+        return got
+
+    host = {k: a.cpu().numpy() for k, a in zip(names, arrays)}
+    synthetic = {}
+    for recipe in BDT_RECIPES:
+        a, xs = synthetic_ensemble(np, host, x_raw[:SERVED_B], recipe)
+        got = held(recipe, torch.as_tensor(xs, device="cuda"),
+                   tuple(torch.as_tensor(a[k], device="cuda")
+                         for k in names))
+        synthetic[recipe] = {"events": len(xs),
+                             "nonzero_columns": int((got != 0).any(0).sum())}
+    for B in (SERVED_B, S5_CHUNK):
+        x = torch.as_tensor(x_raw[:B], device="cuda")
+        got = held(f"B={B}", x, arrays)
+    B, P = x.shape[0], packed.featsel.shape[1]
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    tile = bdt.bdt_tile(P, B, n_sms)
+    tile = bdt.bdt_tile(P, x.shape[1], B, n_sms)
     out = torch.empty_like(got)
+    scratch = bdt.scratch_for(P, x.device)
+
+    def b4_call():
+        bdt._launch(x, *arrays, scratch, out, depth, tile)
     return {
         "name": "bdt_infer",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bdt_infer.cu",
         "replaces": "src/repro/kernels/bdt_infer/bdt_infer.py:68",
-        "checked_batches": [SERVED_B, S5_CHUNK], "nodes": P, "depth": depth,
-        "tile": tile, "max_abs_err": 0.0,
-        "ms": time_ms(lambda: bdt._launch(x, *arrays, out, depth, tile)),
+        "checked_batches": [SERVED_B, S5_CHUNK], "synthetic": synthetic,
+        "nodes": P, "depth": depth, "tile": tile, "max_abs_err": 0.0,
+        # both passes, the node table and the walk: replayed from a CUDA
+        # graph, and back to back from the host (host-bound at this size)
+        "ms": graph_ms(b4_call),
+        "stream_ms": time_ms(b4_call),
         "plain_ms": time_ms(lambda: bdt.bdt_traverse_plain(
             x, *arrays, depth=depth), reps=10, inner=1),
         "library_ms": None,
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "flops": flops, "bytes": nbytes,
+        **bdt_counts(bdt, x, arrays, depth),
     }
 
 
@@ -712,7 +875,7 @@ def main():
     # K2's row carries the times of its R=3 (TMR) run; K1 and K2 count
     # their launches in the served stream, B2-B4 in the §5 check
     for k, t, n in ((k1, k1, runs["none"]["launches"]["yprofile"]),
-                    (k2, k2["runs"]["R3"],
+                    (k2, k2["runs"][f"R3_W{K2_WORDS}"],
                      runs["none"]["launches"]["eval_words_voted"]),
                     (b2, b2, s5_launches["lut_eval"]),
                     (b3, b3, s5_launches["lut_eval_banded"]),
@@ -734,6 +897,13 @@ def main():
         row.update({key: s5_runs[layout][key] for key in (
             "chunk_kernel_ms", "chunk_plain_ms", "chunk_bound_ms",
             "chunk_dense_product_bound_ms")})
+    # K2 at every checked width and replica count; B4's product-form bound
+    kernels[1]["runs"] = {
+        key: {k: r[k] for k in ("tile", "ms", "stream_ms", "plain_ms",
+                                "bound_ms", "bound_by")}
+        for key, r in k2["runs"].items()}
+    kernels[4]["dense_product_bound_ms"] = b4["dense_product_bound_ms"]
+    kernels[4]["stream_ms"] = b4["stream_ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,10 @@ matrices, leaves and padding self-loop):
 Leaf values are split into 14-bit halves so that the float32 products
 stay integer-exact (|value_raw| < 2**27). ``bdt_traverse`` launches
 csrc/bdt_infer.cu on CUDA tensors (counted in ``bdt_traverse.launches``)
-and runs the plain twin ``bdt_traverse_plain`` on CPU tensors.
+and runs the plain twin ``bdt_traverse_plain`` on CPU tensors. The
+kernel walks each event down its trees where the arrays are in the
+one-hot form the packing makes, and runs these products literally where
+they are not; either way it equals the twin bit for bit.
 
 Array contract (ops.pack_ensemble):
   x        (B, F)    int32 raw fixed-point features
@@ -32,7 +35,12 @@ import torch
 from repro_torch.kernels import build
 
 OUT_COLS = 128
-TILES = (32, 16, 8)
+# events per block (multiples of the kernel's 8-event literal sub-tile)
+TILES = (128, 64, 32, 16, 8)
+# blocks per SM the tile rule aims for (8 warps each; 4 fit at once)
+BLOCKS_PER_SM = 3
+# scratch the launch rebuilds: a 16-byte table entry and a meta word a node
+SCRATCH_BYTES_PER_NODE = 20
 
 
 def _wrap_int32(v: torch.Tensor) -> torch.Tensor:
@@ -66,24 +74,36 @@ def bdt_traverse_plain(x, featsel, thr, root, left, right, value_hi,
     return _wrap_int32((hi << 14) + lo)
 
 
-def bdt_tile(n_nodes: int, n_events: int, n_sms: int = 1) -> int:
-    """Events per block: the largest of TILES whose 4 x P x tile f32
-    working set fits in shared memory and that still gives every one of
-    ``n_sms`` SMs a block; else the smallest that fits."""
-    fits = [t for t in TILES
-            if 4 * n_nodes * t * 4 <= build.SMEM_LIMIT_BYTES]
+def smem_bytes(n_nodes: int, n_features: int, tile: int) -> int:
+    """Dynamic shared memory of a block of ``tile`` events
+    (csrc/bdt_infer.cu bdt_infer_smem_bytes): the larger of the literal
+    body's 4 x P x 8 f32 and the walk's node table, segments, roots, root
+    bits and the tile's features."""
+    walk = 24 * n_nodes + 4 * -(-n_nodes // 32) + 4 * tile * n_features
+    return max(walk, 4 * n_nodes * 8 * 4)
+
+
+def bdt_tile(n_nodes: int, n_features: int, n_events: int,
+             n_sms: int = 1) -> int:
+    """Events per block: the largest of TILES whose ``smem_bytes`` fit
+    and that still gives every one of ``n_sms`` SMs BLOCKS_PER_SM blocks,
+    else the smallest that fits."""
+    fits = [t for t in TILES if smem_bytes(n_nodes, n_features, t)
+            <= build.SMEM_LIMIT_BYTES]
     if not fits:
         raise ValueError(
-            f"{n_nodes} padded nodes x {TILES[-1]} events x 4 arrays x 4 B "
-            f"exceed {build.SMEM_LIMIT_BYTES} B of shared memory")
+            f"a {TILES[-1]}-event block ({n_nodes} padded nodes, "
+            f"{n_features} features: "
+            f"{smem_bytes(n_nodes, n_features, TILES[-1])} B) exceeds "
+            f"{build.SMEM_LIMIT_BYTES} B of shared memory")
     for t in fits:
-        if -(-n_events // t) >= n_sms:
+        if -(-n_events // t) >= BLOCKS_PER_SM * n_sms:
             return t
     return fits[-1]
 
 
-def _launch(x, featsel, thr, root, left, right, value_hi, value_lo, out,
-            depth, tile) -> None:
+def _launch(x, featsel, thr, root, left, right, value_hi, value_lo,
+            scratch, out, depth, tile) -> None:
     lib = build.load("bdt_infer")
     B, F = x.shape
     P = featsel.shape[1]
@@ -91,8 +111,16 @@ def _launch(x, featsel, thr, root, left, right, value_hi, value_lo, out,
     code = lib.bdt_infer_launch(
         x.data_ptr(), featsel.data_ptr(), thr.data_ptr(), root.data_ptr(),
         left.data_ptr(), right.data_ptr(), value_hi.data_ptr(),
-        value_lo.data_ptr(), out.data_ptr(), B, F, P, depth, tile, stream)
+        value_lo.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, F, P,
+        depth, tile, stream)
     build.check(lib, code, "bdt_infer kernel")
+
+
+def scratch_for(n_nodes: int, device) -> torch.Tensor:
+    """The node-table scratch one launch rebuilds (int32, 16-byte
+    aligned as torch allocates)."""
+    return torch.empty(SCRATCH_BYTES_PER_NODE * n_nodes // 4,
+                       dtype=torch.int32, device=device)
 
 
 def bdt_traverse(x, featsel, thr, root, left, right, value_hi, value_lo,
@@ -121,9 +149,10 @@ def bdt_traverse(x, featsel, thr, root, left, right, value_hi, value_lo,
         raise ValueError("expected int32 x/featsel/thr, f32 root/left/"
                          "right/value_hi/value_lo")
     n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tile = bdt_tile(P, B, n_sms)
+    tile = bdt_tile(P, F, B, n_sms)
     out = torch.empty((B, OUT_COLS), dtype=torch.int32, device=x.device)
-    _launch(*[build.aligned(t) for t in arrays], out, depth, tile)
+    _launch(*[build.aligned(t) for t in arrays], scratch_for(P, x.device),
+            out, depth, tile)
     bdt_traverse.launches += 1
     return out
 

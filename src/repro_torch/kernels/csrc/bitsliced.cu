@@ -13,22 +13,45 @@
 // tables are read whatever the word count, so on the 4-chip envelope the
 // bytes decide the bound at R=1 at every width and at R=3 up to about 600
 // words per chip, the integer operations beyond; at the served widths
-// either bound is under a microsecond, and what limits this kernel is the
-// latency of its per-level loads and barriers. Design: a block owns one logical chip and
-// a tile of `tile` words, and
-// keeps the whole net buffer of all R replicas for that tile in dynamic
-// shared memory (R * n_nets * tile * 4 bytes, opted in above 48 KB), so
-// the level walk never touches device memory except to read each LUT's
-// four source indices and truth table. Levels run in order with a
-// barrier between them; inside a level every thread takes (replica, LUT,
-// word) items, word fastest, so the `tile` threads of one LUT read
-// adjacent words of the same source nets. What limits it is the latency
-// of those per-LUT loads, paid once per serial pass of a level: blocks of
-// 1,024 threads make a level one pass (R=1) or three (R=3) at the tile
-// the wrapper picks, and the wrapper narrows the tile until every SM has
-// a block. The truth table's 16 entries become all-ones / all-zeros masks
-// (`table > 0.5`), and the mux tree is the one of bitsliced.py:141-143,
-// on unsigned words (the torch side carries them as int32 bit patterns).
+// either bound is under a microsecond. What limits the kernel is the
+// latency of its 13 dependent levels.
+//
+// Design. A level computes in a few hundred cycles, less than one read
+// of device memory (L2 included) takes, so no level may wait on one: a
+// copy issued one level ahead still stalls every level (measured: a
+// first form of this design, which staged each level's descriptors a
+// level ahead, ran no faster than the per-item loads it replaced). So
+// the walk reads device memory once, before its first level. Two passes
+// on one stream:
+//  1. desc_kernel, a thread per (replica row, level, LUT) of the stack:
+//     the LUT's descriptor, its four source nets as 16-bit indices into
+//     the block's net buffer (two per 32-bit word) and its truth table
+//     as a 16-bit mask (entry k set iff table[k] > 0.5), into a scratch
+//     buffer the wrapper passes, each chip's descriptors contiguous.
+//     Every launch converts every LUT once: the tables change in place
+//     (hot swap, scrubbing, upsets).
+//  2. eval_words_voted_kernel, launched as a programmatic dependent of
+//     pass 1: a block owns one logical chip and a tile of `tile` words.
+//     It copies its input words into shared memory while pass 1 runs,
+//     waits for it (griddepcontrol.wait), then copies its chip's
+//     descriptors for every level and replica (10 bytes a LUT, 50 KB on
+//     the TMR envelope) into shared memory with cp.async. The net buffer
+//     of the tile is there too: [tile][in_seg + R*L*M] words, the input
+//     segment once (the replicas share it), then each replica's level
+//     slots; the descriptors' indices already point into that layout.
+//     The levels then run from shared memory alone, one barrier each. A
+//     thread owns one (replica, LUT) slot and a group of the tile's
+//     words: the block has R*M*groups threads (at most 1,024), groups =
+//     min(tile, 1024 / (R*M)), and each thread runs the mux tree for its
+//     ceil(tile / groups) words from one descriptor read. Its slot is the
+//     same at every level, so its indices are worked out once and the
+//     next level's descriptor is read while this one computes. Adjacent
+//     threads take adjacent LUTs, so a level's writes fall in distinct
+//     banks. The mux tree is the one of bitsliced.py:141-143 on unsigned
+//     words (the torch side carries them as int32 bit patterns). The
+//     output phase takes (word, output) items, output fastest, so the
+//     voted words go out coalesced; the disagreement words gather by
+//     shared-memory atomicOr.
 //
 // Padded LUT slots read net 0 (const0) with an all-zero table, so they
 // write 0. Const1 is all ones in every lane, tail lanes included; the
@@ -39,99 +62,213 @@
 namespace {
 
 constexpr int kThreads = 1024;
+constexpr int kDescThreads = 256;
 
 __device__ __forceinline__ uint32_t mux(uint32_t s, uint32_t hi,
                                         uint32_t lo) {
   return (s & hi) | (~s & lo);
 }
 
-__device__ __forceinline__ uint32_t mask(float t) {
-  return t > 0.5f ? 0xFFFFFFFFu : 0u;
+// all ones where truth-table entry k is set
+__device__ __forceinline__ uint32_t entry(uint32_t mk, int k) {
+  return 0u - ((mk >> k) & 1u);
 }
 
+__device__ __forceinline__ uint32_t bit(float t, int k) {
+  return t > 0.5f ? 1u << k : 0u;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// descriptors (uint2) and masks (uint16) of one chip, padded to 16 bytes
+__host__ __device__ __forceinline__ long long desc_stride(int R, int L,
+                                                          int M) {
+  return ((long long)R * L * M + 1) / 2 * 2;
+}
+__host__ __device__ __forceinline__ long long mask_stride(int R, int L,
+                                                          int M) {
+  return ((long long)R * L * M + 7) / 8 * 8;
+}
+
+// Pass 1: one descriptor per (row, level, LUT) of the stack.
+__global__ void __launch_bounds__(kDescThreads)
+desc_kernel(const int4* __restrict__ src,       // (R*C, L, M)
+            const float4* __restrict__ tables,  // (R*C, L, M, 4)
+            uint2* __restrict__ desc,           // (C, desc_stride)
+            uint16_t* __restrict__ masks,       // (C, mask_stride)
+            int C, int R, int in_seg, int L, int M) {
+  // the walk may launch now: it waits for this grid before it reads
+  // the descriptors
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const long long n = (long long)C * R * L * M;
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  const long long LM = (long long)L * M;
+  const int row = (int)(k / LM);
+  const int c = row / R, r = row - c * R;
+  const long long within = (long long)r * LM + (k - (long long)row * LM);
+  // a level net of replica r lies after the shared input segment and the
+  // level slots of replicas 0..r-1
+  const int shift = r * L * M;
+  const int4 s = src[k];
+  const uint32_t s0 = s.x < in_seg ? s.x : s.x + shift;
+  const uint32_t s1 = s.y < in_seg ? s.y : s.y + shift;
+  const uint32_t s2 = s.z < in_seg ? s.z : s.z + shift;
+  const uint32_t s3 = s.w < in_seg ? s.w : s.w + shift;
+  desc[c * desc_stride(R, L, M) + within] =
+      make_uint2(s0 | (s1 << 16), s2 | (s3 << 16));
+  uint32_t mk = 0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 q = tables[k * 4 + j];
+    mk |= bit(q.x, 4 * j) | bit(q.y, 4 * j + 1) | bit(q.z, 4 * j + 2) |
+          bit(q.w, 4 * j + 3);
+  }
+  masks[c * mask_stride(R, L, M) + within] = (uint16_t)mk;
+}
+
+// One LUT over words [t0, t1) of the tile: its four source words, the mux
+// tree of bitsliced.py:141-143, the result into slot `out_net`.
+__device__ __forceinline__ void walk_words(uint32_t* vals, int n_tot, uint2 d,
+                                           uint32_t mk, int out_net, int t0,
+                                           int t1) {
+  const int a0 = d.x & 0xFFFF, a1 = d.x >> 16;
+  const int a2 = d.y & 0xFFFF, a3 = d.y >> 16;
+  uint32_t e[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) e[k] = entry(mk, k);
+  for (int t = t0; t < t1; ++t) {
+    uint32_t* Vt = vals + (size_t)t * n_tot;
+    const uint32_t s0 = Vt[a0], s1 = Vt[a1], s2 = Vt[a2], s3 = Vt[a3];
+    // select on in0: r_j = s0 ? t[2j+1] : t[2j]
+    const uint32_t r0 = mux(s0, e[1], e[0]), r1 = mux(s0, e[3], e[2]);
+    const uint32_t r2 = mux(s0, e[5], e[4]), r3 = mux(s0, e[7], e[6]);
+    const uint32_t r4 = mux(s0, e[9], e[8]), r5 = mux(s0, e[11], e[10]);
+    const uint32_t r6 = mux(s0, e[13], e[12]), r7 = mux(s0, e[15], e[14]);
+    // select on in1, in2, in3
+    const uint32_t p0 = mux(s1, r1, r0), p1 = mux(s1, r3, r2);
+    const uint32_t p2 = mux(s1, r5, r4), p3 = mux(s1, r7, r6);
+    const uint32_t u0 = mux(s2, p1, p0), u1 = mux(s2, p3, p2);
+    Vt[out_net] = mux(s3, u1, u0);
+  }
+}
+
+// Pass 2: the level walk of one chip and one tile of words.
 __global__ void __launch_bounds__(kThreads)
 eval_words_voted_kernel(const uint32_t* __restrict__ in_words,  // (C, W, in_seg)
-                        const int4* __restrict__ src,           // (R*C, L, M)
-                        const float4* __restrict__ tables,      // (R*C, L, M, 4)
+                        const uint2* __restrict__ desc,         // (C, desc_stride)
+                        const uint16_t* __restrict__ masks,     // (C, mask_stride)
                         const int* __restrict__ output_nets,    // (R*C, O)
                         uint32_t* __restrict__ voted,           // (C, W, O)
                         uint32_t* __restrict__ dis,             // (C, R, W)
                         int R, int W, int in_seg, int L, int M, int O,
                         int tile) {
-  extern __shared__ uint32_t vals[];       // [R][n_nets][tile]
+  extern __shared__ __align__(16) unsigned char smem[];
   const int c = blockIdx.y;
-  const int w0 = blockIdx.x * tile;
-  const int n_nets = in_seg + L * M;
   const int T = tile;
+  const int w0 = blockIdx.x * T;
+  const int nT = min(T, W - w0);
+  const int RM = R * M, LM = L * M;
+  const int n_tot = in_seg + R * LM;
+  const long long dst = desc_stride(R, L, M), mst = mask_stride(R, L, M);
+  uint2* desc_s = reinterpret_cast<uint2*>(smem);                  // [R][L][M]
+  uint16_t* msk_s = reinterpret_cast<uint16_t*>(desc_s + dst);      // [R][L][M]
+  uint32_t* vals = reinterpret_cast<uint32_t*>(msk_s + mst);        // [T][n_tot]
+  uint32_t* dis_s = vals + (size_t)T * n_tot;                       // [R][T]
+  const int tid = threadIdx.x, bd = blockDim.x;
 
-  // input segment (const0 | const1 | input bits | pad), shared by the
-  // replicas of this chip; words past W are zero and never stored back
-  for (int idx = threadIdx.x; idx < in_seg * T; idx += blockDim.x) {
+  // the input segment and the zeroed dis words while the descriptor
+  // pass may still run; then this chip's descriptors and masks for every
+  // level
+  for (int idx = tid; idx < nT * in_seg; idx += bd) {
     const int t = idx / in_seg, net = idx - t * in_seg;
-    const int w = w0 + t;
-    const uint32_t v =
-        w < W ? in_words[((size_t)c * W + w) * in_seg + net] : 0u;
-    for (int r = 0; r < R; ++r) vals[((size_t)r * n_nets + net) * T + t] = v;
+    vals[(size_t)t * n_tot + net] =
+        in_words[((size_t)c * W + w0 + t) * in_seg + net];
   }
+  for (int i = tid; i < R * T; i += bd) dis_s[i] = 0u;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  {
+    const char* dg = reinterpret_cast<const char*>(desc + c * dst);
+    char* ds = reinterpret_cast<char*>(desc_s);
+    for (long long u = tid; u < dst / 2; u += bd)
+      cp_async16(ds + 16 * u, dg + 16 * u);
+    const char* mg = reinterpret_cast<const char*>(masks + c * mst);
+    char* ms = reinterpret_cast<char*>(msk_s);
+    for (long long u = tid; u < mst / 8; u += bd)
+      cp_async16(ms + 16 * u, mg + 16 * u);
+  }
+  cp_async_wait_all();
   __syncthreads();
 
-  const int items = R * M * T;
-  for (int l = 0; l < L; ++l) {
-    const int base = in_seg + l * M;
-    for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
-      const int t = idx % T;
-      const int rm = idx / T;
-      const int m = rm % M, r = rm / M;
-      const size_t lut = ((size_t)(c * R + r) * L + l) * M + m;
-      const int4 s = src[lut];
-      const float4* tb = tables + lut * 4;
-      const float4 q0 = tb[0], q1 = tb[1], q2 = tb[2], q3 = tb[3];
-      uint32_t* V = vals + (size_t)r * n_nets * T;
-      const uint32_t s0 = V[s.x * T + t], s1 = V[s.y * T + t];
-      const uint32_t s2 = V[s.z * T + t], s3 = V[s.w * T + t];
-      // select on in0: r_j = s0 ? t[2j+1] : t[2j]
-      const uint32_t r0 = mux(s0, mask(q0.y), mask(q0.x));
-      const uint32_t r1 = mux(s0, mask(q0.w), mask(q0.z));
-      const uint32_t r2 = mux(s0, mask(q1.y), mask(q1.x));
-      const uint32_t r3 = mux(s0, mask(q1.w), mask(q1.z));
-      const uint32_t r4 = mux(s0, mask(q2.y), mask(q2.x));
-      const uint32_t r5 = mux(s0, mask(q2.w), mask(q2.z));
-      const uint32_t r6 = mux(s0, mask(q3.y), mask(q3.x));
-      const uint32_t r7 = mux(s0, mask(q3.w), mask(q3.z));
-      // select on in1, in2, in3
-      const uint32_t p0 = mux(s1, r1, r0), p1 = mux(s1, r3, r2);
-      const uint32_t p2 = mux(s1, r5, r4), p3 = mux(s1, r7, r6);
-      const uint32_t u0 = mux(s2, p1, p0), u1 = mux(s2, p3, p2);
-      V[(size_t)(base + m) * T + t] = mux(s3, u1, u0);
+  const int groups = min(T, max(1, bd / RM));
+  const int G = (T + groups - 1) / groups;
+  const int n_slots = RM * groups;
+  if (n_slots > bd) {
+    // more (replica, LUT) slots than threads (R*M > 1024)
+    for (int l = 0; l < L; ++l) {
+      for (int sl = tid; sl < n_slots; sl += bd) {
+        const int g = sl / RM, i = sl - g * RM;
+        const int r = i / M, m = i - r * M;
+        const size_t at = (size_t)r * LM + (size_t)l * M + m;
+        walk_words(vals, n_tot, desc_s[at], msk_s[at],
+                   in_seg + r * LM + l * M + m, g * G, min(g * G + G, nT));
+      }
+      __syncthreads();
     }
-    __syncthreads();
+  } else {
+    // one slot a thread, the same at every level: its indices worked out
+    // once, the next level's descriptor read while this one computes
+    const bool has = tid < n_slots;
+    const int g = tid / RM, i = tid - g * RM;
+    const int r = i / M, m = i - r * M;
+    const int t0 = g * G, t1 = min(t0 + G, nT);
+    const size_t at0 = (size_t)r * LM + m;
+    const int out0 = in_seg + r * LM + m;
+    uint2 d = has ? desc_s[at0] : make_uint2(0u, 0u);
+    uint32_t mk = has ? msk_s[at0] : 0u;
+    for (int l = 0; l < L; ++l) {
+      const size_t nx = at0 + (size_t)(l + 1 < L ? l + 1 : l) * M;
+      const uint2 dn = has ? desc_s[nx] : d;
+      const uint32_t mn = has ? msk_s[nx] : mk;
+      if (has) walk_words(vals, n_tot, d, mk, out0 + l * M, t0, t1);
+      __syncthreads();
+      d = dn;
+      mk = mn;
+    }
   }
 
   // output gather, 2-of-3 vote, replica-vs-vote disagreement words
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    const int w = w0 + t;
-    if (w >= W) continue;
-    uint32_t d0 = 0u, d1 = 0u, d2 = 0u;
-    for (int o = 0; o < O; ++o) {
-      const uint32_t a = vals[(size_t)output_nets[(c * R) * O + o] * T + t];
-      uint32_t v = a;
-      if (R == 3) {
-        const uint32_t b = vals[((size_t)n_nets +
-                                 output_nets[(c * R + 1) * O + o]) * T + t];
-        const uint32_t e = vals[((size_t)2 * n_nets +
-                                 output_nets[(c * R + 2) * O + o]) * T + t];
-        v = (a & b) | (a & e) | (b & e);
-        d1 |= b ^ v;
-        d2 |= e ^ v;
-      }
-      d0 |= a ^ v;
-      voted[((size_t)c * W + w) * O + o] = v;
+  for (int idx = tid; idx < nT * O; idx += bd) {
+    const int t = idx / O, o = idx - t * O;
+    const uint32_t* Vt = vals + (size_t)t * n_tot;
+    uint32_t got[3];
+    for (int r = 0; r < R; ++r) {
+      const int n = output_nets[(size_t)(c * R + r) * O + o];
+      got[r] = Vt[n < in_seg ? n : n + r * LM];
     }
-    dis[((size_t)c * R + 0) * W + w] = d0;
+    uint32_t v = got[0];
     if (R == 3) {
-      dis[((size_t)c * R + 1) * W + w] = d1;
-      dis[((size_t)c * R + 2) * W + w] = d2;
+      v = (got[0] & got[1]) | (got[0] & got[2]) | (got[1] & got[2]);
+      if (got[1] ^ v) atomicOr(dis_s + T + t, got[1] ^ v);
+      if (got[2] ^ v) atomicOr(dis_s + 2 * T + t, got[2] ^ v);
     }
+    if (got[0] ^ v) atomicOr(dis_s + t, got[0] ^ v);
+    voted[((size_t)c * W + w0 + t) * O + o] = v;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < R * nT; idx += bd) {
+    const int r = idx / nT, t = idx - r * nT;
+    dis[((size_t)c * R + r) * W + w0 + t] = dis_s[r * T + t];
   }
 }
 
@@ -139,34 +276,77 @@ eval_words_voted_kernel(const uint32_t* __restrict__ in_words,  // (C, W, in_seg
 
 extern "C" {
 
+// Scratch bytes for the descriptors of C chips (the wrapper allocates
+// them): 8 bytes of source nets and 2 of mask a LUT, each chip padded.
+long long eval_words_voted_scratch_bytes(int C, int R, int L, int M) {
+  return (long long)C * (desc_stride(R, L, M) * 8 + mask_stride(R, L, M) * 2);
+}
+
 // Shared-memory bytes a block needs for `tile` words (the wrapper sizes
-// the tile from this and the device limit).
-long long eval_words_voted_smem_bytes(int R, int n_nets, int tile) {
-  return (long long)R * n_nets * tile * 4;
+// the tile from this and the device limit): the chip's descriptors and
+// masks, the net buffer [tile][in_seg + R*L*M] and the dis words.
+long long eval_words_voted_smem_bytes(int R, int in_seg, int L, int M,
+                                      int tile) {
+  return desc_stride(R, L, M) * 8 + mask_stride(R, L, M) * 2 +
+         (long long)tile * (in_seg + (long long)R * L * M) * 4 +
+         (long long)R * tile * 4;
 }
 
 // in_words (C, W, in_seg) i32; src (R*C, L, M, 4) i32; tables
-// (R*C, L, M, 16) f32; output_nets (R*C, O) i32 -> voted (C, W, O) i32,
-// dis (C, R, W) i32. R is 1 or 3. Launches on `stream`; returns
+// (R*C, L, M, 16) f32; output_nets (R*C, O) i32; scratch of
+// eval_words_voted_scratch_bytes, 16-byte aligned -> voted (C, W, O) i32,
+// dis (C, R, W) i32. R is 1 or 3; in_seg + R*L*M < 65536 (one word's
+// buffer in shared memory already bounds it to about 58,000); src and
+// tables 16-byte aligned. Launches both passes on `stream`; returns
 // cudaGetLastError (or the cudaFuncSetAttribute error).
 int eval_words_voted_launch(const void* in_words, const void* src,
                             const void* tables, const void* output_nets,
-                            void* voted, void* dis, int C, int R, int W,
-                            int in_seg, int L, int M, int O, int tile,
-                            void* stream) {
+                            void* scratch, void* voted, void* dis, int C,
+                            int R, int W, int in_seg, int L, int M, int O,
+                            int tile, void* stream) {
   if (C <= 0 || W <= 0) return 0;
-  const long long smem =
-      eval_words_voted_smem_bytes(R, in_seg + L * M, tile);
-  cudaError_t err = cudaFuncSetAttribute(
-      eval_words_voted_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if (tile <= 0 || L <= 0 || M <= 0 ||
+      in_seg + (long long)R * L * M >= 65536)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  uint2* desc = (uint2*)scratch;
+  uint16_t* masks = (uint16_t*)(desc + (long long)C * desc_stride(R, L, M));
+  const long long n = (long long)C * R * L * M;
+  desc_kernel<<<(unsigned)((n + kDescThreads - 1) / kDescThreads),
+                kDescThreads, 0, s>>>((const int4*)src,
+                                      (const float4*)tables, desc, masks, C,
+                                      R, in_seg, L, M);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + tile - 1) / tile, C);
-  eval_words_voted_kernel<<<grid, kThreads, (size_t)smem,
-                            (cudaStream_t)stream>>>(
-      (const uint32_t*)in_words, (const int4*)src, (const float4*)tables,
-      (const int*)output_nets, (uint32_t*)voted, (uint32_t*)dis, R, W,
-      in_seg, L, M, O, tile);
+  const long long smem = eval_words_voted_smem_bytes(R, in_seg, L, M, tile);
+  err = cudaFuncSetAttribute(eval_words_voted_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int RM = R * M;
+  int groups = kThreads / RM;
+  groups = groups < 1 ? 1 : (groups > tile ? tile : groups);
+  long long threads = (long long)RM * groups;
+  threads = (threads + 31) / 32 * 32;
+  if (threads > kThreads) threads = kThreads;
+  // programmatic dependent launch: the walk's blocks start (and copy
+  // their input words) while the descriptor pass runs
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((W + tile - 1) / tile, C);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, eval_words_voted_kernel,
+                           (const uint32_t*)in_words, (const uint2*)desc,
+                           (const uint16_t*)masks, (const int*)output_nets,
+                           (uint32_t*)voted, (uint32_t*)dis, R, W, in_seg, L,
+                           M, O, tile);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -18,8 +18,9 @@ of an int32 is arithmetic, so every shift here is masked to the bits it
 keeps.
 
 ``eval_seg_voted`` is the kernel wrapper: the level walk, vote and
-disagreement words in one CUDA launch (csrc/bitsliced.cu) on CUDA tensors,
-the plain twin ``eval_seg_voted_plain`` on CPU tensors.
+disagreement words in one kernel call (csrc/bitsliced.cu: a descriptor
+pass, then the walk) on CUDA tensors, the plain twin
+``eval_seg_voted_plain`` on CPU tensors.
 
 Array contract (the ``layout="bitsliced"`` packing, ops.py):
   src         (R*C, L, M, 4)  int32 — per-LUT source nets in the padded
@@ -142,32 +143,69 @@ def eval_seg_voted_plain(
     return voted_w, dis_w
 
 
-def word_tile(n_replicas: int, n_nets: int, n_words: int, n_chips: int = 1,
-              n_sms: int = 1) -> int:
-    """Words per block: as many as the net buffers of all replicas fit in
-    shared memory, at most MAX_TILE, and no more than leaves every one of
-    ``n_sms`` SMs a block of the ``n_chips`` x ``n_words`` grid."""
-    per_word = n_replicas * n_nets * 4
-    fit = build.SMEM_LIMIT_BYTES // per_word
+def _chip_desc_bytes(n_replicas: int, n_levels: int, m_pad: int) -> int:
+    """One chip's descriptors in the kernel's layout: 8 bytes of source
+    nets and 2 of mask a LUT, each array padded to 16 bytes."""
+    n = n_replicas * n_levels * m_pad
+    return -(-n // 2) * 2 * 8 + -(-n // 8) * 8 * 2
+
+
+def scratch_bytes(n_chips: int, n_replicas: int, n_levels: int,
+                  m_pad: int) -> int:
+    """The descriptor scratch one launch rebuilds (csrc/bitsliced.cu
+    eval_words_voted_scratch_bytes)."""
+    return n_chips * _chip_desc_bytes(n_replicas, n_levels, m_pad)
+
+
+def smem_bytes(n_replicas: int, in_seg: int, n_levels: int, m_pad: int,
+               tile: int) -> int:
+    """Dynamic shared memory of a block (csrc/bitsliced.cu
+    eval_words_voted_smem_bytes): the chip's descriptors for every level
+    and replica, the net buffer of ``tile`` words (the input segment once,
+    then every replica's level slots) and the disagreement words."""
+    n_tot = in_seg + n_replicas * n_levels * m_pad
+    return (_chip_desc_bytes(n_replicas, n_levels, m_pad)
+            + tile * n_tot * 4 + n_replicas * tile * 4)
+
+
+def word_tile(n_replicas: int, in_seg: int, n_levels: int, m_pad: int,
+              n_words: int, n_chips: int = 1, n_sms: int = 1) -> int:
+    """Words per block: as many as ``smem_bytes`` fit in shared memory,
+    at most MAX_TILE, and no more than leaves every one of ``n_sms`` SMs
+    a block of the ``n_chips`` x ``n_words`` grid."""
+    fit = 0
+    while fit < MAX_TILE and smem_bytes(n_replicas, in_seg, n_levels, m_pad,
+                                        fit + 1) <= build.SMEM_LIMIT_BYTES:
+        fit += 1
     if fit < 1:
         raise ValueError(
-            f"one word's net buffer ({n_replicas} replicas x {n_nets} nets "
-            f"x 4 B = {per_word} B) exceeds {build.SMEM_LIMIT_BYTES} B of "
-            "shared memory")
+            f"one word's block ({n_replicas} replicas, {n_levels} levels x "
+            f"{m_pad} LUTs, in_seg {in_seg}: "
+            f"{smem_bytes(n_replicas, in_seg, n_levels, m_pad, 1)} B) "
+            f"exceeds {build.SMEM_LIMIT_BYTES} B of shared memory")
     spread = -(-n_chips * n_words // n_sms)
-    return max(1, min(fit, MAX_TILE, n_words, spread))
+    return max(1, min(fit, n_words, spread))
 
 
-def _launch(src, tables, output_nets, seg, voted, dis, R, tile) -> None:
+def _launch(src, tables, output_nets, seg, scratch, voted, dis, R,
+            tile) -> None:
     lib = build.load("bitsliced")
     C, W, in_seg = seg.shape
     L, M, O = src.shape[1], src.shape[2], output_nets.shape[1]
     stream = torch.cuda.current_stream(seg.device).cuda_stream
     code = lib.eval_words_voted_launch(
         seg.data_ptr(), src.data_ptr(), tables.data_ptr(),
-        output_nets.data_ptr(), voted.data_ptr(), dis.data_ptr(),
-        C, R, W, in_seg, L, M, O, tile, stream)
+        output_nets.data_ptr(), scratch.data_ptr(), voted.data_ptr(),
+        dis.data_ptr(), C, R, W, in_seg, L, M, O, tile, stream)
     build.check(lib, code, "bitsliced eval_words_voted kernel")
+
+
+def scratch_for(n_chips: int, n_replicas: int, n_levels: int, m_pad: int,
+                device) -> torch.Tensor:
+    """The descriptor scratch of one launch (int32, 16-byte aligned as
+    torch allocates)."""
+    n = scratch_bytes(n_chips, n_replicas, n_levels, m_pad)
+    return torch.empty(-(-n // 4), dtype=torch.int32, device=device)
 
 
 def eval_seg_voted(
@@ -199,12 +237,13 @@ def eval_seg_voted(
         raise ValueError("expected int32 src/output_nets/words, f32 tables")
     L, M, O = src.shape[1], src.shape[2], output_nets.shape[1]
     n_sms = torch.cuda.get_device_properties(seg.device).multi_processor_count
-    tile = word_tile(R, in_seg + L * M, W, C, n_sms)
+    tile = word_tile(R, in_seg, L, M, W, C, n_sms)
     src, tables = build.aligned(src), build.aligned(tables)
     output_nets, seg = output_nets.contiguous(), seg.contiguous()
     voted = torch.empty((C, W, O), dtype=torch.int32, device=seg.device)
     dis = torch.empty((C, R, W), dtype=torch.int32, device=seg.device)
-    _launch(src, tables, output_nets, seg, voted, dis, R, tile)
+    _launch(src, tables, output_nets, seg,
+            scratch_for(C, R, L, M, seg.device), voted, dis, R, tile)
     eval_seg_voted.launches += 1
     return voted, dis
 

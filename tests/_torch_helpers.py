@@ -9,6 +9,8 @@ import functools
 import numpy as np
 import torch
 
+import chip_smoke
+
 import repro.core.tmr  # noqa: F401  (registers efpga_28nm_xl)
 import repro_torch.core.tmr  # noqa: F401
 from repro.core.bdt import GradientBoostedClassifier as JaxGBC
@@ -75,3 +77,18 @@ def frames(n_events: int = 256, seed: int = 9):
 def as_int32(words) -> np.ndarray:
     """JAX uint32 words -> the port's int32 bit patterns."""
     return np.asarray(words).astype(np.uint32).view(np.int32)
+
+
+BDT_ARRAYS = ("featsel", "thr", "root_onehot", "left", "right", "value_hi",
+              "value_lo")
+BDT_RECIPES = chip_smoke.BDT_RECIPES
+
+
+def broken_one_hot(packed, x, recipe: str):
+    """The arrays of a packed BDT ensemble (JAX's or the port's
+    PackedEnsemble on the CPU) as numpy, and raw features ``x``, broken out of the
+    one-hot form as ``recipe`` of BDT_RECIPES says (the recipes of
+    chip_smoke.synthetic_ensemble, which the card checks too). Returns
+    (dict of arrays, x)."""
+    arrays = {k: np.asarray(getattr(packed, k)) for k in BDT_ARRAYS}
+    return chip_smoke.synthetic_ensemble(np, arrays, np.asarray(x), recipe)

@@ -136,11 +136,20 @@ def test_eval_bits_no_vote_matches_jax():
 
 
 def test_word_tile_fits_shared_memory():
-    assert port_bs.word_tile(3, 1920, 256) == 10
-    assert port_bs.word_tile(1, 1920, 8) == 8
-    assert port_bs.word_tile(3, 1920, 256, n_chips=4, n_sms=132) == 8
-    assert port_bs.word_tile(1, 1920, 256, n_chips=4, n_sms=132) == 8
-    assert port_bs.word_tile(1, 1920, 8, n_chips=4, n_sms=132) == 1
+    # every level's descriptors of the chip (8 + 2 B a LUT), the net
+    # buffer (the input segment once, then each replica's level slots)
+    # and the disagreement words
+    n = 3 * 13 * 128
+    assert port_bs.smem_bytes(3, 256, 13, 128, 8) == (
+        n * 10 + 8 * (256 + n) * 4 + 3 * 8 * 4)
+    assert port_bs.scratch_bytes(4, 3, 13, 128) == 4 * n * 10
+    assert port_bs.word_tile(3, 256, 13, 128, 256) == 8
+    assert port_bs.word_tile(1, 256, 13, 128, 256) == 28
+    assert port_bs.word_tile(1, 256, 13, 128, 8) == 8
+    assert port_bs.word_tile(3, 256, 13, 128, 256, n_chips=4, n_sms=132) == 8
+    assert port_bs.word_tile(1, 256, 13, 128, 256, n_chips=4, n_sms=132) == 8
+    assert port_bs.word_tile(1, 256, 13, 128, 8, n_chips=4, n_sms=132) == 1
+    assert port_bs.word_tile(3, 256, 13, 128, 16, n_chips=4, n_sms=132) == 1
     with pytest.raises(ValueError, match="shared"):
-        port_bs.word_tile(3, 20_000, 4)
+        port_bs.word_tile(3, 256, 50, 128, 4)
 

@@ -11,13 +11,15 @@ The featurizer is held to |d| <= 2e-5 |x| + 1e-6 ke (summation order, see
 tests/test_torch_yprofile.py); the bit-sliced walk, the selection-matmul
 fabric kernels (dense and banded, also on a synthetic 0/1 ``sel`` with
 empty and several-ones columns, and at the §5 chunk shape), the BDT
-kernel and the fused frontend downstream of identical features are
-exact.
+kernel (its tree walk on the packed arrays, its literal path on arrays
+broken out of the one-hot form: chip_smoke.synthetic_ensemble) and the
+fused frontend downstream of identical features are exact.
 """
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from repro_torch.core.bdt import GradientBoostedClassifier
 from repro_torch.core.readout import ReadoutChip
 from repro_torch.data.smartpixel import SmartPixelConfig, generate
@@ -236,3 +238,52 @@ def test_bdt_infer_kernel_equals_plain_twin_and_golden(card):
     assert torch.equal(got, want)
     np.testing.assert_array_equal(bdt_ops.bdt_infer(packed, x).cpu().numpy(),
                                   ens.decision_function_raw(x))
+
+
+@pytest.mark.parametrize("recipe", ("one_hot",) + chip_smoke.BDT_RECIPES)
+def test_bdt_infer_kernel_off_the_one_hot_form(card, recipe):
+    """B4 on a 3-tree ensemble's packed arrays (the walk) and on the
+    synthetic arrays that leave the one-hot form (the literal path) or
+    keep it at leaf values near +-2^27: equal to the twin, all 128
+    columns."""
+    tr, te = train_test_split(generate(SmartPixelConfig(n_events=12_000,
+                                                        seed=5)))
+    ens = GradientBoostedClassifier(n_estimators=3, max_depth=5).fit(
+        tr["features"], tr["label"]).quantized()
+    packed = bdt_ops.pack_ensemble(ens, 14, device="cpu")
+    names = ("featsel", "thr", "root_onehot", "left", "right", "value_hi",
+             "value_lo")
+    arrays = {k: getattr(packed, k).numpy() for k in names}
+    x = ens.quantize_features(te["features"][:700]).astype(np.int32)
+    if recipe != "one_hot":
+        arrays, x = chip_smoke.synthetic_ensemble(np, arrays, x, recipe)
+    xt = torch.as_tensor(x, device="cuda")
+    on_card = [torch.as_tensor(arrays[k], device="cuda") for k in names]
+    got = bdt.bdt_traverse(xt, *on_card, depth=packed.depth)
+    want = bdt.bdt_traverse_plain(xt, *on_card, depth=packed.depth)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("words", [16, 256])
+@pytest.mark.parametrize("redundancy", ["none", "tmr"])
+def test_bitsliced_kernel_at_served_and_wide_widths(card, redundancy,
+                                                    words):
+    """K2 at the served width (16 words a chip) and at 256, R=1 and R=3
+    with an upset replica: equal to the twin."""
+    chips, _, _ = card
+    stack = lut_ops.pack_fabrics([c.config for c in chips],
+                                 redundancy=redundancy, layout="bitsliced",
+                                 device="cuda")
+    bits = torch.as_tensor(np.random.default_rng(words).integers(
+        0, 2, (2, words * 32, stack.n_inputs)), dtype=torch.int32,
+        device="cuda")
+    seg = bs.input_words(bits, stack.n_inputs, stack.in_seg)
+    tables = stack.tables.clone()
+    if redundancy == "tmr":
+        tables[1, :, :8, ::3] = 1.0 - tables[1, :, :8, ::3]
+    args = (stack.src, tables, stack.output_nets, seg, stack.n_replicas)
+    got = bs.eval_seg_voted(*args)
+    want = bs.eval_seg_voted_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool((got[1] != 0).any()) == (redundancy == "tmr")
