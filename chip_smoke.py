@@ -31,6 +31,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                form (BDT_RECIPES: the kernel's literal path) or keep it at
                extreme leaf values: exact. Its bound counts the walk (bytes
                bound it), beside the product form's count.
+               The sparse-egress kernel (B6): its decode entry on K2's
+               voted/disagreement words of the served stack (W=16, R=1
+               and R=3 with an upset replica) and on synthetic words at
+               W=16 and W=2,048 (65,536 events a chip), for the decode
+               rows B6_WEIGHTS (the sign at bit 0, at bit 30, no negative
+               weight) and keep fractions 0, ~1%, ~50%, 100%, with valid
+               tails that end mid-word; its keep-words entry through
+               compression.sparse_trigger_pack on (4, 512) and (4, 8)
+               event masks: (count, idx, vals, dis) exact. Timed by
+               CUDA-graph replay at both widths; bound by bytes.
   4. serve   — the readout server (ServerConfig() defaults, on cuda) takes
                8 FrameStream batches of 256 events per sensor from 4
                trained chips, hot-swaps chip 0 at batch 4 and flushes;
@@ -39,6 +49,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the featurizer kernel's own features. Repeated with
                redundancy="tmr": 0 disagreements. Launch counters are
                zeroed before and read after each run; both must be > 0.
+               Every served run also checks its link bytes.
   5. §5      — the paper's proof of concept: examples/smartpixel_readout.py's
                chip (500,000 events, seed 2024, 1 tree of depth 5 with 10
                leaves, efpga_28nm) checked against its golden BDT with
@@ -55,6 +66,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
   6. serve   — phase 4 again with ServerConfig(layout="matmul"), plain and
      matmul    TMR: every event equal to the oracle, 0 disagreements, the
                featurizer and the selection-matmul kernel launched.
+  7. serve   — phase 4's stream with sparse=True, plain and TMR, bit-sliced
+     sparse    (K2 -> B6's decode entry) then layout="matmul" (B3 -> B6's
+               keep-words entry): the drained events exactly the oracle's
+               kept set (seq, chip, score), per-chip (n_in, n_kept) equal
+               to the dense run's, 0 disagreements, link bytes 4 per
+               batch + 8 per kept event on the wire and 5 per event dense,
+               B6 launched.
+  8. serve   — the stream's features (the featurizer kernel's, on the
+     features  host) through submit_batch, both layouts, plain and TMR,
+               dense and sparse: every result equal to the oracle on those
+               features; K2 (bit-sliced) or B3 (matmul) launched, and B6
+               when sparse.
 Then a `kernels` JSON line, the card's name and power limit, and the
 final line {"ok": true, "device": {...}}.
 """
@@ -82,6 +105,11 @@ RECONFIGURE_AT = 4
 # events per chip in one served dispatch: ServerConfig().max_batch (2048)
 # events over the 4 chips
 SERVED_B = 2048 // N_CHIPS
+# B6 (sparse egress): words a chip at the large shape (65,536 events),
+# the keep fractions, and the decode-weight rows of the synthetic words
+B6_WORDS = 2048
+B6_FRACTIONS = (0.0, 0.01, 0.5, 1.0)
+B6_WEIGHTS = ("plan", "sign_bit0", "sign_bit30", "no_negative")
 # examples/smartpixel_readout.py: events, seed, chunk
 S5_EVENTS = 500_000
 S5_SEED = 2024
@@ -420,6 +448,199 @@ def check_lut(torch, np, le, lut_ops, chips, band):
     }
 
 
+def b6_weights(np, recipe, C, O, seed):
+    """(C, O) int32 decode-weight rows: "plan" as decode_plan makes them
+    (28, 7, 1 or 16 outputs, the sign at the top one), or synthetic rows
+    with the sign at bit 0, at bit 30 (O >= 31), or no negative weight
+    (every plane then reads output word 0)."""
+    rng = np.random.default_rng(seed)
+    w = np.zeros((C, O), np.int64)
+    for c in range(C):
+        if recipe == "plan":
+            n = min((28, 7, 1, 16)[c % 4], O)
+            w[c, :n] = 1 << np.arange(n)
+            w[c, n - 1] = -(1 << (n - 1))
+        elif recipe == "sign_bit0":
+            w[c, 0] = -1
+            w[c, 1:] = rng.integers(0, 2, O - 1)
+        elif recipe == "sign_bit30":
+            w[c, :30] = 1 << np.arange(30)
+            w[c, 30] = -(1 << 30)
+        elif recipe == "no_negative":
+            w[c] = rng.integers(0, 4, O)
+        else:
+            raise ValueError(f"unknown weight recipe {recipe!r}")
+    return w.astype(np.int32)
+
+
+def b6_thresholds(torch, bs, voted, weight, valid, frac):
+    """Per-chip int32 cuts that keep about ``frac`` of the valid events
+    of these words (0: below every score, 1: the int32 maximum)."""
+    scores = bs.lane_scores(bs.sign_extended_planes(voted, weight))
+    C = voted.shape[0]
+    flat = scores.reshape(C, -1)[:, : valid.shape[1]]
+    thr = []
+    for c in range(C):
+        s = torch.sort(flat[c][valid[c]].to(torch.int64)).values
+        if frac >= 1.0 or not len(s):
+            thr.append(2**31 - 1)
+        elif frac <= 0.0:
+            thr.append(max(int(s[0]) - 1, -2**31))
+        else:
+            thr.append(int(s[max(int(frac * len(s)) - 1, 0)]))
+    return torch.as_tensor(thr, dtype=torch.int32, device=voted.device)
+
+
+def b6_case(torch, np, bs, C, W, R, O, recipe, frac, seed, voted=None,
+            dis=None, weight=None):
+    """One input set of B6's decode entry on the card: random (or given)
+    voted words (C, W, O), disagreement words (C, R, W) and decode rows
+    (of ``recipe``), cuts keeping about ``frac``, and a valid mask whose
+    tail ends 13 events into the last word."""
+    rng = np.random.default_rng(seed)
+    if voted is None:
+        voted = torch.as_tensor(rng.integers(-2**31, 2**31, (C, W, O)),
+                                dtype=torch.int32, device="cuda")
+    if dis is None:
+        dis = torch.as_tensor(rng.integers(-2**31, 2**31, (C, R, W)),
+                              dtype=torch.int32, device="cuda")
+    B = W * 32 - 19
+    valid = torch.as_tensor(rng.random((C, B)) < 0.97, device="cuda")
+    if weight is None:
+        weight = torch.as_tensor(b6_weights(np, recipe, C, O, seed),
+                                 device="cuda")
+    thr = b6_thresholds(torch, bs, voted, weight, valid, frac)
+    return voted, dis, weight, thr, valid
+
+
+def b6_counts(C, W, O, R, B):
+    """Bytes and operations of one B6 decode call: voted and
+    disagreement words, weights, cuts and the valid mask in once, count,
+    (idx, vals) and dis out once; per event the reference's word-parallel
+    cut (4 word operations a plane, 32 planes, a 32nd of a word each) and
+    a butterfly 32x32 bit transpose for the lane scores (15 operations an
+    event)."""
+    n = C * W * 32
+    nbytes = (C * W * O * 4 + C * R * W * 4 + C * O * 4 + C * 4 + C * B
+              + 4 + n * 8 + C * R * 4)
+    ops = n * (4 + 15)
+    t_ops, t_bytes = ops / INT_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
+
+
+def check_b6(torch, np, bs, sp, cp, lut_ops, chips):
+    """B6 against its plain twin on the card, exact (count, idx, vals,
+    dis): the decode entry on K2's real voted words of the 4-chip served
+    stack (W=SERVED_B/32, R=1 and R=3 with an upset replica) at every
+    keep fraction, and on synthetic words at the served width and at
+    B6_WORDS a chip, for every weight recipe and keep fraction; the
+    keep-words entry through compression.sparse_trigger_pack on (4, 512)
+    and (4, 8) event masks. Timed by CUDA-graph replay at both widths."""
+    configs = [c.config for c in chips]
+    checked = []
+
+    def held(what, args):
+        got = sp.decode_pack(*args)
+        want = sp.decode_pack_plain(*args)
+        torch.cuda.synchronize()
+        for x, y, k in zip(got, want, ("count", "idx", "vals", "dis")):
+            if x.shape != y.shape or not torch.equal(x, y):
+                fail("kernels", f"sparse_pack {what}: {k} differs in "
+                                f"{int((x != y).sum())} places")
+        checked.append(what)
+        return got
+
+    W = SERVED_B // 32
+    rng = np.random.default_rng(15)
+    kept = {}
+    for red in ("none", "tmr"):
+        stack = lut_ops.pack_fabrics(configs, redundancy=red,
+                                     layout="bitsliced", device="cuda")
+        R = stack.n_replicas
+        tables = stack.tables.clone()
+        if R > 1:
+            tables[1, :, :8, ::3] = 1.0 - tables[1, :, :8, ::3]
+        bits = torch.as_tensor(
+            rng.integers(0, 2, (N_CHIPS, SERVED_B, stack.n_inputs)),
+            dtype=torch.int32, device="cuda")
+        seg = bs.input_words(bits, stack.n_inputs, stack.in_seg)
+        voted, dis = bs.eval_seg_voted(stack.src, tables, stack.output_nets,
+                                       seg, R)
+        weight = torch.as_tensor(lut_ops.decode_plan(
+            configs, stack.n_outputs), device="cuda")
+        for frac in B6_FRACTIONS:
+            args = b6_case(torch, np, bs, N_CHIPS, W, R, stack.n_outputs,
+                           "plan", frac, seed=16, voted=voted, dis=dis,
+                           weight=weight)
+            got = held(f"K2 words R={R} keep~{frac}", args)
+            kept[f"K2_R{R}_keep{frac}"] = int(got[0])
+        if R > 1 and not bool((got[3] != 0).any()):
+            fail("kernels", "sparse_pack: an upset replica gave no "
+                            "disagreement counts")
+    for words in (W, B6_WORDS):
+        for recipe in B6_WEIGHTS:
+            for frac in B6_FRACTIONS:
+                args = b6_case(torch, np, bs, N_CHIPS, words, 3, 32, recipe,
+                               frac, seed=words + len(recipe))
+                got = held(f"W={words} {recipe} keep~{frac}", args)
+                kept[f"W{words}_{recipe}_keep{frac}"] = int(got[0])
+    for shape in ((N_CHIPS, SERVED_B), (N_CHIPS, 8)):
+        for frac in B6_FRACTIONS:
+            score = torch.as_tensor(rng.integers(-2**31, 2**31, shape),
+                                    dtype=torch.int32, device="cuda")
+            keep = torch.as_tensor(rng.random(shape) < frac, device="cuda")
+            got = cp.sparse_trigger_pack(score, keep)
+            want = cp.sparse_trigger_pack(score.cpu(), keep.cpu())
+            torch.cuda.synchronize()
+            for x, y, k in zip(got, want, ("count", "idx", "vals")):
+                if not torch.equal(x.cpu(), y):
+                    fail("kernels", f"sparse_pack keep-words {shape} "
+                                    f"keep~{frac}: {k} differs")
+            checked.append(f"keep-words {shape} keep~{frac}")
+    runs = {}
+    for words in (W, B6_WORDS):
+        voted, dis, weight, thr, valid = b6_case(
+            torch, np, bs, N_CHIPS, words, 3, 28, "plan", 0.5, seed=17)
+        C, _, O = voted.shape
+        n = C * words * 32
+        count, idx, vals = (torch.empty((), dtype=torch.int32, device="cuda"),
+                            torch.empty(n, dtype=torch.int32, device="cuda"),
+                            torch.empty(n, dtype=torch.int32, device="cuda"))
+        d = torch.empty((C, 3), dtype=torch.int32, device="cuda")
+        scratch = torch.empty(2 * C * words, dtype=torch.int32,
+                              device="cuda")
+
+        def b6_call():
+            sp._launch(voted, dis, weight, thr, valid, None, None, scratch,
+                       count, idx, vals, d, C, words, O, 3, valid.shape[1])
+        args = (voted, dis, weight, thr, valid)
+        runs[f"R3_W{words}"] = {
+            "words": words, "events": n, "outputs": O,
+            "ms": graph_ms(b6_call),
+            "stream_ms": time_ms(b6_call, inner=20),
+            "plain_ms": time_ms(lambda: sp.decode_pack_plain(*args),
+                                reps=10, inner=1),
+            **b6_counts(C, words, O, 3, valid.shape[1]),
+        }
+    return {
+        "name": "sparse_pack",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sparse_pack.cu",
+        "replaces": "src/repro/parallel/compression.py:207",
+        "also_replaces": "src/repro/kernels/lut_eval/ops.py:1004",
+        "checked": len(checked), "kept": kept,
+        "max_abs_err": 0.0,
+        "library_ms": None,
+        "library_note": "no one torch call decodes the score planes and "
+                        "compacts without a host synchronisation "
+                        "(torch.nonzero, masked_select and boolean "
+                        "indexing size their output by the data)",
+        "runs": runs,
+    }
+
+
 def paper_chip():
     """examples/smartpixel_readout.py's chip, through the port's copy of
     the toolchain: (chip, test split, train split)."""
@@ -710,44 +931,16 @@ def read(counters):
     return {k: fn.launches for k, fn in counters.items()}
 
 
-def serve(torch, np, chips, swap_chip, blocks, redundancy, yp, counters,
-          layout=None):
-    """One server run over the pre-generated blocks; returns its results
-    checked against the oracle, with the launch counts of the run."""
+def oracle(np, chips, swap_chip, blocks, yp):
+    """Per (step, sensor): the featurizer kernel's features of the block
+    (float64, the features path's input) and the numpy oracle's (score,
+    keep) on them (encode_features -> FabricSim -> decode_outputs), for
+    the chip serving that sensor at that step."""
     from repro_torch.core.fabric import FabricSim
-    from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
 
-    server = ReadoutServer(
-        list(chips), ServerConfig(redundancy=redundancy, layout=layout),
-        device="cuda")
-    # the fabric kernel this server's stack runs
-    fabric = {"bitsliced": "eval_words_voted", "banded": "lut_eval_banded",
-              "dense": "lut_eval"}[server._stack.layout]
-    phase = "serve" if layout is None else "serve_matmul"
-    reset(counters)
-    where = {}                       # seq -> (step, sensor, row)
-    results = []
+    out = []
     for step in range(SERVE_BATCHES):
-        if step == RECONFIGURE_AT:
-            results += server.reconfigure(0, swap_chip)
-        for s in range(N_CHIPS):
-            blk = blocks[step][s]
-            for row, seq in enumerate(
-                    server.submit_frames(s, blk["frames"], blk["y0"])):
-                where[seq] = (step, s, row)
-            results += server.poll()
-    results += server.flush()
-    torch.cuda.synchronize()
-    launches = read(counters)
-    rep = server.report()
-
-    seqs = [r.seq for r in results]
-    if sorted(seqs) != sorted(where) or len(set(seqs)) != len(seqs):
-        fail(phase, f"{redundancy}: drained {len(seqs)} results for "
-                      f"{len(where)} submitted events (or duplicates)")
-    got = {r.seq: (r.score_raw, r.keep) for r in results}
-    mism = 0
-    for step in range(SERVE_BATCHES):
+        row = []
         for s in range(N_CHIPS):
             chip = swap_chip if (s == 0 and step >= RECONFIGURE_AT) \
                 else chips[s]
@@ -756,27 +949,96 @@ def serve(torch, np, chips, swap_chip, blocks, redundancy, yp, counters,
                                 device="cuda").cpu().numpy()
             outs, _ = FabricSim(chip.config).run(chip.encode_features(feats))
             score = chip.synth.decode_outputs(np.asarray(outs))
-            keep = score <= chip.score_threshold_raw
-            seq_of = {row: q for q, (st, ss, row) in where.items()
-                      if st == step and ss == s}
-            for row in range(len(score)):
-                if got[seq_of[row]] != (int(score[row]), bool(keep[row])):
-                    mism += 1
+            row.append((feats.astype(np.float64), score,
+                        score <= chip.score_threshold_raw))
+        out.append(row)
+    return out
+
+
+# the fabric kernel a served stack runs, by PackedFabricStack.layout
+FABRIC_KERNEL = {"bitsliced": "eval_words_voted",
+                 "banded": "lut_eval_banded", "dense": "lut_eval"}
+
+
+def serve(torch, np, chips, swap_chip, blocks, want, redundancy, counters,
+          layout=None, sparse=False, features=False):
+    """One server run over the pre-generated blocks, raw frames or (with
+    ``features``) their features through submit_batch; its results
+    checked against the oracle ``want``, with the launch counts of the
+    run. With ``sparse`` the drained events must be exactly the oracle's
+    kept set and the link bytes must follow the wire format."""
+    from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
+
+    server = ReadoutServer(
+        list(chips), ServerConfig(redundancy=redundancy, layout=layout,
+                                  sparse=sparse), device="cuda")
+    phase = ("serve_features" if features else "serve_sparse" if sparse
+             else "serve" if layout is None else "serve_matmul")
+    what = (f"{server.layout} {redundancy}"
+            f"{' sparse' if sparse else ''}")
+    reset(counters)
+    where = {}                       # seq -> (step, sensor, row)
+    results = []
+    for step in range(SERVE_BATCHES):
+        if step == RECONFIGURE_AT:
+            results += server.reconfigure(0, swap_chip)
+        for s in range(N_CHIPS):
+            blk = blocks[step][s]
+            seqs = (server.submit_batch(s, want[step][s][0]) if features
+                    else server.submit_frames(s, blk["frames"], blk["y0"]))
+            for row, seq in enumerate(seqs):
+                where[seq] = (step, s, row)
+            results += server.poll()
+    results += server.flush()
+    torch.cuda.synchronize()
+    launches = read(counters)
+    rep = server.report()
+
+    seqs = [r.seq for r in results]
+    if len(set(seqs)) != len(seqs) or not set(seqs) <= set(where):
+        fail(phase, f"{what}: duplicate or unknown seqs among "
+                    f"{len(seqs)} drained results")
+    got = {r.seq: (r.chip, r.score_raw, r.keep) for r in results}
+    expect = {}
+    for seq, (step, s, row) in where.items():
+        _, score, keep = want[step][s]
+        if keep[row] or not sparse:
+            expect[seq] = (s, int(score[row]), bool(keep[row]))
+    mism = len(set(got) ^ set(expect)) + sum(
+        got[q] != expect[q] for q in set(got) & set(expect))
     if mism:
-        fail(phase, f"{redundancy}: {mism} events differ from the oracle")
+        fail(phase, f"{what}: {mism} events differ from the oracle "
+                    f"({len(got)} drained, {len(expect)} expected)")
     if rep["seu_disagreement_total"]:
-        fail(phase, f"{redundancy}: {rep['seu_disagreement_total']} "
-                    "replica disagreements on a healthy stack")
-    for k in ("yprofile", fabric):
+        fail(phase, f"{what}: {rep['seu_disagreement_total']} replica "
+                    "disagreements on a healthy stack")
+    need = [FABRIC_KERNEL[server._stack.layout]]
+    if not features:
+        need.append("yprofile")
+    if sparse:
+        need.append("sparse_pack_decode" if server._stack.bitsliced
+                    else "sparse_pack_keep_words")
+    for k in need:
         if launches[k] <= 0:
-            fail(phase, f"{redundancy}: kernel {k} never launched")
+            fail(phase, f"{what}: kernel {k} never launched")
+    link = rep["link_bytes"]
+    n_in = rep["n_in"]
+    wire = (4 * rep["stages"]["drain_wait"]["calls"] + 8 * rep["n_kept"]
+            if sparse else 5 * n_in)
+    if (n_in != len(where) or link["on_wire"] != wire
+            or link["dense_equivalent"] != 5 * n_in):
+        fail(phase, f"{what}: link bytes {link} for {n_in} events, "
+                    f"{rep['n_kept']} kept (wire {wire} expected)")
     return {"layout": rep["layout"], "stack": server._stack.layout,
-            "redundancy": redundancy, "events": len(results),
+            "redundancy": redundancy, "sparse": sparse,
+            "ingest": "features" if features else "frames",
+            "events": n_in, "drained": len(results),
             "oracle_mismatches": mism,
             "disagreements": rep["seu_disagreement_total"],
             "launches": launches, "events_per_s": rep["events_per_s"],
             "fraction_kept": rep["fraction_kept"],
-            "stages": rep["stages"]}
+            "per_chip": [(c["n_in"], c["n_kept"]) for c in rep["per_chip"]],
+            "link_bytes": link, "stages": rep["stages"]}
 
 
 def main():
@@ -799,14 +1061,19 @@ def main():
     from repro_torch.kernels.lut_eval import bitsliced as bs
     from repro_torch.kernels.lut_eval import lut_eval as le
     from repro_torch.kernels.lut_eval import ops as lut_ops
+    from repro_torch.kernels.sparse_pack import sparse_pack as sp
     from repro_torch.kernels.yprofile import ops as yp
+    from repro_torch.parallel import compression as cp
 
-    # each kernel wrapper's launch counter, by the kernel's name
+    # each kernel wrapper's launch counter, by the kernel's name (B6 has
+    # two entries, each with its wrapper)
     counters = {"yprofile": yp.yprofile_traced,
                 "eval_words_voted": bs.eval_seg_voted,
                 "lut_eval": le.lut_eval_stacked,
                 "lut_eval_banded": le.lut_eval_banded_stacked,
-                "bdt_infer": bdt.bdt_traverse}
+                "bdt_infer": bdt.bdt_traverse,
+                "sparse_pack_decode": sp.decode_pack,
+                "sparse_pack_keep_words": sp.pack_keep_words}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -850,14 +1117,17 @@ def main():
     emit("kernel_lut_eval_banded", ok=True, **b3)
     b4 = check_bdt(torch, np, bdt, bdt_ops, s5_chip, te["features"])
     emit("kernel_bdt_infer", ok=True, **b4)
+    b6 = check_b6(torch, np, bs, sp, cp, lut_ops, chips)
+    emit("kernel_sparse_pack", ok=True, **b6)
 
     stream = FrameStream(FrameStreamConfig(n_sensors=N_CHIPS,
                                            batch=SERVE_EVENTS))
     blocks = [[stream.batch_at(step, s) for s in range(N_CHIPS)]
               for step in range(SERVE_BATCHES)]
+    want = oracle(np, chips, swap_chip, blocks, yp)
     runs = {}
     for red in ("none", "tmr"):
-        runs[red] = serve(torch, np, chips, swap_chip, blocks, red, yp,
+        runs[red] = serve(torch, np, chips, swap_chip, blocks, want, red,
                           counters)
         emit("serve", ok=True, card=card, **runs[red])
 
@@ -867,9 +1137,38 @@ def main():
          launches=s5_launches, **s5_runs)
 
     for red in ("none", "tmr"):
-        run = serve(torch, np, chips, swap_chip, blocks, red, yp, counters,
-                    layout="matmul")
-        emit("serve_matmul", ok=True, card=card, **run)
+        runs["matmul", red] = serve(torch, np, chips, swap_chip, blocks,
+                                    want, red, counters, layout="matmul")
+        emit("serve_matmul", ok=True, card=card, **runs["matmul", red])
+
+    # 7. sparse egress: the same stream, the drained events exactly the
+    # oracle's kept set; per chip (n_in, n_kept) as in the dense runs
+    for layout in (None, "matmul"):
+        for red in ("none", "tmr"):
+            run = serve(torch, np, chips, swap_chip, blocks, want, red,
+                        counters, layout=layout, sparse=True)
+            dense = runs[red] if layout is None else runs["matmul", red]
+            if run["per_chip"] != dense["per_chip"]:
+                fail("serve_sparse", f"{run['layout']} {red}: per-chip "
+                                     f"(n_in, n_kept) {run['per_chip']} "
+                                     f"!= dense {dense['per_chip']}")
+            run["dense_events_per_s"] = dense["events_per_s"]
+            runs["sparse", layout, red] = run
+            emit("serve_sparse", ok=True, card=card, **run)
+
+    # 8. the features path: the stream's features through submit_batch,
+    # both layouts, plain and TMR, dense and sparse
+    for layout in (None, "matmul"):
+        for red in ("none", "tmr"):
+            for sparse in (False, True):
+                run = serve(torch, np, chips, swap_chip, blocks, want, red,
+                            counters, layout=layout, sparse=sparse,
+                            features=True)
+                frames_run = (runs["sparse", layout, red] if sparse else
+                              runs[red] if layout is None
+                              else runs["matmul", red])
+                run["frames_events_per_s"] = frames_run["events_per_s"]
+                emit("serve_features", ok=True, card=card, **run)
 
     kernels = []
     # K2's row carries the times of its R=3 (TMR) run; K1 and K2 count
@@ -879,7 +1178,11 @@ def main():
                      runs["none"]["launches"]["eval_words_voted"]),
                     (b2, b2, s5_launches["lut_eval"]),
                     (b3, b3, s5_launches["lut_eval_banded"]),
-                    (b4, b4, s5_launches["bdt_infer"])):
+                    (b4, b4, s5_launches["bdt_infer"]),
+                    (b6, b6["runs"][f"R3_W{B6_WORDS}"],
+                     sum(runs["sparse", None, "none"]["launches"][k]
+                         for k in ("sparse_pack_decode",
+                                   "sparse_pack_keep_words")))):
         kernels.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
@@ -904,6 +1207,16 @@ def main():
         for key, r in k2["runs"].items()}
     kernels[4]["dense_product_bound_ms"] = b4["dense_product_bound_ms"]
     kernels[4]["stream_ms"] = b4["stream_ms"]
+    # B6 at both widths, its second source line, why it has no library
+    # call, and its launches in the matmul sparse stream (keep-words entry)
+    kernels[5]["runs"] = {
+        key: {k: r[k] for k in ("ms", "stream_ms", "plain_ms", "bound_ms",
+                                "bound_by")}
+        for key, r in b6["runs"].items()}
+    kernels[5]["also_replaces"] = b6["also_replaces"]
+    kernels[5]["library_note"] = b6["library_note"]
+    kernels[5]["launches_matmul_sparse"] = runs[
+        "sparse", "matmul", "none"]["launches"]["sparse_pack_keep_words"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,7 @@ PROTOTYPES = {
     "bitsliced": ("eval_words_voted_launch", (_P,) * 7 + (_I,) * 8 + (_P,)),
     "lut_eval": ("lut_eval_launch", (_P,) * 8 + (_I,) * 9 + (_P,)),
     "bdt_infer": ("bdt_infer_launch", (_P,) * 10 + (_I,) * 5 + (_P,)),
+    "sparse_pack": ("sparse_pack_launch", (_P,) * 12 + (_I,) * 5 + (_P,)),
 }
 KERNELS = tuple(PROTOTYPES)
 

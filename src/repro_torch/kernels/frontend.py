@@ -7,11 +7,15 @@
       -> fabric evaluation        (selection-matmul kernel + TMR vote, or
                                    the bit-sliced kernel with the vote
                                    folded in)
-      -> score decode + keep/drop (two's-complement weights, int32 cut)
+      -> score decode + keep/drop (two's-complement weights, int32 cut;
+                                   sparse: the word-domain cut and the
+                                   compaction of the kept events, kernel
+                                   B6 on the bit-sliced walk's words)
 
 No stage materializes on the host: the feature tensor, the bit tensor and
 the net words live and die on the device; the host sees only the (C, B)
-scores, the keep mask and the (C, R) disagreement counts. Calls return
+scores and keep mask, or (sparse) the kept events' packed (index, score)
+pairs and their count, and the (C, R) disagreement counts. Calls return
 without synchronising (launches are asynchronous on the current stream).
 
 Everything per chip — which features feed which input bit, the
@@ -45,13 +49,9 @@ from repro_torch.core.quantize import (
     spec_device_params,
 )
 from repro_torch.data.smartpixel import N_T, N_X, N_Y
-from repro_torch.device import NotPortedError, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.kernels.lut_eval import ops as lut_ops
 from repro_torch.kernels.yprofile import ops as yp_ops
-
-SPARSE_NOT_PORTED = (
-    "sparse word-domain egress (score_frames_sparse, the popcount "
-    "compaction kernel B6) is not ported yet: ROADMAP queue A, sparse slice")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,17 +156,17 @@ def score_features(
     stack: lut_ops.PackedFabricStack,
     plan: Dict[str, torch.Tensor],
     valid: torch.Tensor,                # (C, B) bool
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    *,
+    sparse: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """Stages 2-5 from device features: (score (C, B) int32, keep (C, B)
-    bool, disagree counts (C, R) int32)."""
-    bits = encode_bits(feats, plan)
-    outs, disagree = lut_ops.fabric_eval_bits_voted(
-        stack.sel, stack.tables, stack.level_base, stack.win_base,
-        stack.output_nets, bits, n_replicas=stack.n_replicas,
-        n_inputs=stack.n_inputs, n_nets_pad=stack.n_nets_pad,
-        in_seg=stack.in_seg, src=stack.src)
-    return lut_ops.decode_scores_device(
-        outs, disagree, plan["out_weight"], plan["threshold_raw"], valid)
+    bool, disagree counts (C, R) int32). ``sparse=True`` (bit-sliced
+    stacks) stays in the word domain after the bit gather — the fabric
+    kernel's words go to kernel B6 — and returns (count, idx, vals, dis)
+    over flat indices ``chip*B + event``."""
+    return lut_ops._eval_stack_scored(
+        stack, encode_bits(feats, plan), plan["out_weight"],
+        plan["threshold_raw"], valid, sparse=sparse)
 
 
 def _score_frames_impl(
@@ -177,10 +177,11 @@ def _score_frames_impl(
     valid: torch.Tensor,        # (C, B) bool — kills padded event rows
     *,
     threshold_electrons: float,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The dense fused body: featurize (stage 1) then ``score_features``."""
+    sparse: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """The fused body: featurize (stage 1) then ``score_features``."""
     feats = yp_ops.yprofile_traced(frames, y0, threshold=threshold_electrons)
-    return score_features(feats, stack, plan, valid)
+    return score_features(feats, stack, plan, valid, sparse=sparse)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,8 +238,33 @@ class FusedFrontend:
             threshold_electrons=self.threshold_electrons)
         return score[:, :B], keep[:, :B], dis
 
-    def score_frames_sparse(self, frames, y0, valid=None):
-        raise NotPortedError(SPARSE_NOT_PORTED)
+    def score_frames_sparse(
+        self, frames, y0, valid=None
+    ) -> Tuple[torch.Tensor, ...]:
+        """Word-domain sparse egress form of ``score_frames_voted``
+        (bit-sliced stacks only): the trigger cut, SEU counters and the
+        popcount prefix-sum compaction run on sliced words in the same
+        asynchronous pass (K1, quantize, bit gather, K2, B6), so dropped
+        events are never transposed back to event order.
+
+        Returns (count () int32, idx (C*B,) int32 ascending flat indices
+        ``chip*B + event`` -1 padded, vals (C*B,) int32 kept scores 0
+        padded, dis (C, R) int32), the ``parallel.compression`` wire
+        format. Nothing synchronises: slice ``idx[:count]`` after the
+        pass has finished to ship exactly the kept events."""
+        if self.stack.src is None:
+            raise ValueError(
+                "sparse frame scoring needs the word domain: pack the "
+                "frontend with layout='bitsliced'")
+        C, B = np.shape(frames)[0], np.shape(frames)[1]
+        f, z, v = self._stage(frames, y0, valid)
+        count, idx, vals, dis = _score_frames_impl(
+            f, z, self.stack, self.plan, v,
+            threshold_electrons=self.threshold_electrons, sparse=True)
+        Bp = f.shape[1]
+        if Bp != B:
+            idx, vals = lut_ops.restride(idx, vals, C, B, Bp)
+        return count, idx, vals, dis
 
     def _stage(self, frames, y0, valid):
         """Copy one dispatch's inputs into the (reused) padded device

@@ -302,3 +302,88 @@ def eval_bits(
     voted, _ = eval_bits_voted(src, tables, output_nets, bits, n_replicas=1,
                                n_inputs=n_inputs, in_seg=in_seg)
     return voted
+
+
+# ------------------------------------------- word-domain sparse egress
+# The trigger cut, the SEU disagreement counters and the lane scores, all
+# on sliced words, so dropped events are never transposed back to event
+# order (kernels/sparse_pack compacts the kept lanes; csrc/sparse_pack.cu
+# fuses this tail with the compaction on the card).
+
+_SIGN = -2**31                  # 0x80000000 as an int32 bit pattern
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word (its uint32 pattern), as int32: a
+    SWAR popcount in int64, where no shift drags the sign along."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24 & 0xFF).to(torch.int32)
+
+
+def mask_words(mask: torch.Tensor) -> torch.Tensor:
+    """(..., B) bool event mask -> (..., W) int32 mask words (bit ``e`` of
+    word ``w`` = mask[w*32+e]; tail lanes past B are 0)."""
+    return pack_words(mask.to(torch.int32)[..., None])[..., 0]
+
+
+def sign_extended_planes(
+    voted_w: torch.Tensor,      # (C, W, O) int32 output words
+    out_weight: torch.Tensor,   # (C, O) int32 two's-complement weights
+) -> torch.Tensor:
+    """The 32 bit-planes of every lane's int32 score, still as words:
+    (C, W, 32) int32, plane ``j`` holding bit ``j`` of each event's
+    score. Every plane at or above the sign position (the first negative
+    weight) replicates that output word: two's-complement sign extension.
+    A chip with no negative weight reads output word 0 for every plane,
+    as the reference's ``argmax`` of an all-False row does."""
+    C, W, _ = voted_w.shape
+    sign_pos = torch.argmax((out_weight < 0).to(torch.int32), dim=-1)
+    j = torch.arange(WORD, device=voted_w.device)[None, None, :]
+    idx = torch.minimum(j, sign_pos[:, None, None]).expand(C, W, WORD)
+    return torch.gather(voted_w, 2, idx)
+
+
+def keep_words(
+    planes: torch.Tensor,        # (C, W, 32) sign-extended score planes
+    threshold_raw: torch.Tensor, # (C,) int32
+    valid_w: torch.Tensor,       # (C, W) int32 valid-lane words
+) -> torch.Tensor:
+    """The trigger cut ``score <= threshold`` in the word domain: flip the
+    sign plane of both sides (biased unsigned), then an MSB-down (lt, eq)
+    sweep, 32 lanes at a time. Returns (C, W) int32 keep words masked by
+    ``valid_w``."""
+    C, W = valid_w.shape
+    thr_u = threshold_raw.to(torch.int32) ^ _SIGN                 # (C,)
+    lt = torch.zeros((C, W), dtype=torch.int32, device=valid_w.device)
+    eq = torch.full((C, W), -1, dtype=torch.int32, device=valid_w.device)
+    for j in range(WORD - 1, -1, -1):
+        a = planes[..., j]
+        if j == WORD - 1:
+            a = ~a                          # bias flip of the sign plane
+        t = -((thr_u >> j) & 1)[:, None]    # all ones where the bit is 1
+        lt = lt | (eq & ~a & t)
+        eq = eq & ~(a ^ t)
+    return (lt | eq) & valid_w
+
+
+def lane_scores(planes: torch.Tensor) -> torch.Tensor:
+    """(C, W, 32) score planes -> (C, W, 32) int32 per-lane scores: a
+    32x32 bit transpose per word, lane ``e`` assembling bit ``e`` of every
+    plane (summed in int64, wrapped to int32 as the reference's uint32)."""
+    lane = torch.arange(WORD, dtype=torch.int32, device=planes.device)
+    b = ((planes[..., None] >> lane) & 1).to(torch.int64)  # (C, W, 32j, 32e)
+    s = torch.sum(b << lane.to(torch.int64)[:, None], dim=-2)
+    return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32)
+
+
+def disagree_counts_words(
+    dis_w: torch.Tensor,        # (C, R, W) int32 disagreement words
+    valid_w: torch.Tensor,      # (C, W) int32
+) -> torch.Tensor:
+    """Per-replica voted-against event counts over valid lanes: popcount
+    and sum over the words. Returns (C, R) int32."""
+    return torch.sum(popcount(dis_w & valid_w[:, None]), dim=-1).to(
+        torch.int32)

@@ -42,6 +42,7 @@ from repro_torch.core.fabric import (
     StackGeometry,
     check_stackable,
     packed_table_image,
+    stack_event_bits,
 )
 from repro_torch.core.tmr import N_REPLICAS, majority_vote, replicate_config
 from repro_torch.device import resolve_device
@@ -50,6 +51,7 @@ from repro_torch.kernels.lut_eval.lut_eval import (
     lut_eval_banded_stacked,
     lut_eval_stacked,
 )
+from repro_torch.kernels.sparse_pack import sparse_pack as _sparse_pack
 
 LAYOUTS = ("matmul", "bitsliced")
 
@@ -630,3 +632,199 @@ def decode_plan(
         if n_out:
             weight[i, n_out - 1] = -(1 << (n_out - 1))
     return weight.astype(np.int32)
+
+
+def decode_keep_words_device(
+    voted_w: torch.Tensor,       # (C, W, O) int32 voted output words
+    dis_w: torch.Tensor,         # (C, R, W) int32 disagreement words
+    out_weight: torch.Tensor,    # (C, O) int32 two's-complement weights
+    threshold_raw: torch.Tensor, # (C,) int32
+    valid: torch.Tensor,         # (C, B) bool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``decode_scores_device`` stopped in the word domain: (keep_w (C, W)
+    int32 keep words masked by ``valid``, scores (C, W, 32) int32 lane
+    scores — lane ``e`` of word ``w`` is event ``w*32+e`` —, dis (C, R)
+    int32 disagree counts). The cut equals ``decode_scores_device``'s bit
+    for bit. On the serving paths kernel B6 (kernels/sparse_pack) fuses
+    this tail with the compaction of the kept lanes."""
+    valid_w = _bitsliced.mask_words(valid)                  # (C, W)
+    planes = _bitsliced.sign_extended_planes(voted_w, out_weight)
+    keep_w = _bitsliced.keep_words(planes, threshold_raw, valid_w)
+    scores = _bitsliced.lane_scores(planes)
+    dis = _bitsliced.disagree_counts_words(dis_w, valid_w)
+    return keep_w, scores, dis
+
+
+def stack_input_bits(
+    stack: PackedFabricStack, per_chip_bits: Sequence[np.ndarray]
+) -> np.ndarray:
+    """Zero-pad per-chip (B_i, n_inputs_i) bit arrays into the stacked
+    (C, B_max, n_inputs_max) layout the chip-batched evaluators take."""
+    if len(per_chip_bits) != stack.n_chips:
+        raise ValueError(f"{len(per_chip_bits)} bit arrays for "
+                         f"{stack.n_chips} chips")
+    for i, b in enumerate(per_chip_bits):
+        b = np.asarray(b)
+        if b.size and b.shape[1] != stack.n_inputs_each[i]:
+            raise ValueError(f"chip {i}: bits {b.shape} but the chip has "
+                             f"{stack.n_inputs_each[i]} inputs")
+    return stack_event_bits(per_chip_bits, stack.n_inputs)
+
+
+def _device_bits(stack: PackedFabricStack, bits, batch_tile: int):
+    """(C, B, n_inputs) bits as int32 on the stack's device, padded to a
+    ``batch_tile`` multiple of events: (bits, B, Bp)."""
+    b = torch.as_tensor(np.asarray(bits) if not torch.is_tensor(bits)
+                        else bits).to(device=stack.device, dtype=torch.int32)
+    C, B = b.shape[0], b.shape[1]
+    if C != stack.n_chips:
+        raise ValueError(f"bits for {C} chips, stack has {stack.n_chips}")
+    Bp = _round_up(max(B, 1), batch_tile)
+    if Bp != B:
+        b = torch.nn.functional.pad(b, (0, 0, 0, Bp - B))
+    return b, B, Bp
+
+
+def fabric_eval_multi(
+    stack_or_configs,
+    bits,
+    batch_tile: int = 128,
+    band: bool | None = None,
+    layout: str = "matmul",
+    *,
+    device=None,
+) -> torch.Tensor:
+    """Evaluate (chips, events) in one chip-batched call.
+
+    bits: (C, B, n_inputs_max) 0/1 (see ``stack_input_bits``), or a list
+    of per-chip (B_i, n_inputs_i) arrays, per LOGICAL chip. Returns
+    (C, B, n_outputs_max) uint8, padded lanes 0. On a redundant stack all
+    replicas evaluate and the result is the majority vote.
+    ``band``/``layout``/``device`` apply when packing raw configs."""
+    stack = (
+        stack_or_configs
+        if isinstance(stack_or_configs, PackedFabricStack)
+        else pack_fabrics(list(stack_or_configs), band=band, layout=layout,
+                          device=device)
+    )
+    if isinstance(bits, (list, tuple)):
+        bits = stack_input_bits(stack, bits)
+    b, B, _ = _device_bits(stack, bits, batch_tile)
+    common = dict(n_inputs=stack.n_inputs, n_nets_pad=stack.n_nets_pad,
+                  in_seg=stack.in_seg, src=stack.src)
+    if stack.n_replicas > 1:
+        out, _ = fabric_eval_bits_voted(
+            stack.sel, stack.tables, stack.level_base, stack.win_base,
+            stack.output_nets, b, n_replicas=stack.n_replicas, **common)
+    else:
+        out = fabric_eval_bits(
+            stack.sel, stack.tables, stack.level_base, stack.win_base,
+            stack.output_nets, b, **common)
+    return out[:, :B]
+
+
+def _eval_stack_scored(stack: PackedFabricStack, bits, out_weight,
+                       threshold_raw, valid, *, sparse: bool = False):
+    """Serving dispatch for padded device bits: evaluate every replica,
+    vote, decode scores and apply the integer cut.
+
+    Dense: (score (C, B) int32, keep (C, B) bool masked by ``valid``,
+    dis (C, R) int32 voted-against events per replica over valid rows).
+    ``sparse=True`` (bit-sliced stacks only) stays in the word domain:
+    the fabric kernel's voted and disagreement words go to kernel B6,
+    which cuts, counts and compacts the kept lanes -> (count, idx, vals,
+    dis), the ``parallel.compression`` wire format over flat indices
+    ``chip*B + event``."""
+    if sparse:
+        if stack.src is None:
+            raise ValueError(
+                "sparse=True needs the word domain: pack the stack with "
+                "layout='bitsliced' (matmul stacks have no word form)")
+        voted_w, dis_w = _bitsliced.eval_words_voted(
+            stack.src, stack.tables, stack.output_nets, bits,
+            n_replicas=stack.n_replicas, n_inputs=stack.n_inputs,
+            in_seg=stack.in_seg)
+        return _sparse_pack.decode_pack(voted_w, dis_w, out_weight,
+                                        threshold_raw, valid)
+    outs, disagree = fabric_eval_bits_voted(
+        stack.sel, stack.tables, stack.level_base, stack.win_base,
+        stack.output_nets, bits, n_replicas=stack.n_replicas,
+        n_inputs=stack.n_inputs, n_nets_pad=stack.n_nets_pad,
+        in_seg=stack.in_seg, src=stack.src)
+    return decode_scores_device(outs, disagree, out_weight, threshold_raw,
+                                valid)
+
+
+def _scored_args(stack, bits, out_weight, threshold_raw, valid,
+                 batch_tile):
+    """Device tensors of one scored dispatch, the batch padded to a
+    ``batch_tile`` multiple (padded rows invalid): (bits, weight, cut,
+    valid, B, Bp)."""
+    b, B, Bp = _device_bits(stack, bits, batch_tile)
+    dev, C = stack.device, b.shape[0]
+    if valid is None:
+        v = torch.ones((C, B), dtype=torch.bool, device=dev)
+    else:
+        v = torch.as_tensor(np.asarray(valid) if not torch.is_tensor(valid)
+                            else valid).to(device=dev, dtype=torch.bool)
+    if Bp != B:
+        v = torch.nn.functional.pad(v, (0, Bp - B))
+    w = torch.as_tensor(np.asarray(out_weight, np.int32), device=dev)
+    t = torch.as_tensor(np.asarray(threshold_raw, np.int32), device=dev)
+    return b, w, t, v, B, Bp
+
+
+def fabric_eval_multi_scored(
+    stack: PackedFabricStack,
+    bits,
+    out_weight,
+    threshold_raw,
+    valid=None,
+    *,
+    batch_tile: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Score (chips, events) input bits in one voted dispatch: (score
+    (C, B) int32, keep (C, B) bool, dis (C, R) int32), with the decode
+    weights of ``decode_plan`` and the integer cuts applied on the
+    device. Nothing synchronises with the host."""
+    b, w, t, v, B, _ = _scored_args(stack, bits, out_weight, threshold_raw,
+                                    valid, batch_tile)
+    score, keep, dis = _eval_stack_scored(stack, b, w, t, v)
+    return score[:, :B], keep[:, :B], dis
+
+
+def fabric_eval_multi_scored_sparse(
+    stack: PackedFabricStack,
+    bits,
+    out_weight,
+    threshold_raw,
+    valid=None,
+    *,
+    batch_tile: int = 128,
+) -> Tuple[torch.Tensor, ...]:
+    """Word-domain sparse twin of ``fabric_eval_multi_scored``: (count ()
+    int32, idx (C*B,) int32 ascending flat indices ``chip*B + event`` -1
+    padded, vals (C*B,) int32 kept scores 0 padded, dis (C, R) int32).
+    The keep cut, SEU counters and compaction run in kernel B6 on the
+    fabric kernel's words; dropped events never leave the word domain.
+    Bit-sliced stacks only."""
+    if stack.src is None:
+        raise ValueError(
+            "fabric_eval_multi_scored_sparse needs layout='bitsliced' "
+            "(word-domain egress has no matmul form)")
+    b, w, t, v, B, Bp = _scored_args(stack, bits, out_weight, threshold_raw,
+                                     valid, batch_tile)
+    count, idx, vals, dis = _eval_stack_scored(stack, b, w, t, v,
+                                               sparse=True)
+    if Bp != B:
+        idx, vals = restride(idx, vals, stack.n_chips, B, Bp)
+    return count, idx, vals, dis
+
+
+def restride(idx: torch.Tensor, vals: torch.Tensor, C: int, B: int,
+             Bp: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat indices over a tile-padded batch Bp -> over the caller's B.
+    Kept lanes sit below B (``valid`` kills the pad tail), so the map
+    keeps ascending order and fits the packed vectors in C*B slots."""
+    idx = torch.where(idx >= 0, (idx // Bp) * B + idx % Bp, -1)
+    return idx[: C * B].to(torch.int32), vals[: C * B]

@@ -1,32 +1,41 @@
-"""Multi-chip streaming readout server, frames path (PyTorch port).
+"""Multi-chip streaming readout server (PyTorch port).
 
-The core loop of the JAX package's launch/readout_server.py:
+The core loop of the JAX package's launch/readout_server.py, with both
+ingestion forms:
 
     submit_frames(chip, frames, y0)   RAW charge frames
+    submit(chip, features)            pre-featurized events
       -> micro-batch queue            (coalesce: max_batch / max_latency)
-      -> one fused device pass        (kernels/frontend.py: yprofile ->
-                                       quantize -> bit gather -> fabric
-                                       kernel + TMR vote -> score ->
-                                       keep/drop)
+      -> device passes, one per kind  (frames: kernels/frontend.py,
+                                       yprofile -> quantize -> bit gather
+                                       -> fabric kernel + TMR vote ->
+                                       score -> keep/drop; features: host
+                                       encode, then lut_eval/ops.py
+                                       fabric_eval_multi_scored)
+      -> egress, dense or sparse      (sparse=True: only the kept events'
+                                       (flat index, score) pairs, packed
+                                       on the device by kernel B6)
       -> pinned host copy, drained    (poll never blocks; flush does)
       -> per-chip trigger report      (rates, reduction, link bytes,
                                        per-stage host timing, per-replica
                                        SEU disagreement counters)
 
-Two backends: "kernel" is the fused device path; "host" is the staged
-numpy oracle (featurize on the device, then numpy quantize + pack +
-FabricSim per replica + vote), bit-identical to the kernel path given the
-same features.
+Two backends: "kernel" is the device path; "host" is the staged numpy
+oracle (featurize on the device, then numpy quantize + pack + FabricSim
+per replica + vote), bit-identical to the kernel path given the same
+features.
 
 Pipelining: every launch enqueues its work on the current CUDA stream,
-copies (score, keep, disagree) into pinned host memory without blocking,
-and records a CUDA event; ``poll`` retires a batch only once its event
-has completed, and up to ``pipeline_depth`` batches stay in flight.
+copies its small results (dense score/keep/disagree, or the sparse count
+and disagree counts) into pinned host memory without blocking, and
+records a CUDA event behind them; ``poll`` retires a batch only once its
+event has completed, and up to ``pipeline_depth`` batches stay in flight.
+A sparse batch's kept prefix ``idx[:count]``, ``vals[:count]`` is copied
+at the drain, on a side stream, so it waits for no later batch.
 
 Not ported yet (each raises NotPortedError — nothing is silently
-ignored): the features path (``submit``/``submit_batch``), sparse egress,
-scrubbing, deadline admission and the degrade ladder, and per-tenant
-quotas. See ROADMAP queue A.
+ignored): scrubbing, deadline admission and the degrade ladder, and
+per-tenant quotas. See ROADMAP queue A.
 """
 from __future__ import annotations
 
@@ -42,23 +51,24 @@ import torch
 from repro_torch.core.fabric import (
     FabricSim,
     FrontendSpec,
+    MultiFabricSim,
     StackGeometry,
     check_stackable,
+    stack_event_bits,
 )
 from repro_torch.core.readout import ReadoutChip
 from repro_torch.core.tmr import N_REPLICAS, majority_vote, replicate_config
 from repro_torch.data.smartpixel import N_FEATURES as _N_FEATURES
 from repro_torch.data.smartpixel import N_T, N_X, N_Y
 from repro_torch.device import NotPortedError, resolve_device
+from repro_torch.parallel.compression import (
+    DENSE_BYTES_PER_EVENT,
+    SPARSE_BYTES_PER_EVENT,
+    SPARSE_HEADER_BYTES,
+    sparse_trigger_pack,
+)
 
 DEGRADE_RUNGS = ("scrub_relax", "scrub_crc_only", "sparse_egress")
-# Host-link cost of a dense result: an int32 score + a keep byte per event
-# (the wire constant of the JAX package's parallel/compression.py).
-DENSE_BYTES_PER_EVENT = 5
-
-FEATURES_NOT_PORTED = (
-    "the features ingestion path (submit/submit_batch: host featurize + "
-    "scoring dispatch) is not ported yet: ROADMAP queue A, features path")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,9 +78,9 @@ class ServerConfig:
 
     Ported: max_batch, max_latency_s, backend ("kernel" | "host"),
     batch_tile, band, layout (None | "matmul" | "bitsliced"), redundancy
-    ("none" | "tmr"), pipeline_depth, threshold_electrons, bits_per_hit,
-    hit_rate_hz. Every other knob must keep its default: a non-default
-    value raises NotPortedError naming the ROADMAP item.
+    ("none" | "tmr"), sparse, pipeline_depth, threshold_electrons,
+    bits_per_hit, hit_rate_hz. Every other knob must keep its default: a
+    non-default value raises NotPortedError naming the ROADMAP item.
     """
 
     max_batch: int = 2048
@@ -210,7 +220,6 @@ class ServerConfig:
         refused here, by name — never silently ignored."""
         default = ServerConfig.__dataclass_fields__
         unported = {
-            "sparse": "sparse word-domain egress (sparse slice)",
             "scrub_interval": "scrubbing (server scrub/TMR-SEU slice)",
             "scrub_mode": "scrubbing (server scrub/TMR-SEU slice)",
             "deadline_us": "deadline admission (server deadline slice)",
@@ -264,11 +273,14 @@ class ChipStreamStats:
         return self.n_kept / self.n_in if self.n_in else 1.0
 
 
-# (seq, chip, (frame, y0), t_enqueue)
-_Event = Tuple[int, int, Tuple[np.ndarray, float], float]
-# (pending = (score (C, B), keep (C, B), disagree (C, R), ready event or
-# None), per_chip_seq, counts)
-_Inflight = Tuple[Tuple, List[List[int]], List[int]]
+# (seq, chip, kind, payload, t_enqueue): kind "frames" carries
+# (frame, y0), kind "features" a (n_features,) float64 row
+_Event = Tuple[int, int, str, object, float]
+# (kind, pending, per_chip_seq, counts, ready): kind "scored" holds
+# (score (C, B), keep (C, B), disagree (C, R)), kind "sparse" holds
+# (count, idx, vals, disagree (C, R), B); ready is the CUDA event behind
+# the batch's pinned copies, or None for results already on the host
+_Inflight = Tuple[str, Tuple, List[List[int]], List[int], object]
 
 
 class ReadoutServer:
@@ -323,14 +335,24 @@ class ReadoutServer:
             [c.score_threshold_raw for c in self.chips], np.int32)
         self._stack = None
         self._frontend = None  # fused frames pass, built on first use
+        # side stream of the drain's kept-prefix copies (CUDA only)
+        self._copy_stream = None
         if config.backend == "kernel":
             from repro_torch.kernels.lut_eval import ops as lut_ops
 
+            self._lut_ops = lut_ops
             self._stack = lut_ops.pack_fabrics(
                 [c.config for c in self.chips], band=config.band,
                 redundancy=config.redundancy, layout=self.layout,
                 device=self.device,
             )
+            self._out_weight = lut_ops.decode_plan(
+                [c.config for c in self.chips], self._stack.n_outputs)
+            if self.device.type == "cuda":
+                self._copy_stream = torch.cuda.Stream(self.device)
+        else:
+            self._multisim = MultiFabricSim(
+                self._replica_configs, geometry=self.geometry)
 
         self._queue: Deque[_Event] = collections.deque()
         self._seq = 0
@@ -347,7 +369,8 @@ class ReadoutServer:
         self._t_start: Optional[float] = None
         self._t_last: Optional[float] = None
         self._n_scored = 0
-        self._link_bytes = 0
+        self._link_bytes_wire = 0
+        self._link_bytes_dense = 0
 
     # ------------------------------------------------------------- intake
     @property
@@ -358,20 +381,34 @@ class ReadoutServer:
     def queue_depth(self) -> int:
         return len(self._queue)
 
+    def _check_chip(self, chip: int) -> None:
+        if not 0 <= chip < self.n_chips:
+            raise ValueError(
+                f"chip must be in [0, {self.n_chips}), got {chip}")
+
     def submit(self, chip: int, features: np.ndarray) -> Optional[int]:
-        raise NotPortedError(FEATURES_NOT_PORTED)
+        """Enqueue one pre-featurized event for one chip; returns its seq
+        (every event is admitted: deadline admission is not ported)."""
+        self._check_chip(chip)
+        seq = self._seq
+        self._seq += 1
+        self._queue.append((seq, chip, "features",
+                            np.asarray(features, np.float64), self._clock()))
+        return seq
 
     def submit_batch(self, chip: int, X: np.ndarray) -> List[Optional[int]]:
-        raise NotPortedError(FEATURES_NOT_PORTED)
+        """Enqueue a block of pre-featurized events (rows of X)."""
+        return [self.submit(chip, row) for row in np.asarray(X)]
 
     def submit_frames(
         self, chip: int, frames: np.ndarray, y0: np.ndarray
     ) -> List[Optional[int]]:
         """Enqueue raw-frame events: (n, T, Y, X) charge + (n,) y0; returns
         their seqs (every event is admitted: deadline admission is not
-        ported)."""
-        if not 0 <= chip < self.n_chips:
-            raise ValueError(f"chip must be in [0, {self.n_chips}), got {chip}")
+        ported). Frames and features of one micro-batch score as two
+        passes, so results follow the passes, not the global seq order
+        (every event stays seq-tagged)."""
+        self._check_chip(chip)
         frames = np.asarray(frames, np.float32)
         y0 = np.asarray(y0, np.float32)
         if frames.ndim != 4 or frames.shape[1:] != (N_T, N_Y, N_X) \
@@ -384,7 +421,8 @@ class ReadoutServer:
         for i in range(len(frames)):
             seq = self._seq
             self._seq += 1
-            self._queue.append((seq, chip, (frames[i], float(y0[i])), now))
+            self._queue.append(
+                (seq, chip, "frames", (frames[i], float(y0[i])), now))
             seqs.append(seq)
         return seqs
 
@@ -411,9 +449,9 @@ class ReadoutServer:
     def score_stream(
         self, batches: Iterable[Tuple]
     ) -> Iterable[List[ScoredEvent]]:
-        """Drive the loop over (chip, frames, y0) triples, yielding
-        completed results as they become available. (chip, features)
-        pairs — the features path — raise NotPortedError."""
+        """Drive the loop over (chip, frames, y0) triples and (chip,
+        features-block) pairs, yielding completed results as they become
+        available."""
         for item in batches:
             if len(item) == 3:
                 self.submit_frames(*item)
@@ -431,7 +469,7 @@ class ReadoutServer:
             return False
         if len(self._queue) >= self.config.max_batch:
             return True
-        oldest = self._queue[0][3]
+        oldest = self._queue[0][4]
         return (self._clock() - oldest) >= self.config.max_latency_s
 
     def _coalesce(self) -> List[_Event]:
@@ -443,26 +481,31 @@ class ReadoutServer:
         self._stage_n[key] += 1
 
     def _dispatch(self, events: List[_Event]) -> List[ScoredEvent]:
-        """Launch one micro-batch, then retire whatever finished."""
+        """Launch one micro-batch (frames and features as two passes),
+        then retire whatever finished."""
         if not events:
             return []
         if self._t_start is None:
             self._t_start = self._clock()
-        self._inflight.append(self._launch_frames(events))
+        frame_events = [e for e in events if e[2] == "frames"]
+        feat_events = [e for e in events if e[2] == "features"]
+        if frame_events:
+            self._inflight.append(self._launch_frames(frame_events))
+        if feat_events:
+            self._inflight.append(self._launch_features(feat_events))
         return self._drain_ready()
 
     def _group(self, events: List[_Event]):
         per_chip_seq: List[List[int]] = [[] for _ in self.chips]
-        per_chip_fy: List[List[Tuple[np.ndarray, float]]] = [
-            [] for _ in self.chips]
-        for seq, chip, payload, _ in events:
+        per_chip_payload: List[List[object]] = [[] for _ in self.chips]
+        for seq, chip, _, payload, _ in events:
             per_chip_seq[chip].append(seq)
-            per_chip_fy[chip].append(payload)
+            per_chip_payload[chip].append(payload)
         counts = [len(s) for s in per_chip_seq]
         for i, n in enumerate(counts):
             if n:
                 self._stats[i].n_dispatches += 1
-        return per_chip_seq, per_chip_fy, counts
+        return per_chip_seq, per_chip_payload, counts
 
     @staticmethod
     def _pad_batch(B: int) -> int:
@@ -475,11 +518,23 @@ class ReadoutServer:
         return (np.arange(max(B, 1))[None, :]
                 < np.asarray(counts)[:, None])
 
+    def _sparse_active(self) -> bool:
+        """Sparse egress is on when configured (the degrade ladder's
+        sparse_egress rung comes with the deadline slice)."""
+        return self.config.sparse
+
+    def _word_sparse_active(self) -> bool:
+        """Sparse egress on a bit-sliced kernel stack: the keep cut, SEU
+        counters and compaction run on the fabric kernel's words (kernel
+        B6 in the same pass), so there is no separate pack."""
+        return (self._sparse_active()
+                and self.config.backend == "kernel"
+                and self._stack is not None and self._stack.bitsliced)
+
     def _launch_frames(self, events: List[_Event]) -> _Inflight:
-        """Kernel backend: ONE fused device pass (timed ``launch_fused``),
-        results copied to pinned host memory behind a CUDA event. Host
-        backend: the same pipeline STAGED, each stage materialized and
-        timed (``staged_featurize`` / ``staged_encode`` /
+        """Kernel backend: ONE fused device pass (timed ``launch_fused``).
+        Host backend: the same pipeline STAGED, each stage materialized
+        and timed (``staged_featurize`` / ``staged_encode`` /
         ``staged_score``)."""
         per_chip_seq, per_chip_fy, counts = self._group(events)
         cfg = self.config
@@ -498,11 +553,17 @@ class ReadoutServer:
                     y0[i, : len(rows)] = [z for _, z in rows]
             self._stage("stack_frames", t0)
             t0 = self._clock()
-            score, keep, dis = self._get_frontend().score_frames_voted(
-                frames, y0, valid=valid)
-            pending = self._to_host(score, keep, dis)
+            fe = self._get_frontend()
+            if self._word_sparse_active():
+                count, idx, vals, dis = fe.score_frames_sparse(
+                    frames, y0, valid=valid)
+                self._stage("launch_fused", t0)
+                return self._finish_launch_sparse(
+                    count, idx, vals, dis, B, per_chip_seq, counts)
+            score, keep, dis = fe.score_frames_voted(frames, y0, valid=valid)
             self._stage("launch_fused", t0)
-            return pending, per_chip_seq, counts
+            return self._finish_launch(score, keep, dis, per_chip_seq,
+                                       counts)
 
         from repro_torch.kernels.yprofile import ops as yp_ops
 
@@ -541,21 +602,127 @@ class ReadoutServer:
             self._stage("staged_score", t0)
         keep = (score <= self._thr_raw[:, None]) & valid
         dis = (disagree & valid[:, None, :]).sum(-1).astype(np.int64)
-        return (score, keep, dis, None), per_chip_seq, counts
+        return self._finish_launch(score, keep, dis, per_chip_seq, counts)
 
-    def _to_host(self, score, keep, dis) -> Tuple:
-        """Start the device->host copy of one batch's results into pinned
-        memory and record an event behind it (CUDA); CPU results are
-        already host tensors."""
-        if score.device.type != "cuda":
-            return score, keep, dis, None
-        host = tuple(
-            torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
-                t, non_blocking=True)
-            for t in (score, keep, dis))
+    def _launch_features(self, events: List[_Event]) -> _Inflight:
+        """Features path: host encoding (quantize + offset-binary bits,
+        timed ``encode_host``), then ONE chip-batched scoring pass (timed
+        ``launch_score``): fabric evaluation of every replica, vote, score
+        decode and trigger cut on the device (``fabric_eval_multi_scored``,
+        or its word-domain sparse form with kernel B6)."""
+        per_chip_seq, per_chip_X, counts = self._group(events)
+        t0 = self._clock()
+        per_chip_bits: List[np.ndarray] = []
+        for i, chip in enumerate(self.chips):
+            if per_chip_X[i]:
+                bits = chip.encode_features(np.stack(per_chip_X[i]))
+            else:
+                bits = np.zeros((0, chip.config.n_inputs), np.uint8)
+            per_chip_bits.append(bits)
+        self._stage("encode_host", t0)
+
+        t0 = self._clock()
+        B = max(counts) if counts else 0
+        if self.config.backend == "kernel":
+            B = self._pad_batch(B)
+            lead = per_chip_bits[0]
+            if len(lead) < B:           # stack_event_bits pads to the max
+                per_chip_bits[0] = np.vstack(
+                    [lead, np.zeros((B - len(lead), lead.shape[1]),
+                                    np.uint8)])
+            valid = self._valid_mask(counts, B)
+            stacked = self._lut_ops.stack_input_bits(self._stack,
+                                                     per_chip_bits)
+            args = (self._stack, stacked, self._out_weight, self._thr_raw)
+            kw = dict(valid=valid, batch_tile=self.config.batch_tile)
+            if self._word_sparse_active():
+                count, idx, vals, dis = (
+                    self._lut_ops.fabric_eval_multi_scored_sparse(*args,
+                                                                  **kw))
+                self._stage("launch_score", t0)
+                return self._finish_launch_sparse(
+                    count, idx, vals, dis, B, per_chip_seq, counts)
+            score, keep, dis = self._lut_ops.fabric_eval_multi_scored(*args,
+                                                                      **kw)
+        else:
+            valid = self._valid_mask(counts, B)
+            stacked = stack_event_bits(per_chip_bits, self.geometry.n_inputs)
+            score, keep, dis = self._score_bits_host(stacked, valid)
+        self._stage("launch_score", t0)
+        return self._finish_launch(score, keep, dis, per_chip_seq, counts)
+
+    def _score_bits_host(
+        self, stacked: np.ndarray, valid: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The numpy oracle of the device scoring pass: every replica
+        (MultiFabricSim over the served replica configs), the same
+        majority vote, two's-complement decode, cut and disagreement
+        counts."""
+        C, B = stacked.shape[0], stacked.shape[1]
+        R = self.n_replicas
+        rep = np.repeat(stacked, R, axis=0) if R > 1 else stacked
+        outs = self._multisim.run(rep)                  # (R*C, B, O)
+        g = outs.reshape(C, R, B, outs.shape[-1])
+        if R > 1:
+            voted = majority_vote(g[:, 0], g[:, 1], g[:, 2])
+            disagree = (g != voted[:, None]).any(-1)    # (C, R, B)
+        else:
+            voted = g[:, 0]
+            disagree = np.zeros((C, 1, B), bool)
+        score = np.zeros((C, B), np.int64)
+        for i, chip in enumerate(self.chips):
+            n_out = len(chip.config.output_nets)
+            score[i] = chip.synth.decode_outputs(voted[i, :, :n_out])
+        keep = (score <= self._thr_raw[:, None]) & valid
+        dis = (disagree & valid[:, None, :]).sum(-1).astype(np.int64)
+        return score, keep, dis
+
+    def _finish_launch(self, score, keep, dis, per_chip_seq,
+                       counts) -> _Inflight:
+        """Output stage of a dense pass: the dense (score, keep) or, with
+        sparse egress on, its packed (count, idx, vals) — on the kernel
+        backend through ``compression.sparse_trigger_pack`` (kernel B6 on
+        the card, still asynchronous), on the host backend with numpy
+        (timed ``sparse_pack``)."""
+        if not self._sparse_active():
+            return self._enqueue("scored", (score, keep, dis), (0, 1, 2),
+                                 per_chip_seq, counts)
+        t0 = self._clock()
+        B = int(keep.shape[1])
+        if self.config.backend == "kernel":
+            count, idx, vals = sparse_trigger_pack(score, keep)
+        else:
+            idx = np.flatnonzero(np.asarray(keep).ravel()).astype(np.int32)
+            vals = np.asarray(score).ravel()[idx].astype(np.int32)
+            count = len(idx)
+        self._stage("sparse_pack", t0)
+        return self._finish_launch_sparse(count, idx, vals, dis, B,
+                                          per_chip_seq, counts)
+
+    def _finish_launch_sparse(self, count, idx, vals, dis, B, per_chip_seq,
+                              counts) -> _Inflight:
+        """Output stage of a sparse pass: the count and the disagree counts
+        go to pinned memory behind the batch's event; the padded (idx,
+        vals) stay on the device until the drain copies their kept
+        prefix."""
+        return self._enqueue("sparse", (count, idx, vals, dis, int(B)),
+                             (0, 3), per_chip_seq, counts)
+
+    def _enqueue(self, kind: str, parts: Tuple, to_host: Tuple[int, ...],
+                 per_chip_seq, counts) -> _Inflight:
+        """Start the device->host copies of ``parts[i]`` for i in
+        ``to_host`` into pinned memory and record the batch's CUDA event
+        after them, so a completed event means the copies landed. Results
+        already on the host (host backend, CPU tensors) need no event."""
+        if not any(torch.is_tensor(p) and p.is_cuda for p in parts):
+            return kind, parts, per_chip_seq, counts, None
+        parts = tuple(
+            torch.empty(p.shape, dtype=p.dtype, pin_memory=True).copy_(
+                p, non_blocking=True) if i in to_host else p
+            for i, p in enumerate(parts))
         ready = torch.cuda.Event()
         ready.record()
-        return (*host, ready)
+        return kind, parts, per_chip_seq, counts, ready
 
     def _get_frontend(self):
         if self._frontend is None:
@@ -573,16 +740,13 @@ class ReadoutServer:
             )
         return self._frontend
 
-    @staticmethod
-    def _result_ready(pending: Tuple) -> bool:
-        """True when materializing a batch will not block: its CUDA event
-        has completed (host-backend and CPU results are always ready)."""
-        ready = pending[3]
-        return ready is None or ready.query()
-
     def _head_ready(self) -> bool:
-        return bool(self._inflight) and self._result_ready(
-            self._inflight[0][0])
+        """Non-blocking probe: has the OLDEST in-flight batch's event
+        completed (results already on the host always have)?"""
+        if not self._inflight:
+            return False
+        ready = self._inflight[0][4]
+        return ready is None or ready.query()
 
     def _drain_ready(self) -> List[ScoredEvent]:
         """Retire every finished in-flight batch, oldest first, never
@@ -592,24 +756,55 @@ class ReadoutServer:
             out.extend(self._drain_one())
         return out
 
+    def _kept_prefix(self, t, n: int) -> np.ndarray:
+        """The first ``n`` entries of a packed vector on the host, int64.
+        A CUDA vector is copied on the side stream: its batch has
+        finished, and the copy must not wait for the batches queued on
+        the main stream behind it."""
+        if torch.is_tensor(t) and t.is_cuda:
+            with torch.cuda.stream(self._copy_stream):
+                t = t[:n].cpu()
+        return np.asarray(t[:n]).astype(np.int64)
+
     def _drain_one(self) -> List[ScoredEvent]:
         """Materialize the OLDEST in-flight batch and fold it into the
-        reports (``drain_wait`` is the host-visible blocking time)."""
+        reports (``drain_wait`` is the host-visible blocking time). With
+        sparse egress only the count prefix of the packed (idx, score)
+        pair crosses the host link: the measured wire bytes."""
         if not self._inflight:
             return []
-        (score, keep, dis, ready), per_chip_seq, counts = (
-            self._inflight.popleft())
+        kind, pending, per_chip_seq, counts, ready = self._inflight.popleft()
         t0 = self._clock()
         if ready is not None:
             ready.synchronize()                         # blocks here
-        score, keep, dis = (np.asarray(x) for x in (score, keep, dis))
         results: List[ScoredEvent] = []
-        self._link_bytes += DENSE_BYTES_PER_EVENT * int(sum(counts))
-        for i in range(self.n_chips):
-            n = counts[i]
-            if n:
-                self._fold_chip(results, i, per_chip_seq[i],
-                                score[i, :n].astype(np.int64), keep[i, :n])
+        n_events = int(sum(counts))
+        self._link_bytes_dense += DENSE_BYTES_PER_EVENT * n_events
+        if kind == "sparse":
+            count, idx, vals, dis, B = pending
+            n_kept = int(count)
+            idx_h = self._kept_prefix(idx, n_kept)
+            vals_h = self._kept_prefix(vals, n_kept)
+            self._link_bytes_wire += (
+                SPARSE_HEADER_BYTES + SPARSE_BYTES_PER_EVENT * n_kept)
+            chip_of = idx_h // max(B, 1)
+            kept_per_chip = np.bincount(chip_of, minlength=self.n_chips)
+            for i, st in enumerate(self._stats):
+                st.n_in += counts[i]
+                st.n_kept += int(kept_per_chip[i])
+            for k, c, v in zip(idx_h, chip_of, vals_h):
+                results.append(ScoredEvent(
+                    seq=per_chip_seq[c][k % B], chip=int(c),
+                    score_raw=int(v), keep=True))
+        else:
+            score, keep, dis = (np.asarray(x) for x in pending)
+            self._link_bytes_wire += DENSE_BYTES_PER_EVENT * n_events
+            for i in range(self.n_chips):
+                n = counts[i]
+                if n:
+                    self._fold_chip(results, i, per_chip_seq[i],
+                                    score[i, :n].astype(np.int64),
+                                    keep[i, :n])
         self._fold_disagreements(dis)
         self._stage("drain_wait", t0)
         self._n_scored += len(results)
@@ -669,16 +864,22 @@ class ReadoutServer:
             [c.score_threshold_raw for c in self.chips], np.int32)
         if self.config.backend == "kernel":
             self._stack = self._stack.swap_chip(slot, cfg)
+            self._out_weight = self._lut_ops.decode_plan(
+                [c.config for c in self.chips], self._stack.n_outputs)
             if self._frontend is not None:
                 self._frontend = self._frontend.swap_chip(
                     slot, cfg, new_chip.frontend_spec(), stack=self._stack)
+        else:
+            self._multisim = MultiFabricSim(
+                self._replica_configs, geometry=self.geometry)
         self._frame_sims[slot] = None
         return done
 
     # ------------------------------------------------------------ report
     def report(self) -> Dict[str, object]:
         """Per-chip trigger/reduction accounting over the stream, the
-        host-link bytes, the per-replica SEU disagreement counters and the
+        host-link bytes (on the wire, and what dense egress would have
+        shipped), the per-replica SEU disagreement counters and the
         per-stage host timing (seconds and calls per stage; the fused
         pass is one ``launch_fused`` entry, the staged host path itemizes
         it)."""
@@ -723,9 +924,13 @@ class ReadoutServer:
             "seu_disagreement_total": int(
                 sum(sum(s.disagreements) for s in self._stats)),
             "link_bytes": {
-                "on_wire": self._link_bytes,
-                "dense_equivalent": self._link_bytes,
-                "wire_reduction": 1.0,
+                "on_wire": self._link_bytes_wire,
+                "dense_equivalent": self._link_bytes_dense,
+                "wire_reduction": (
+                    self._link_bytes_dense / self._link_bytes_wire
+                    if self._link_bytes_wire
+                    and self._link_bytes_wire != self._link_bytes_dense
+                    else 1.0),
             },
             "stages": {
                 k: {"seconds": self._stage_s[k], "calls": self._stage_n[k]}

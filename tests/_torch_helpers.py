@@ -21,7 +21,9 @@ from repro.data.smartpixel import generate as jax_generate
 from repro.data.smartpixel import train_test_split as jax_split
 from repro_torch.core.bdt import GradientBoostedClassifier as PortGBC
 from repro_torch.core.quantize import FixedSpec as PortSpec
+from repro_torch.core.quantize import quantize_raw
 from repro_torch.core.readout import ReadoutChip as PortChip
+from repro_torch.data.pipeline import FrameStream, FrameStreamConfig
 from repro_torch.data.smartpixel import SmartPixelConfig as PortSPC
 from repro_torch.data.smartpixel import generate as port_generate
 from repro_torch.data.smartpixel import train_test_split as port_split
@@ -92,3 +94,78 @@ def broken_one_hot(packed, x, recipe: str):
     (dict of arrays, x)."""
     arrays = {k: np.asarray(getattr(packed, k)) for k in BDT_ARRAYS}
     return chip_smoke.synthetic_ensemble(np, arrays, np.asarray(x), recipe)
+
+
+# The served stream of the server tests: 2 chips (a 28 nm and a 130 nm
+# one) x 3 FrameStream batches x 64 events, chip 0 hot-swapped for a
+# second 130 nm chip before the second batch.
+N_BATCHES, N_EVENTS, SWAP_AT = 3, 64, 1
+
+
+@functools.lru_cache(maxsize=None)
+def served_stream():
+    """(chip pairs, swap pair, blocks[step][sensor] of frames + y0)."""
+    pairs = [chip_pair(f) for f in ("efpga_28nm", "efpga_130nm")]
+    swap = chip_pair("efpga_130nm", seed=6)
+    fs = FrameStream(FrameStreamConfig(n_sensors=2, batch=N_EVENTS, seed=3))
+    blocks = [[fs.batch_at(step, s) for s in range(2)]
+              for step in range(N_BATCHES)]
+    return pairs, swap, blocks
+
+
+def jax_features(frames, y0):
+    """The JAX featurizer's (n, 14) features of raw frames."""
+    from repro.kernels.yprofile import ops as jax_yp
+
+    return np.asarray(jax_yp.yprofile(frames, y0, batch_tile=128))
+
+
+@functools.lru_cache(maxsize=None)
+def served_features():
+    """features[step][sensor]: the JAX featurizer's features of the
+    served stream's frames, float64 — identical host features for both
+    packages' features path."""
+    blocks = served_stream()[2]
+    return [[jax_features(b["frames"], b["y0"]).astype(np.float64)
+             for b in per_sensor] for per_sensor in blocks]
+
+
+def drive(server, chip_after_swap, blocks, features=None, frames=True):
+    """Serve the stream with a frozen clock (batches form only at
+    max_batch, reconfigure and flush — identical in both packages): per
+    step and sensor the frames block (``frames``) and then the features
+    block (``features``), so a micro-batch can mix both kinds. Returns
+    ({seq: (chip, score, keep)}, report)."""
+    out = []
+    for step, per_sensor in enumerate(blocks):
+        if step == SWAP_AT:
+            out += server.reconfigure(0, chip_after_swap)
+        for s, blk in enumerate(per_sensor):
+            if frames:
+                server.submit_frames(s, blk["frames"], blk["y0"])
+            if features is not None:
+                server.submit_batch(s, features[step][s])
+            out += server.poll()
+    out += server.flush()
+    return {r.seq: (r.chip, r.score_raw, r.keep) for r in out}, server.report()
+
+
+def flip_seqs(pairs, swap, blocks, with_features=False):
+    """seqs of frame events whose quantized used features differ between
+    the two featurizers (summation-order flips, test_torch_yprofile.py),
+    numbered as ``drive`` submits them."""
+    from repro_torch.kernels.yprofile import ops as port_yp
+
+    flips, seq = set(), 0
+    for step, per_sensor in enumerate(blocks):
+        for s, blk in enumerate(per_sensor):
+            chip = swap if (s == 0 and step >= SWAP_AT) else pairs[s][1]
+            used = list(chip.synth.used_features)
+            a = port_yp.yprofile(blk["frames"], blk["y0"],
+                                 device="cpu").numpy()[:, used]
+            b = jax_features(blk["frames"], blk["y0"])[:, used]
+            d = (quantize_raw(a, chip.golden.spec)
+                 != quantize_raw(b, chip.golden.spec)).any(-1)
+            flips |= {seq + i for i in np.flatnonzero(d)}
+            seq += len(d) + (N_EVENTS if with_features else 0)
+    return flips

@@ -25,9 +25,9 @@ from repro.kernels import frontend as jax_fe  # noqa: E402
 from repro.kernels.yprofile import ops as jax_yp  # noqa: E402
 from repro_torch.core.fabric import FabricSim  # noqa: E402
 from repro_torch.core.quantize import quantize_raw  # noqa: E402
-from repro_torch.device import NotPortedError  # noqa: E402
 from repro_torch.kernels import frontend as port_fe  # noqa: E402
 from repro_torch.kernels.yprofile import ops as port_yp  # noqa: E402
+from repro_torch.parallel.compression import sparse_trigger_pack  # noqa: E402
 from tests._torch_helpers import FABRIC_RECIPES, chip_pair, frames  # noqa: E402
 
 B = 256
@@ -167,8 +167,14 @@ def test_swap_chip_and_threshold_update_plan_rows(farm):
     st = sw.set_threshold(2, -7)
     assert int(st.plan["threshold_raw"][2]) == -7
     assert st.chip_specs[2].threshold_raw == -7
-    with pytest.raises(NotPortedError):
-        pf.score_frames_sparse(fr, y0)
+    # the sparse pass of the swapped, retargeted stack is its dense pass,
+    # packed (kernel B6's twin here)
+    count, idx, vals, dis = st.score_frames_sparse(fr[:, :64], y0[:, :64])
+    score, keep, dense_dis = st.score_frames_voted(fr[:, :64], y0[:, :64])
+    want = sparse_trigger_pack(score, keep)
+    for g, w in zip((count, idx, vals, dis), (*want, dense_dis)):
+        assert torch.equal(g, w)
+    assert 0 < int(count) < keep.numel()
 
 
 def test_scoring_backends_agree(farm):

@@ -44,8 +44,16 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
+print(" ".join(names))
 assert not bad, bad
 """
+
+# modules the blocked import must reach, the sparse-egress slice's among
+# them (a package that failed to import would drop out of the walk)
+REQUIRED_MODULES = ("repro_torch.parallel.compression",
+                    "repro_torch.kernels.sparse_pack.sparse_pack",
+                    "repro_torch.kernels.lut_eval.ops",
+                    "repro_torch.launch.readout_server")
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -54,8 +62,10 @@ def test_port_imports_with_jax_and_repro_blocked():
         text=True, cwd=ROOT, timeout=120,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr[-2000:]
-    n_modules, bad = proc.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 20 and bad.strip() == "[]", proc.stdout
+    counts, names = proc.stdout.splitlines()
+    n_modules, bad = counts.split(maxsplit=1)
+    assert int(n_modules) >= 25 and bad.strip() == "[]", proc.stdout
+    assert set(REQUIRED_MODULES) <= set(names.split()), names
 
 
 _FORBIDDEN = re.compile(
@@ -64,8 +74,8 @@ _FORBIDDEN = re.compile(
 
 
 def test_no_source_line_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "benchmarks" / "torch_lut_eval_probe.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "benchmarks").glob("torch_*.py"))
     hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
             for p in files for m in _FORBIDDEN.finditer(p.read_text())]
     assert len(files) > 20 and not hits, hits
@@ -77,7 +87,7 @@ def _entry_points():
     from repro_torch.kernels.bdt_infer.ops import bdt_infer, pack_ensemble
     from repro_torch.kernels.frontend import pack_frontend
     from repro_torch.kernels.lut_eval.ops import (
-        fabric_eval, pack_fabric, pack_fabrics)
+        fabric_eval, fabric_eval_multi, pack_fabric, pack_fabrics)
     from repro_torch.kernels.yprofile.ops import yprofile
     from repro_torch.launch.readout_server import ReadoutServer
 
@@ -101,6 +111,8 @@ def _entry_points():
         "bdt_infer": lambda: bdt_infer(_chip().golden,
                                        np.zeros((2, 14), np.int32),
                                        n_features=14),
+        "fabric_eval_multi": lambda: fabric_eval_multi(
+            [_config()], np.zeros((1, 2, _config().n_inputs), np.uint8)),
     }
 
 
@@ -120,7 +132,7 @@ def _spec():
     "resolve_device", "yprofile", "pack_fabrics", "pack_frontend",
     "ReadoutServer", "KernelBackend.score_bits", "HostBackend.score_frames",
     "convert.plan_from_numpy", "pack_fabric", "fabric_eval", "pack_ensemble",
-    "bdt_infer"])
+    "bdt_infer", "fabric_eval_multi"])
 def test_entry_point_without_cuda_raises_named_error(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

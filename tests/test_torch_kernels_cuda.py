@@ -12,7 +12,9 @@ tests/test_torch_yprofile.py); the bit-sliced walk, the selection-matmul
 fabric kernels (dense and banded, also on a synthetic 0/1 ``sel`` with
 empty and several-ones columns, and at the §5 chunk shape), the BDT
 kernel (its tree walk on the packed arrays, its literal path on arrays
-broken out of the one-hot form: chip_smoke.synthetic_ensemble) and the
+broken out of the one-hot form: chip_smoke.synthetic_ensemble), the
+sparse-egress kernel B6 (both entries, on the walk's real words and on
+chip_smoke's synthetic words, keep fractions and decode rows) and the
 fused frontend downstream of identical features are exact.
 """
 import numpy as np
@@ -30,7 +32,9 @@ from repro_torch.kernels.bdt_infer import ops as bdt_ops
 from repro_torch.kernels.lut_eval import bitsliced as bs
 from repro_torch.kernels.lut_eval import lut_eval as le
 from repro_torch.kernels.lut_eval import ops as lut_ops
+from repro_torch.kernels.sparse_pack import sparse_pack as sp
 from repro_torch.kernels.yprofile import ops as yp
+from repro_torch.parallel import compression as cp
 
 pytestmark = pytest.mark.cuda
 
@@ -287,3 +291,83 @@ def test_bitsliced_kernel_at_served_and_wide_widths(card, redundancy,
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert bool((got[1] != 0).any()) == (redundancy == "tmr")
+
+
+def _equal_b6(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("frac", chip_smoke.B6_FRACTIONS)
+@pytest.mark.parametrize("redundancy", ["none", "tmr"])
+def test_sparse_pack_on_walk_words_equals_plain_twin(card, redundancy,
+                                                     frac):
+    """B6's decode entry on K2's voted and disagreement words (an upset
+    replica under TMR), the chips' decode rows and a valid tail that ends
+    mid-word: (count, idx, vals, dis) equal the twin's."""
+    chips, _, _ = card
+    stack = lut_ops.pack_fabrics([c.config for c in chips],
+                                 redundancy=redundancy, layout="bitsliced",
+                                 device="cuda")
+    tables = stack.tables.clone()
+    if redundancy == "tmr":
+        tables[1, :, :8, ::3] = 1.0 - tables[1, :, :8, ::3]
+    bits = torch.as_tensor(np.random.default_rng(9).integers(
+        0, 2, (2, 512, stack.n_inputs)), dtype=torch.int32, device="cuda")
+    seg = bs.input_words(bits, stack.n_inputs, stack.in_seg)
+    voted, dis = bs.eval_seg_voted(stack.src, tables, stack.output_nets, seg,
+                                   stack.n_replicas)
+    weight = torch.as_tensor(lut_ops.decode_plan(
+        [c.config for c in chips], stack.n_outputs), device="cuda")
+    args = chip_smoke.b6_case(torch, np, bs, 2, 16, stack.n_replicas,
+                              stack.n_outputs, "plan", frac, seed=3,
+                              voted=voted, dis=dis, weight=weight)
+    n0 = sp.decode_pack.launches
+    got = sp.decode_pack(*args)
+    assert sp.decode_pack.launches == n0 + 1
+    _equal_b6(got, sp.decode_pack_plain(*args))
+    assert bool((got[3] != 0).any()) == (redundancy == "tmr")
+
+
+@pytest.mark.parametrize("recipe", chip_smoke.B6_WEIGHTS)
+@pytest.mark.parametrize("words", [16, chip_smoke.B6_WORDS])
+def test_sparse_pack_on_synthetic_words_equals_plain_twin(card, words,
+                                                          recipe):
+    """B6 on random words at the served width and at 65,536 events a chip,
+    for every synthetic decode row and keep fraction."""
+    for frac in chip_smoke.B6_FRACTIONS:
+        args = chip_smoke.b6_case(torch, np, bs, 4, words, 3, 32, recipe,
+                                  frac, seed=words)
+        _equal_b6(sp.decode_pack(*args), sp.decode_pack_plain(*args))
+
+
+@pytest.mark.parametrize("shape", [(4, 512), (4, 8), (3, 37)])
+def test_sparse_pack_keep_words_entry_equals_cpu(card, shape):
+    """The event-domain pack (B6's keep-words entry) on the card equals
+    the CPU twin, at every keep fraction."""
+    rng = np.random.default_rng(shape[1])
+    for frac in chip_smoke.B6_FRACTIONS:
+        score = torch.as_tensor(rng.integers(-2**31, 2**31, shape),
+                                dtype=torch.int32)
+        keep = torch.as_tensor(rng.random(shape) < frac)
+        n0 = sp.pack_keep_words.launches
+        got = cp.sparse_trigger_pack(score.cuda(), keep.cuda())
+        assert sp.pack_keep_words.launches == n0 + 1
+        _equal_b6([g.cpu() for g in got], cp.sparse_trigger_pack(score, keep))
+
+
+def test_sparse_frames_on_card_equal_dense_packed(card):
+    """The fused sparse pass on the card (K1, K2, B6) equals the dense
+    pass on the card, packed on the CPU, and keeps count on the device."""
+    chips, frames, y0 = card
+    on_card = fe.pack_frontend([c.config for c in chips],
+                               [c.frontend_spec() for c in chips],
+                               redundancy="tmr", layout="bitsliced",
+                               device="cuda")
+    for B in (256, 100):
+        got = on_card.score_frames_sparse(frames[:, :B], y0[:, :B])
+        assert got[0].is_cuda and got[0].shape == ()
+        score, keep, dis = on_card.score_frames_voted(frames[:, :B],
+                                                      y0[:, :B])
+        want = cp.sparse_trigger_pack(score.cpu(), keep.cpu())
+        _equal_b6([g.cpu() for g in got], [*want, dis.cpu()])

@@ -1,13 +1,15 @@
-"""The port's ReadoutServer (frames path) against the JAX package's.
+"""The port's ReadoutServer (dense egress) against the JAX package's.
 
 One seeded FrameStream — 2 chips x 3 batches x 64 events, chip 0
-hot-swapped after the first batch — goes through the port's server on
-the CPU and the JAX server, in the default (bit-sliced) layout and with
-``layout="matmul"``. Per event (seq, chip, score, keep) and the report's
-trigger counters must agree; the only events allowed to differ are those
-whose quantized used-feature pattern differs between the two featurizers
-(summation-order flips, see test_torch_yprofile.py). Knobs the port does
-not carry yet raise NotPortedError.
+hot-swapped after the first batch (tests/_torch_helpers.served_stream) —
+goes through the port's server on the CPU and the JAX server, in the
+default (bit-sliced) layout and with ``layout="matmul"``. Per event (seq,
+chip, score, keep) and the report's trigger counters must agree; the only
+events allowed to differ are those whose quantized used-feature pattern
+differs between the two featurizers (summation-order flips, see
+test_torch_yprofile.py). The features path, fed the same host features,
+agrees exactly. Knobs the port does not carry yet raise NotPortedError;
+sparse egress is tested in test_torch_sparse.py.
 """
 import dataclasses
 
@@ -19,38 +21,18 @@ import numpy as np  # noqa: E402
 
 from repro.launch.readout_server import ReadoutServer as JaxServer  # noqa: E402
 from repro.launch.readout_server import ServerConfig as JaxConfig  # noqa: E402
-from repro_torch.core.quantize import quantize_raw  # noqa: E402
-from repro_torch.data.pipeline import FrameStream, FrameStreamConfig  # noqa: E402
 from repro_torch.device import NotPortedError  # noqa: E402
-from repro_torch.kernels.yprofile import ops as port_yp  # noqa: E402
 from repro_torch.launch.readout_server import ReadoutServer, ServerConfig  # noqa: E402
-from tests._torch_helpers import chip_pair  # noqa: E402
+from tests._torch_helpers import N_BATCHES, N_EVENTS, served_features  # noqa: E402
+from tests._torch_helpers import drive as _drive  # noqa: E402
+from tests._torch_helpers import served_stream  # noqa: E402
+from tests._torch_helpers import flip_seqs  # noqa: E402
 
-FABRICS = ("efpga_28nm", "efpga_130nm")
-N_BATCHES, N_EVENTS, SWAP_AT = 3, 64, 1
-
-
-def _drive(server, chips_after_swap, blocks):
-    """Serve the blocks with a frozen clock (batches form only at
-    max_batch, reconfigure and flush — identical in both servers)."""
-    out = []
-    for step, per_sensor in enumerate(blocks):
-        if step == SWAP_AT:
-            out += server.reconfigure(0, chips_after_swap)
-        for s, blk in enumerate(per_sensor):
-            server.submit_frames(s, blk["frames"], blk["y0"])
-            out += server.poll()
-    out += server.flush()
-    return {r.seq: (r.chip, r.score_raw, r.keep) for r in out}, server.report()
 
 
 @pytest.fixture(scope="module")
 def stream():
-    pairs = [chip_pair(f) for f in FABRICS]
-    swap = chip_pair("efpga_130nm", seed=6)
-    fs = FrameStream(FrameStreamConfig(n_sensors=2, batch=N_EVENTS, seed=3))
-    blocks = [[fs.batch_at(step, s) for s in range(2)]
-              for step in range(N_BATCHES)]
+    pairs, swap, blocks = served_stream()
     jax_runs = {}
     for red in ("none", "tmr"):
         server = JaxServer([p[0] for p in pairs], JaxConfig(redundancy=red),
@@ -72,29 +54,6 @@ def matmul_runs(stream):
     return runs
 
 
-def _flip_seqs(pairs, swap, blocks, jax_features):
-    """seqs whose quantized used features differ between featurizers."""
-    flips, seq = set(), 0
-    for step, per_sensor in enumerate(blocks):
-        for s, blk in enumerate(per_sensor):
-            chip = swap if (s == 0 and step >= SWAP_AT) else pairs[s][1]
-            used = list(chip.synth.used_features)
-            a = port_yp.yprofile(blk["frames"], blk["y0"],
-                                 device="cpu").numpy()[:, used]
-            b = jax_features(blk["frames"], blk["y0"])[:, used]
-            d = (quantize_raw(a, chip.golden.spec)
-                 != quantize_raw(b, chip.golden.spec)).any(-1)
-            flips |= {seq + i for i in np.flatnonzero(d)}
-            seq += len(d)
-    return flips
-
-
-def _jax_features(frames, y0):
-    from repro.kernels.yprofile import ops as jax_yp
-
-    return np.asarray(jax_yp.yprofile(frames, y0, batch_tile=128))
-
-
 @pytest.mark.parametrize("backend,red", [
     ("kernel", "none"), ("kernel", "tmr"), ("host", "none")])
 def test_server_events_and_counters_match_jax(stream, backend, red):
@@ -106,7 +65,7 @@ def test_server_events_and_counters_match_jax(stream, backend, red):
     want, jrep = jax_runs[red]
     assert sorted(got) == sorted(want) == list(range(2 * N_BATCHES * N_EVENTS))
     diff = {q for q in got if got[q] != want[q]}
-    flips = _flip_seqs(pairs, swap[1], blocks, _jax_features)
+    flips = flip_seqs(pairs, swap[1], blocks)
     print(f"{backend}/{red}: {len(flips)} flip events, {len(diff)} differ")
     assert diff <= flips and len(flips) <= 0.01 * len(got)
     assert all(got[q][0] == want[q][0] for q in got)          # chip tags
@@ -141,7 +100,7 @@ def test_matmul_server_events_and_counters_match_jax(stream, matmul_runs,
     want, jrep = matmul_runs[red]
     assert sorted(got) == sorted(want)
     diff = {q for q in got if got[q] != want[q]}
-    assert diff <= _flip_seqs(pairs, swap[1], blocks, _jax_features)
+    assert diff <= flip_seqs(pairs, swap[1], blocks)
     for pc, jc in zip(rep["per_chip"], jrep["per_chip"]):
         assert pc["n_in"] == jc["n_in"]
         assert pc["seu_disagreements"] == jc["seu_disagreements"] == [0] * (
@@ -175,8 +134,13 @@ def test_score_stream_yields_every_event(stream):
              for per_sensor in blocks for s, blk in enumerate(per_sensor)]
     seqs = [r.seq for got in server.score_stream(items) for r in got]
     assert sorted(seqs) == list(range(len(items) * N_EVENTS))
-    with pytest.raises(NotPortedError):
-        list(server.score_stream([(0, np.zeros((2, 14)))]))
+    # (chip, features) pairs take the features path
+    feats = served_features()
+    pairs_stream = [(s, feats[step][s]) for step in range(N_BATCHES)
+                    for s in range(2)]
+    seqs = [r.seq for got in server.score_stream(pairs_stream) for r in got]
+    n0 = len(items) * N_EVENTS
+    assert sorted(seqs) == list(range(n0, n0 + len(pairs_stream) * N_EVENTS))
 
 
 def test_config_fields_and_defaults_match_jax():
@@ -186,7 +150,7 @@ def test_config_fields_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(sparse=True), dict(scrub_interval=4),
+    dict(scrub_interval=4),
     dict(scrub_mode="round_robin"), dict(deadline_us=100.0),
     dict(deadline_us=100.0, overload_policy="shed"),
     dict(degrade_rungs=("scrub_relax",)), dict(degrade_window=8),
@@ -203,13 +167,37 @@ def test_invalid_knob_still_raises_value_error():
         ServerConfig(max_batch=0)
 
 
-def test_features_path_not_ported(stream):
-    pairs = stream[0]
-    server = ReadoutServer([p[1] for p in pairs], device="cpu")
-    with pytest.raises(NotPortedError, match="features"):
-        server.submit(0, np.zeros(14))
-    with pytest.raises(NotPortedError, match="features"):
-        server.submit_batch(0, np.zeros((3, 14)))
+def test_sparse_knob_must_be_a_bool():
+    assert ServerConfig(sparse=True, redundancy="tmr").sparse
+    for bad in ("yes", 1):
+        with pytest.raises(ValueError, match="sparse"):
+            ServerConfig(sparse=bad)
+
+
+def test_features_path_matches_jax(stream):
+    """submit/submit_batch of the stream's host features: every event and
+    the report's counters equal the JAX server's exactly (no featurizer
+    in this path)."""
+    pairs, swap, blocks, _ = stream
+    feats = served_features()
+    runs = []
+    for server, chip in (
+            (JaxServer([p[0] for p in pairs], JaxConfig(), clock=lambda: 0.0),
+             swap[0]),
+            (ReadoutServer([p[1] for p in pairs], ServerConfig(),
+                           clock=lambda: 0.0, device="cpu"), swap[1])):
+        runs.append(_drive(server, chip, blocks, features=feats,
+                           frames=False))
+    (want, jrep), (got, rep) = runs
+    assert got == want and len(got) == 2 * N_BATCHES * N_EVENTS
+    for pc, jc in zip(rep["per_chip"], jrep["per_chip"]):
+        for k in ("n_in", "n_kept", "n_dispatches", "seu_disagreements"):
+            assert pc[k] == jc[k], k
+    assert rep["link_bytes"] == jrep["link_bytes"]
+    assert {"encode_host", "launch_score", "drain_wait"} <= set(rep["stages"])
+    with pytest.raises(ValueError, match="chip"):
+        runs and ReadoutServer([p[1] for p in pairs],
+                               device="cpu").submit(2, feats[0][0][0])
 
 
 def test_submit_frames_validates_input(stream):
