@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Same-call A/B of two sources of the BDT kernel (B4,
-src/repro_torch/kernels/csrc/bdt_infer.cu) or of the bit-sliced fabric
-walk (K2, csrc/bitsliced.cu) on one CUDA card, and K2's tile sweep. Run
-from the repo root:
+src/repro_torch/kernels/csrc/bdt_infer.cu), of the bit-sliced fabric
+walk (K2, csrc/bitsliced.cu) or of the egress kernel (B6,
+csrc/sparse_pack.cu) on one CUDA card, B6's dense entry against the torch
+chain it replaces, and K2's tile sweep. Run from the repo root:
 
     python3 benchmarks/torch_kernel_ab.py b4 A.cu B.cu
     python3 benchmarks/torch_kernel_ab.py k2 A.cu B.cu
+    python3 benchmarks/torch_kernel_ab.py b6 A.cu B.cu
+    python3 benchmarks/torch_kernel_ab.py b6-dense
     python3 benchmarks/torch_kernel_ab.py k2-tiles
 
 b4       — both sources built side by side and timed in turns (A, B, B,
@@ -24,6 +27,22 @@ k2       — the same for two sources of eval_words_voted_launch on
            eval_words_voted_scratch_bytes takes the descriptor scratch
            pointer; one without it is driven with the earlier signature
            (no scratch; the per-item loads of the first kernel).
+b6       — the same for two sources of sparse_pack_launch at chip_smoke's
+           timing shapes (4 chips x 16 and x 2,048 words, R=3, O=28, the
+           plan's rows, about half kept): the decode-pack entry and the
+           keep-words entry, each exact against its plain twin. A source
+           that exports sparse_pack_state_words takes the persistent
+           state (one launch an entry); one without it is driven with
+           the earlier signature (a scratch of 2*C*W words; a memset and
+           three kernels).
+b6-phases — a copy of the committed B6 source with %globaltimer stamps
+           by thread 0 of the first and the last block of each entry
+           (start, words loaded, padded, looked back, scattered, counted
+           done, end), and an empty kernel of the same grid: where one
+           launch's time goes, at the same shapes.
+b6-dense — the torch chain the dense path ran (unpack_words, then
+           decode_scores_device) against B6's dense entry, in turns, at
+           the same shapes, each exact against the chain on the CPU.
 k2-tiles — the committed K2 source at every tile that fits, same shapes.
 b4-tiles — the committed B4 source at every events-per-block tile from 8
            to 256, at B=512 and B=65,536.
@@ -57,6 +76,7 @@ from repro_torch.kernels.bdt_infer import bdt_infer as bdt  # noqa: E402
 from repro_torch.kernels.bdt_infer import ops as bdt_ops  # noqa: E402
 from repro_torch.kernels.lut_eval import bitsliced as bs  # noqa: E402
 from repro_torch.kernels.lut_eval import ops as lut_ops  # noqa: E402
+from repro_torch.kernels.sparse_pack import sparse_pack as sp  # noqa: E402
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -118,7 +138,7 @@ def b4_launcher(x, arrays, depth, n_sms):
         out = torch.empty((B, bdt.OUT_COLS), dtype=torch.int32,
                           device="cuda")
         if hasattr(lib, "bdt_infer_scratch_bytes"):
-            fn.argtypes = list(build.PROTOTYPES["bdt_infer"][1])
+            fn.argtypes = list(build.PROTOTYPES["bdt_infer"]["bdt_infer_launch"])
             scratch = bdt.scratch_for(P, x.device)
             tile = bdt.bdt_tile(P, F, B, n_sms)
             args = ptrs + [scratch.data_ptr(), out.data_ptr()]
@@ -279,7 +299,7 @@ def k2_launcher(args, tile):
         ptrs = [seg.data_ptr(), src.data_ptr(), tables.data_ptr(),
                 output_nets.data_ptr()]
         if hasattr(lib, "eval_words_voted_scratch_bytes"):
-            fn.argtypes = list(build.PROTOTYPES["bitsliced"][1])
+            fn.argtypes = list(build.PROTOTYPES["bitsliced"]["eval_words_voted_launch"])
             scratch = bs.scratch_for(C, R, L, M, seg.device)
             ptrs.append(scratch.data_ptr())
         else:
@@ -403,6 +423,200 @@ def k2_phases():
             flush=True)
 
 
+def b6_cases():
+    """(words, decode args, keep words, lane scores) at chip_smoke's B6
+    timing shapes."""
+    for words in (cs.SERVED_B // 32, cs.B6_WORDS):
+        args = cs.b6_case(torch, np, bs, cs.N_CHIPS, words, 3, 28, "plan",
+                          0.5, seed=17)
+        keep_w, scores, _ = lut_ops.decode_keep_words_device(*args)
+        yield words, args, keep_w.contiguous(), scores.contiguous()
+
+
+def b6_launcher(args, keep_w, scores, decode):
+    """A launch of one B6 source's decode-pack (``decode``) or
+    keep-words entry into preallocated outputs."""
+    voted, dis, weight, thr, valid = args
+    C, W, O = voted.shape
+    R, B = dis.shape[1], valid.shape[1]
+    n = C * W * 32
+
+    def make(lib):
+        fn = lib.sparse_pack_launch
+        fn.restype = ctypes.c_int
+        out = (torch.empty((), dtype=torch.int32, device="cuda"),
+               torch.empty(n, dtype=torch.int32, device="cuda"),
+               torch.empty(n, dtype=torch.int32, device="cuda"),
+               torch.empty((C, R), dtype=torch.int32, device="cuda"))
+        ins = ([t.data_ptr() for t in args] + [None, None] if decode
+               else [None] * 5 + [keep_w.data_ptr(), scores.data_ptr()])
+        outs = [t.data_ptr() for t in out[:3]] + [
+            out[3].data_ptr() if decode else None]
+        dims = [C, W, O, R, B] if decode else [C, W, 0, 0, 0]
+        if hasattr(lib, "sparse_pack_state_words"):
+            fn.argtypes = list(
+                build.PROTOTYPES["sparse_pack"]["sparse_pack_launch"])
+            st = sp._state(voted.device, sp.state_words(C, R, W))
+            ptrs = ins + [st.data_ptr()] + outs
+            tail = [st.numel(), 0]
+        else:
+            fn.argtypes = [_P] * 12 + [_I] * 5 + [_P]
+            scratch = torch.empty(2 * C * W, dtype=torch.int32,
+                                  device="cuda")
+            ptrs = ins + [scratch.data_ptr()] + outs
+            tail = []
+
+        def go():
+            stream = torch.cuda.current_stream().cuda_stream
+            build.check(lib, fn(*ptrs, *dims, *tail, stream),
+                        "sparse_pack A/B")
+        return go, out if decode else out[:3]
+    return make
+
+
+def ab_b6(src_a, src_b):
+    libs = load_pair(src_a, src_b, "b6")
+    for words, args, keep_w, scores in b6_cases():
+        for decode in (True, False):
+            want = (sp.decode_pack_plain(*args) if decode
+                    else sp.pack_words_plain(keep_w, scores))
+            row = in_turns(libs, b6_launcher(args, keep_w, scores, decode),
+                           want, lambda o: o, f"sparse_pack W={words}")
+            print(json.dumps({"probe": "ab_b6", "words": words,
+                              "entry": "decode_pack" if decode
+                              else "keep_words", **row}), flush=True)
+
+
+def ab_b6_dense():
+    """A = the torch chain, B = the dense entry."""
+    for words, args, _, _ in b6_cases():
+        want = sp.decode_dense_plain(*[t.cpu() for t in args])
+        held = []
+
+        def make(which):
+            def go():
+                fn = (sp.decode_dense_plain if which == "A"
+                      else sp.decode_dense)
+                held[:] = fn(*args)
+            return go, held
+        row = in_turns({"A": "A", "B": "B"}, make, want,
+                       lambda o: [t.cpu() for t in o],
+                       f"decode_dense W={words}")
+        print(json.dumps({"probe": "ab_b6_dense", "words": words,
+                          "A": "unpack_words + decode_scores_device",
+                          "B": "sparse_pack.cu dense entry", **row}),
+              flush=True)
+
+
+def stamped_b6_source():
+    """csrc/sparse_pack.cu with %globaltimer stamps, an empty kernel and
+    C functions read_stamps(host) and empty_launch(blocks, stream):
+    ns[i] stamp i of block 0, ns[16 + i] of the last block; stamps 0
+    start, 1 after the wait, 2 decoded, 3 counts added, 4 looked back, 5
+    scattered / written, 6 the last tile's wait for every prefix, 7 end
+    (of a single block, or of the last)."""
+    src = (build.CSRC / "sparse_pack.cu").read_text()
+
+    def put(anchor, text, after=True):
+        nonlocal src
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"stamp anchor not found once: {anchor!r}")
+        src = src.replace(anchor, anchor + text if after else text + anchor)
+
+    put("namespace {\n", (
+        "__device__ unsigned long long g_ns[32];\n"
+        "__device__ __forceinline__ unsigned long long gtime() {\n"
+        "  unsigned long long t;\n"
+        '  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));\n'
+        "  return t;\n}\n"
+        "#define S(i) do { if (threadIdx.x == 0) { if (blockIdx.x == 0) "
+        "g_ns[i] = gtime(); if (blockIdx.x == gridDim.x - 1) "
+        "g_ns[16 + (i)] = gtime(); } } while (0)\n"
+        "__global__ void empty_kernel() {}\n"))
+    put("  Prologue p[kWordsPerWarp] = {};\n", "  S(0);\n", after=False)
+    put("  // a block of several pads its slot range", "  S(1);\n",
+        after=False)
+    put("  if (!single) add_counts(", "  S(2);\n", after=False)
+    put("  if (warp == 0) {\n    // word bases", "  S(3);\n", after=False)
+    put("  const int prefix = s_prefix;\n", "  S(4);\n", after=False)
+    put("  if (single) {  ", "  S(5);\n", after=False)
+    put("    for (int i = threadIdx.x; i < C * R; i += kThreads) dis[i] = "
+        "s_dis[i];\n    return;\n  }\n  if (!last)",
+        "    S(7);\n", after=False)
+    put("  // the last tile: once every other tile", "  S(6);\n",
+        after=False)
+    put("  for (int q = threadIdx.x; q < t; q += kThreads) status[q] = 0u;\n",
+        "  S(7);\n")
+    put("  Prologue p[kWordsPerWarp];\n  prologue(", "  S(0);\n",
+        after=False)
+    put("  wait_for_prior_grids();\n\n  unsigned mine[kWordsPerWarp], "
+        "dword[kWordsPerWarp];\n", "  S(1);\n")
+    put("  if (gridDim.x == 1) {  ", "  S(5);\n", after=False)
+    put("  if (threadIdx.x == 0) state[0] = 0u;\n", "  S(7);\n")
+    put('extern "C" {\n', (
+        "int read_stamps(unsigned long long* ns) {\n"
+        "  return (int)cudaMemcpyFromSymbol(ns, g_ns, sizeof(g_ns));\n}\n"
+        "int clear_stamps() {\n"
+        "  const unsigned long long z[32] = {};\n"
+        "  return (int)cudaMemcpyToSymbol(g_ns, z, sizeof(z));\n}\n"
+        "int empty_launch(int blocks, void* stream) {\n"
+        "  empty_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>();\n"
+        "  return (int)cudaGetLastError();\n}\n"))
+    return src
+
+
+def b6_phases():
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = build.BUILD_DIR / "probe-b6-stamped.cu"
+    path.write_text(stamped_b6_source())
+    lib = compile_lib(path, "b6-stamped")
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    for fn_name, argtypes in build.PROTOTYPES["sparse_pack"].items():
+        getattr(lib, fn_name).argtypes = list(argtypes)
+        getattr(lib, fn_name).restype = ctypes.c_int
+    lib.empty_launch.argtypes = [_I, _P]
+    for words, args, keep_w, scores in b6_cases():
+        C = args[0].shape[0]
+        blocks = -(-C * words // sp.TILE_WORDS)
+        empty = cs.graph_ms(lambda: lib.empty_launch(
+            blocks, torch.cuda.current_stream().cuda_stream))
+        row = {"probe": "b6_phases", "words": words, "blocks": blocks,
+               "empty_graph_ms": empty}
+        for entry in ("decode_pack", "keep_words", "dense"):
+            if entry == "dense":
+                outs = sp.decode_dense_plain(*args)
+                go = lambda: sp.launch_dense(  # noqa: E731
+                    *args, *outs, C, words, args[0].shape[2],
+                    args[1].shape[1], args[4].shape[1])
+            else:
+                go, _ = b6_launcher(args, keep_w, scores,
+                                    entry == "decode_pack")(lib)
+            saved = build._LIBS.get("sparse_pack")
+            build._LIBS["sparse_pack"] = lib
+            try:
+                ms = cs.graph_ms(go)
+                torch.cuda.synchronize()
+            finally:
+                if saved is None:
+                    build._LIBS.pop("sparse_pack")
+                else:
+                    build._LIBS["sparse_pack"] = saved
+            ns = (ctypes.c_ulonglong * 32)()
+            if lib.read_stamps(ns) != 0 or lib.clear_stamps() != 0:
+                raise RuntimeError("read_stamps failed")
+            t0 = ns[0]
+            # a stamp older than this call's first (the dense entry's
+            # stamp 7 is the last block's only when it counted done last)
+            row[entry] = {
+                "graph_ms": ms,
+                "block0_ns": [ns[i] - t0 if ns[i] >= t0 else None
+                              for i in range(8)],
+                "last_block_ns": [ns[16 + i] - t0 if ns[16 + i] >= t0
+                                  else None for i in range(8)]}
+        print(json.dumps(row), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
@@ -412,6 +626,12 @@ def main():
         ab_b4(sys.argv[2], sys.argv[3])
     elif mode == "k2" and len(sys.argv) == 4:
         ab_k2(sys.argv[2], sys.argv[3])
+    elif mode == "b6" and len(sys.argv) == 4:
+        ab_b6(sys.argv[2], sys.argv[3])
+    elif mode == "b6-dense":
+        ab_b6_dense()
+    elif mode == "b6-phases":
+        b6_phases()
     elif mode == "k2-tiles":
         k2_tiles()
     elif mode == "k2-phases":

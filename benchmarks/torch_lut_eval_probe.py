@@ -52,9 +52,9 @@ def compile_lib(src, name):
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
                     str(src)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
-    fn_name, argtypes = build.PROTOTYPES["lut_eval"]
-    getattr(lib, fn_name).argtypes = list(argtypes)
-    getattr(lib, fn_name).restype = ctypes.c_int
+    for fn_name, argtypes in build.PROTOTYPES["lut_eval"].items():
+        getattr(lib, fn_name).argtypes = list(argtypes)
+        getattr(lib, fn_name).restype = ctypes.c_int
     return lib
 
 

@@ -31,16 +31,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                form (BDT_RECIPES: the kernel's literal path) or keep it at
                extreme leaf values: exact. Its bound counts the walk (bytes
                bound it), beside the product form's count.
-               The sparse-egress kernel (B6): its decode entry on K2's
-               voted/disagreement words of the served stack (W=16, R=1
-               and R=3 with an upset replica) and on synthetic words at
-               W=16 and W=2,048 (65,536 events a chip), for the decode
-               rows B6_WEIGHTS (the sign at bit 0, at bit 30, no negative
-               weight) and keep fractions 0, ~1%, ~50%, 100%, with valid
-               tails that end mid-word; its keep-words entry through
+               The egress kernel (B6, one launch an entry): its
+               decode-pack and dense entries on K2's voted/disagreement
+               words of the served stack (W=16, R=1 and R=3 with an upset
+               replica; launched alone and right behind the walk as its
+               programmatic dependent) and on synthetic words at W=16 and
+               W=2,048 (65,536 events a chip), for the decode rows
+               B6_WEIGHTS (the sign at bit 0, at bit 30, no negative
+               weight; the dense entry also arbitrary int32 weights) and
+               keep fractions 0, ~1%, ~50%, 100%, with valid tails that
+               end mid-word; its keep-words entry through
                compression.sparse_trigger_pack on (4, 512) and (4, 8)
-               event masks: (count, idx, vals, dis) exact. Timed by
-               CUDA-graph replay at both widths; bound by bytes.
+               event masks: (count, idx, vals, dis) and (score, keep,
+               dis) exact. All three entries timed at both widths by
+               CUDA-graph replay and back to back; bound by bytes.
   4. serve   — the readout server (ServerConfig() defaults, on cuda) takes
                8 FrameStream batches of 256 events per sensor from 4
                trained chips, hot-swaps chip 0 at batch 4 and flushes;
@@ -48,7 +52,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                (encode_features -> FabricSim -> decode_outputs) fed with
                the featurizer kernel's own features. Repeated with
                redundancy="tmr": 0 disagreements. Launch counters are
-               zeroed before and read after each run; both must be > 0.
+               zeroed before and read after each run; the featurizer's,
+               the walk's and B6's dense entry's must be > 0.
                Every served run also checks its link bytes.
   5. §5      — the paper's proof of concept: examples/smartpixel_readout.py's
                chip (500,000 events, seed 2024, 1 tree of depth 5 with 10
@@ -105,11 +110,13 @@ RECONFIGURE_AT = 4
 # events per chip in one served dispatch: ServerConfig().max_batch (2048)
 # events over the 4 chips
 SERVED_B = 2048 // N_CHIPS
-# B6 (sparse egress): words a chip at the large shape (65,536 events),
-# the keep fractions, and the decode-weight rows of the synthetic words
+# B6 (egress): words a chip at the large shape (65,536 events), the keep
+# fractions, and the decode-weight rows of the synthetic words (the dense
+# entry also takes arbitrary int32 rows)
 B6_WORDS = 2048
 B6_FRACTIONS = (0.0, 0.01, 0.5, 1.0)
 B6_WEIGHTS = ("plan", "sign_bit0", "sign_bit30", "no_negative")
+B6_DENSE_WEIGHTS = B6_WEIGHTS + ("arbitrary",)
 # examples/smartpixel_readout.py: events, seed, chunk
 S5_EVENTS = 500_000
 S5_SEED = 2024
@@ -451,8 +458,8 @@ def check_lut(torch, np, le, lut_ops, chips, band):
 def b6_weights(np, recipe, C, O, seed):
     """(C, O) int32 decode-weight rows: "plan" as decode_plan makes them
     (28, 7, 1 or 16 outputs, the sign at the top one), or synthetic rows
-    with the sign at bit 0, at bit 30 (O >= 31), or no negative weight
-    (every plane then reads output word 0)."""
+    with the sign at bit 0, at bit 30 (O >= 31), no negative weight
+    (every plane then reads output word 0), or arbitrary int32 values."""
     rng = np.random.default_rng(seed)
     w = np.zeros((C, O), np.int64)
     for c in range(C):
@@ -468,15 +475,23 @@ def b6_weights(np, recipe, C, O, seed):
             w[c, 30] = -(1 << 30)
         elif recipe == "no_negative":
             w[c] = rng.integers(0, 4, O)
+        elif recipe == "arbitrary":
+            w[c] = rng.integers(-2**31, 2**31, O)
         else:
             raise ValueError(f"unknown weight recipe {recipe!r}")
     return w.astype(np.int32)
 
 
-def b6_thresholds(torch, bs, voted, weight, valid, frac):
+def b6_thresholds(torch, bs, voted, weight, valid, frac, dense=False):
     """Per-chip int32 cuts that keep about ``frac`` of the valid events
-    of these words (0: below every score, 1: the int32 maximum)."""
-    scores = bs.lane_scores(bs.sign_extended_planes(voted, weight))
+    of these words (0: below every score, 1: the int32 maximum): scores
+    of the sparse entries' planes, or (``dense``) the weighted sums."""
+    if dense:
+        bits = bs.unpack_words(voted, voted.shape[1] * 32).to(torch.int64)
+        scores = torch.sum(bits * weight[:, None, :].to(torch.int64), -1)
+        scores = ((scores + 2**31) % 2**32 - 2**31).to(torch.int32)
+    else:
+        scores = bs.lane_scores(bs.sign_extended_planes(voted, weight))
     C = voted.shape[0]
     flat = scores.reshape(C, -1)[:, : valid.shape[1]]
     thr = []
@@ -492,11 +507,12 @@ def b6_thresholds(torch, bs, voted, weight, valid, frac):
 
 
 def b6_case(torch, np, bs, C, W, R, O, recipe, frac, seed, voted=None,
-            dis=None, weight=None):
-    """One input set of B6's decode entry on the card: random (or given)
-    voted words (C, W, O), disagreement words (C, R, W) and decode rows
-    (of ``recipe``), cuts keeping about ``frac``, and a valid mask whose
-    tail ends 13 events into the last word."""
+            dis=None, weight=None, dense=False):
+    """One input set of B6's decode entries on the card: random (or
+    given) voted words (C, W, O), disagreement words (C, R, W) and decode
+    rows (of ``recipe``), cuts keeping about ``frac`` (of the dense
+    entry's scores with ``dense``), and a valid mask whose tail ends 13
+    events into the last word."""
     rng = np.random.default_rng(seed)
     if voted is None:
         voted = torch.as_tensor(rng.integers(-2**31, 2**31, (C, W, O)),
@@ -509,12 +525,12 @@ def b6_case(torch, np, bs, C, W, R, O, recipe, frac, seed, voted=None,
     if weight is None:
         weight = torch.as_tensor(b6_weights(np, recipe, C, O, seed),
                                  device="cuda")
-    thr = b6_thresholds(torch, bs, voted, weight, valid, frac)
+    thr = b6_thresholds(torch, bs, voted, weight, valid, frac, dense)
     return voted, dis, weight, thr, valid
 
 
 def b6_counts(C, W, O, R, B):
-    """Bytes and operations of one B6 decode call: voted and
+    """Bytes and operations of one B6 decode-pack call: voted and
     disagreement words, weights, cuts and the valid mask in once, count,
     (idx, vals) and dis out once; per event the reference's word-parallel
     cut (4 word operations a plane, 32 planes, a 32nd of a word each) and
@@ -523,32 +539,77 @@ def b6_counts(C, W, O, R, B):
     n = C * W * 32
     nbytes = (C * W * O * 4 + C * R * W * 4 + C * O * 4 + C * 4 + C * B
               + 4 + n * 8 + C * R * 4)
-    ops = n * (4 + 15)
+    return bound(n * (4 + 15), nbytes)
+
+
+def b6_keep_words_counts(C, W):
+    """Bytes and operations of one keep-words call: the keep words and
+    the kept lanes' scores in (a lane's score is read only when it is
+    kept; this run's inputs keep about half, counted as ``kept``), count
+    and (idx, vals) with padding out; a popcount and a rank an event."""
+    n = C * W * 32
+    return lambda kept: bound(2 * n, C * W * 4 + kept * 4 + 4 + n * 8)
+
+
+def b6_dense_counts(C, W, O, R, B):
+    """Bytes and operations of one dense call: voted and disagreement
+    words, weights, cuts and the valid mask in once; score (int32), keep
+    (bool) and dis out once; per event a select and an add for each
+    output bit (the general weighted sum)."""
+    nbytes = (C * W * O * 4 + C * R * W * 4 + C * O * 4 + C * 4 + C * B
+              + C * B * 5 + C * R * 4)
+    return bound(C * B * 2 * O, nbytes)
+
+
+def bound(ops, nbytes):
+    """The least time of a call of integer operations and bytes, and the
+    bytes' time alone."""
     t_ops, t_bytes = ops / INT_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops": ops, "bytes": nbytes}
+            "bytes_ms": t_bytes * 1e3, "ops": ops, "bytes": nbytes}
+
+
+def b6_equal(torch, what, got, want, names):
+    torch.cuda.synchronize()
+    for x, y, k in zip(got, want, names):
+        if x.shape != y.shape or not torch.equal(x, y):
+            fail("kernels", f"sparse_pack {what}: {k} differs in "
+                            f"{int((x != y).sum())} places")
 
 
 def check_b6(torch, np, bs, sp, cp, lut_ops, chips):
-    """B6 against its plain twin on the card, exact (count, idx, vals,
-    dis): the decode entry on K2's real voted words of the 4-chip served
-    stack (W=SERVED_B/32, R=1 and R=3 with an upset replica) at every
-    keep fraction, and on synthetic words at the served width and at
-    B6_WORDS a chip, for every weight recipe and keep fraction; the
-    keep-words entry through compression.sparse_trigger_pack on (4, 512)
-    and (4, 8) event masks. Timed by CUDA-graph replay at both widths."""
+    """B6's three entries against their plain twins on the card, exact:
+    decode-pack (count, idx, vals, dis) and dense (score, keep, dis) on
+    K2's real voted words of the 4-chip served stack (W=SERVED_B/32, R=1
+    and R=3 with an upset replica) at every keep fraction, launched alone
+    and as the walk's programmatic dependent, and on synthetic words at
+    the served width and at B6_WORDS a chip, for every weight recipe and
+    keep fraction; the keep-words entry through
+    compression.sparse_trigger_pack on (4, 512) and (4, 8) event masks.
+    Every entry timed at both widths by CUDA-graph replay (``ms``) and
+    back to back (``stream_ms``), each launch a full serialization (the
+    walk-dependent form's graph time is ``pdl_ms``)."""
     configs = [c.config for c in chips]
     checked = []
+    pack_names = ("count", "idx", "vals", "dis")
+    dense_names = ("score", "keep", "dis")
 
-    def held(what, args):
-        got = sp.decode_pack(*args)
+    def held(what, args, walk=None):
+        """Both decode entries on one input set (the plan's rows, so the
+        planes and the weighted sums agree); with ``walk`` also launched
+        right behind K2 on the words it makes again, as when served."""
         want = sp.decode_pack_plain(*args)
-        torch.cuda.synchronize()
-        for x, y, k in zip(got, want, ("count", "idx", "vals", "dis")):
-            if x.shape != y.shape or not torch.equal(x, y):
-                fail("kernels", f"sparse_pack {what}: {k} differs in "
-                                f"{int((x != y).sum())} places")
+        got = sp.decode_pack(*args)
+        b6_equal(torch, what, got, want, pack_names)
+        want_d = sp.decode_dense_plain(*args)
+        b6_equal(torch, f"dense {what}", sp.decode_dense(*args), want_d,
+                 dense_names)
+        if walk is not None:
+            b6_equal(torch, f"{what} after the walk", sp.decode_pack(
+                *walk(), *args[2:], follows_walk=True), want, pack_names)
+            b6_equal(torch, f"dense {what} after the walk", sp.decode_dense(
+                *walk(), *args[2:], follows_walk=True), want_d, dense_names)
         checked.append(what)
         return got
 
@@ -566,26 +627,38 @@ def check_b6(torch, np, bs, sp, cp, lut_ops, chips):
             rng.integers(0, 2, (N_CHIPS, SERVED_B, stack.n_inputs)),
             dtype=torch.int32, device="cuda")
         seg = bs.input_words(bits, stack.n_inputs, stack.in_seg)
-        voted, dis = bs.eval_seg_voted(stack.src, tables, stack.output_nets,
-                                       seg, R)
+
+        def walk():
+            return bs.eval_seg_voted(stack.src, tables, stack.output_nets,
+                                     seg, R)
+        voted, dis = walk()
         weight = torch.as_tensor(lut_ops.decode_plan(
             configs, stack.n_outputs), device="cuda")
         for frac in B6_FRACTIONS:
             args = b6_case(torch, np, bs, N_CHIPS, W, R, stack.n_outputs,
                            "plan", frac, seed=16, voted=voted, dis=dis,
                            weight=weight)
-            got = held(f"K2 words R={R} keep~{frac}", args)
+            got = held(f"K2 words R={R} keep~{frac}", args, walk)
             kept[f"K2_R{R}_keep{frac}"] = int(got[0])
         if R > 1 and not bool((got[3] != 0).any()):
             fail("kernels", "sparse_pack: an upset replica gave no "
                             "disagreement counts")
     for words in (W, B6_WORDS):
-        for recipe in B6_WEIGHTS:
+        for recipe in B6_DENSE_WEIGHTS:
             for frac in B6_FRACTIONS:
+                seed = words + len(recipe)
                 args = b6_case(torch, np, bs, N_CHIPS, words, 3, 32, recipe,
-                               frac, seed=words + len(recipe))
-                got = held(f"W={words} {recipe} keep~{frac}", args)
-                kept[f"W{words}_{recipe}_keep{frac}"] = int(got[0])
+                               frac, seed=seed)
+                if recipe in B6_WEIGHTS:
+                    got = held(f"W={words} {recipe} keep~{frac}", args)
+                    kept[f"W{words}_{recipe}_keep{frac}"] = int(got[0])
+                # the dense entry with cuts set on its own scores
+                args = b6_case(torch, np, bs, N_CHIPS, words, 3, 32, recipe,
+                               frac, seed=seed, dense=True)
+                b6_equal(torch, f"dense W={words} {recipe} keep~{frac}",
+                         sp.decode_dense(*args), sp.decode_dense_plain(*args),
+                         dense_names)
+                checked.append(f"dense W={words} {recipe} keep~{frac}")
     for shape in ((N_CHIPS, SERVED_B), (N_CHIPS, 8)):
         for frac in B6_FRACTIONS:
             score = torch.as_tensor(rng.integers(-2**31, 2**31, shape),
@@ -599,31 +672,6 @@ def check_b6(torch, np, bs, sp, cp, lut_ops, chips):
                     fail("kernels", f"sparse_pack keep-words {shape} "
                                     f"keep~{frac}: {k} differs")
             checked.append(f"keep-words {shape} keep~{frac}")
-    runs = {}
-    for words in (W, B6_WORDS):
-        voted, dis, weight, thr, valid = b6_case(
-            torch, np, bs, N_CHIPS, words, 3, 28, "plan", 0.5, seed=17)
-        C, _, O = voted.shape
-        n = C * words * 32
-        count, idx, vals = (torch.empty((), dtype=torch.int32, device="cuda"),
-                            torch.empty(n, dtype=torch.int32, device="cuda"),
-                            torch.empty(n, dtype=torch.int32, device="cuda"))
-        d = torch.empty((C, 3), dtype=torch.int32, device="cuda")
-        scratch = torch.empty(2 * C * words, dtype=torch.int32,
-                              device="cuda")
-
-        def b6_call():
-            sp._launch(voted, dis, weight, thr, valid, None, None, scratch,
-                       count, idx, vals, d, C, words, O, 3, valid.shape[1])
-        args = (voted, dis, weight, thr, valid)
-        runs[f"R3_W{words}"] = {
-            "words": words, "events": n, "outputs": O,
-            "ms": graph_ms(b6_call),
-            "stream_ms": time_ms(b6_call, inner=20),
-            "plain_ms": time_ms(lambda: sp.decode_pack_plain(*args),
-                                reps=10, inner=1),
-            **b6_counts(C, words, O, 3, valid.shape[1]),
-        }
     return {
         "name": "sparse_pack",
         "route": "cuda",
@@ -637,8 +685,63 @@ def check_b6(torch, np, bs, sp, cp, lut_ops, chips):
                         "compacts without a host synchronisation "
                         "(torch.nonzero, masked_select and boolean "
                         "indexing size their output by the data)",
-        "runs": runs,
+        "runs": time_b6(torch, np, bs, sp),
     }
+
+
+def time_b6(torch, np, bs, sp):
+    """The three entries at the served width and at B6_WORDS a chip (4
+    chips, R=3, O=28, the plan's rows, about half kept), outputs
+    preallocated so that a call is the launch alone."""
+    from repro_torch.kernels.lut_eval.ops import decode_keep_words_device
+
+    runs = {}
+    for words in (SERVED_B // 32, B6_WORDS):
+        args = b6_case(torch, np, bs, N_CHIPS, words, 3, 28, "plan", 0.5,
+                       seed=17)
+        voted, dis, weight, thr, valid = args
+        C, _, O = voted.shape
+        B = valid.shape[1]
+        n = C * words * 32
+        count, idx, vals = (torch.empty((), dtype=torch.int32, device="cuda"),
+                            torch.empty(n, dtype=torch.int32, device="cuda"),
+                            torch.empty(n, dtype=torch.int32, device="cuda"))
+        d = torch.empty((C, 3), dtype=torch.int32, device="cuda")
+        score = torch.empty((C, B), dtype=torch.int32, device="cuda")
+        keep = torch.empty((C, B), dtype=torch.bool, device="cuda")
+        keep_w, scores, _ = decode_keep_words_device(*args)
+
+        def pack(pdl=False):
+            sp.launch_pack(voted, dis, weight, thr, valid, None, None, count,
+                           idx, vals, d, C, words, O, 3, B, pdl=pdl)
+
+        def keep_words():
+            sp.launch_pack(None, None, None, None, None, keep_w, scores,
+                           count, idx, vals, None, C, words, 0, 0, 0)
+
+        def dense(pdl=False):
+            sp.launch_dense(voted, dis, weight, thr, valid, score, keep, d,
+                            C, words, O, 3, B, pdl=pdl)
+        kept = int(bs.popcount(keep_w).sum())
+        for name, fn, pdl_fn, plain, counts in (
+                ("decode_pack", pack, lambda: pack(True),
+                 lambda: sp.decode_pack_plain(*args),
+                 b6_counts(C, words, O, 3, B)),
+                ("keep_words", keep_words, None,
+                 lambda: sp.pack_words_plain(keep_w, scores),
+                 b6_keep_words_counts(C, words)(kept)),
+                ("dense", dense, lambda: dense(True),
+                 lambda: sp.decode_dense_plain(*args),
+                 b6_dense_counts(C, words, O, 3, B))):
+            runs[f"{name}_R3_W{words}"] = {
+                "words": words, "events": n, "outputs": O,
+                "ms": graph_ms(fn),
+                "pdl_ms": graph_ms(pdl_fn) if pdl_fn else None,
+                "stream_ms": time_ms(fn, inner=20),
+                "plain_ms": time_ms(plain, reps=10, inner=1),
+                **counts,
+            }
+    return runs
 
 
 def paper_chip():
@@ -1018,6 +1121,8 @@ def serve(torch, np, chips, swap_chip, blocks, want, redundancy, counters,
     if sparse:
         need.append("sparse_pack_decode" if server._stack.bitsliced
                     else "sparse_pack_keep_words")
+    elif server._stack.bitsliced:
+        need.append("decode_dense")
     for k in need:
         if launches[k] <= 0:
             fail(phase, f"{what}: kernel {k} never launched")
@@ -1066,14 +1171,15 @@ def main():
     from repro_torch.parallel import compression as cp
 
     # each kernel wrapper's launch counter, by the kernel's name (B6 has
-    # two entries, each with its wrapper)
+    # three entries, each with its wrapper)
     counters = {"yprofile": yp.yprofile_traced,
                 "eval_words_voted": bs.eval_seg_voted,
                 "lut_eval": le.lut_eval_stacked,
                 "lut_eval_banded": le.lut_eval_banded_stacked,
                 "bdt_infer": bdt.bdt_traverse,
                 "sparse_pack_decode": sp.decode_pack,
-                "sparse_pack_keep_words": sp.pack_keep_words}
+                "sparse_pack_keep_words": sp.pack_keep_words,
+                "decode_dense": sp.decode_dense}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1119,6 +1225,12 @@ def main():
     emit("kernel_bdt_infer", ok=True, **b4)
     b6 = check_b6(torch, np, bs, sp, cp, lut_ops, chips)
     emit("kernel_sparse_pack", ok=True, **b6)
+    # B6's dense entry: its own row of the kernels line
+    b6_dense = {"name": "sparse_pack_dense", "route": "cuda",
+                "source": b6["source"],
+                "replaces": "src/repro/kernels/lut_eval/ops.py:985",
+                "also_replaces": "src/repro/kernels/lut_eval/bitsliced.py:84",
+                "max_abs_err": 0.0, "library_ms": None}
 
     stream = FrameStream(FrameStreamConfig(n_sensors=N_CHIPS,
                                            batch=SERVE_EVENTS))
@@ -1171,18 +1283,21 @@ def main():
                 emit("serve_features", ok=True, card=card, **run)
 
     kernels = []
-    # K2's row carries the times of its R=3 (TMR) run; K1 and K2 count
-    # their launches in the served stream, B2-B4 in the §5 check
+    # K2's row carries the times of its R=3 (TMR) run; K1, K2 and B6's
+    # dense entry count their launches in the default served stream,
+    # B2-B4 in the §5 check, B6's sparse entries in the sparse stream
     for k, t, n in ((k1, k1, runs["none"]["launches"]["yprofile"]),
                     (k2, k2["runs"][f"R3_W{K2_WORDS}"],
                      runs["none"]["launches"]["eval_words_voted"]),
                     (b2, b2, s5_launches["lut_eval"]),
                     (b3, b3, s5_launches["lut_eval_banded"]),
                     (b4, b4, s5_launches["bdt_infer"]),
-                    (b6, b6["runs"][f"R3_W{B6_WORDS}"],
+                    (b6, b6["runs"][f"decode_pack_R3_W{B6_WORDS}"],
                      sum(runs["sparse", None, "none"]["launches"][k]
                          for k in ("sparse_pack_decode",
-                                   "sparse_pack_keep_words")))):
+                                   "sparse_pack_keep_words"))),
+                    (b6_dense, b6["runs"][f"dense_R3_W{B6_WORDS}"],
+                     runs["none"]["launches"]["decode_dense"])):
         kernels.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
@@ -1207,16 +1322,23 @@ def main():
         for key, r in k2["runs"].items()}
     kernels[4]["dense_product_bound_ms"] = b4["dense_product_bound_ms"]
     kernels[4]["stream_ms"] = b4["stream_ms"]
-    # B6 at both widths, its second source line, why it has no library
-    # call, and its launches in the matmul sparse stream (keep-words entry)
-    kernels[5]["runs"] = {
-        key: {k: r[k] for k in ("ms", "stream_ms", "plain_ms", "bound_ms",
-                                "bound_by")}
-        for key, r in b6["runs"].items()}
+    # B6's entries at both widths, its second source line, why it has no
+    # library call, and its launches in the matmul sparse stream
+    # (keep-words entry); the dense entry's launches under TMR
+    b6_runs = {key: {k: r[k] for k in ("ms", "pdl_ms", "stream_ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "bytes_ms")}
+               for key, r in b6["runs"].items()}
+    kernels[5]["runs"] = {k: r for k, r in b6_runs.items()
+                          if not k.startswith("dense")}
     kernels[5]["also_replaces"] = b6["also_replaces"]
     kernels[5]["library_note"] = b6["library_note"]
     kernels[5]["launches_matmul_sparse"] = runs[
         "sparse", "matmul", "none"]["launches"]["sparse_pack_keep_words"]
+    kernels[6]["runs"] = {k: r for k, r in b6_runs.items()
+                          if k.startswith("dense")}
+    kernels[6]["also_replaces"] = b6_dense["also_replaces"]
+    kernels[6]["launches_tmr"] = runs["tmr"]["launches"]["decode_dense"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,16 +29,18 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-# source name -> (its C launch function, the ctypes argument types in the
-# order of its C signature: pointers and the stream as void*)
+# source name -> {each C launch function: the ctypes argument types in
+# the order of its C signature (pointers and the stream as void*)}
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 PROTOTYPES = {
-    "yprofile": ("yprofile_launch", (_P, _P, _P, _LL, _F, _P)),
-    "bitsliced": ("eval_words_voted_launch", (_P,) * 7 + (_I,) * 8 + (_P,)),
-    "lut_eval": ("lut_eval_launch", (_P,) * 8 + (_I,) * 9 + (_P,)),
-    "bdt_infer": ("bdt_infer_launch", (_P,) * 10 + (_I,) * 5 + (_P,)),
-    "sparse_pack": ("sparse_pack_launch", (_P,) * 12 + (_I,) * 5 + (_P,)),
+    "yprofile": {"yprofile_launch": (_P, _P, _P, _LL, _F, _P)},
+    "bitsliced": {"eval_words_voted_launch": (_P,) * 7 + (_I,) * 8 + (_P,)},
+    "lut_eval": {"lut_eval_launch": (_P,) * 8 + (_I,) * 9 + (_P,)},
+    "bdt_infer": {"bdt_infer_launch": (_P,) * 10 + (_I,) * 5 + (_P,)},
+    "sparse_pack": {
+        "sparse_pack_launch": (_P,) * 12 + (_I,) * 5 + (_LL, _I, _P),
+        "decode_dense_launch": (_P,) * 9 + (_I,) * 5 + (_LL, _I, _P)},
 }
 KERNELS = tuple(PROTOTYPES)
 
@@ -111,7 +113,7 @@ def build(*names: str) -> Dict[str, Dict[str, object]]:
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built on first use and cached, with
-    its launch function's prototype set from PROTOTYPES."""
+    its launch functions' prototypes set from PROTOTYPES."""
     lib = _LIBS.get(name)
     if lib is None:
         path = lib_path(name)
@@ -120,10 +122,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
-        fn_name, argtypes = PROTOTYPES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in PROTOTYPES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 

@@ -280,12 +280,18 @@ def eval_bits_voted(
     in_seg: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(voted (C, B, O) uint8, disagree (C, R, B) bool)."""
-    B = bits.shape[1]
-    voted_w, dis_w = eval_words_voted(
+    return unpack_voted(*eval_words_voted(
         src, tables, output_nets, bits,
-        n_replicas=n_replicas, n_inputs=n_inputs, in_seg=in_seg)
-    voted = unpack_words(voted_w, B)
-    dis = unpack_words(dis_w[..., None], B)[..., 0].to(torch.bool)
+        n_replicas=n_replicas, n_inputs=n_inputs, in_seg=in_seg),
+        bits.shape[1])
+
+
+def unpack_voted(voted_w: torch.Tensor, dis_w: torch.Tensor,
+                 n_events: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Voted words (C, W, O) and disagreement words (C, R, W) back to
+    event order: (voted (C, B, O) uint8, disagree (C, R, B) bool)."""
+    voted = unpack_words(voted_w, n_events)
+    dis = unpack_words(dis_w[..., None], n_events)[..., 0].to(torch.bool)
     return voted, dis
 
 

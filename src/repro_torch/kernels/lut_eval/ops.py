@@ -14,8 +14,10 @@ The JAX package's kernels/lut_eval/ops.py, both device layouts:
 ``pack_fabrics`` stacks N bitstreams into one ``PackedFabricStack``
 sharing a padded geometry (the chip axis is the leading tensor dimension
 on one device), ``swap_chip`` hot-swaps one chip's rows, and
-``fabric_eval_bits_voted`` + ``decode_scores_device`` are the fabric and
-decode stages of the fused frontend.
+``_eval_stack_scored`` is the fabric and decode stage of the fused
+frontend: ``fabric_eval_bits_voted`` + ``decode_scores_device`` on a
+matmul stack, the bit-sliced walk + kernel B6 (kernels/sparse_pack) on a
+bit-sliced one.
 
 Routing is packed *banded* whenever it is cheaper: level l's selection
 rows cover only [input segment | window of the K preceding levels], K the
@@ -730,27 +732,31 @@ def _eval_stack_scored(stack: PackedFabricStack, bits, out_weight,
 
     Dense: (score (C, B) int32, keep (C, B) bool masked by ``valid``,
     dis (C, R) int32 voted-against events per replica over valid rows).
-    ``sparse=True`` (bit-sliced stacks only) stays in the word domain:
-    the fabric kernel's voted and disagreement words go to kernel B6,
-    which cuts, counts and compacts the kept lanes -> (count, idx, vals,
+    ``sparse=True`` (bit-sliced stacks only) returns (count, idx, vals,
     dis), the ``parallel.compression`` wire format over flat indices
-    ``chip*B + event``."""
-    if sparse:
-        if stack.src is None:
-            raise ValueError(
-                "sparse=True needs the word domain: pack the stack with "
-                "layout='bitsliced' (matmul stacks have no word form)")
+    ``chip*B + event``. A bit-sliced stack stays in the word domain: the
+    fabric kernel's voted and disagreement words go straight to kernel B6
+    (sparse: cut, count and compact the kept lanes; dense: every event's
+    score and cut in event order), launched as the walk's programmatic
+    dependent. The matmul layout votes and decodes in torch ops."""
+    if stack.src is not None:
         voted_w, dis_w = _bitsliced.eval_words_voted(
             stack.src, stack.tables, stack.output_nets, bits,
             n_replicas=stack.n_replicas, n_inputs=stack.n_inputs,
             in_seg=stack.in_seg)
-        return _sparse_pack.decode_pack(voted_w, dis_w, out_weight,
-                                        threshold_raw, valid)
+        tail = (_sparse_pack.decode_pack if sparse
+                else _sparse_pack.decode_dense)
+        return tail(voted_w, dis_w, out_weight, threshold_raw, valid,
+                    follows_walk=True)
+    if sparse:
+        raise ValueError(
+            "sparse=True needs the word domain: pack the stack with "
+            "layout='bitsliced' (matmul stacks have no word form)")
     outs, disagree = fabric_eval_bits_voted(
         stack.sel, stack.tables, stack.level_base, stack.win_base,
         stack.output_nets, bits, n_replicas=stack.n_replicas,
         n_inputs=stack.n_inputs, n_nets_pad=stack.n_nets_pad,
-        in_seg=stack.in_seg, src=stack.src)
+        in_seg=stack.in_seg)
     return decode_scores_device(outs, disagree, out_weight, threshold_raw,
                                 valid)
 

@@ -155,10 +155,12 @@ def test_ctypes_prototypes_match_the_cuda_sources():
     cannot be compiled here, so this is checked on the text)."""
     from repro_torch.kernels import build
 
-    for src, (fn, argtypes) in build.PROTOTYPES.items():
+    for src, functions in build.PROTOTYPES.items():
         text = (build.CSRC / f"{src}.cu").read_text()
-        m = re.search(rf"int {fn}\(([^)]*)\)", text)
-        assert m, (src, fn)
-        params = [re.sub(r"\s*\w+$", "", p.strip())
-                  for p in m.group(1).split(",")]
-        assert [_C_TYPES[p] for p in params] == list(argtypes), (src, params)
+        for fn, argtypes in functions.items():
+            m = re.search(rf"int {fn}\(([^)]*)\)", text)
+            assert m, (src, fn)
+            params = [re.sub(r"\s*\w+$", "", p.strip())
+                      for p in m.group(1).split(",")]
+            assert [_C_TYPES[p] for p in params] == list(argtypes), (
+                src, fn, params)

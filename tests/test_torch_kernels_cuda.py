@@ -13,9 +13,11 @@ fabric kernels (dense and banded, also on a synthetic 0/1 ``sel`` with
 empty and several-ones columns, and at the §5 chunk shape), the BDT
 kernel (its tree walk on the packed arrays, its literal path on arrays
 broken out of the one-hot form: chip_smoke.synthetic_ensemble), the
-sparse-egress kernel B6 (both entries, on the walk's real words and on
-chip_smoke's synthetic words, keep fractions and decode rows) and the
-fused frontend downstream of identical features are exact.
+sparse-egress kernel B6 (its three entries, on the walk's real words and
+on chip_smoke's synthetic words, keep fractions and decode rows; each one
+kernel and no memset a call, by the profiler; its look-back state across
+graph replays and shape changes) and the fused frontend downstream of
+identical features are exact.
 """
 import numpy as np
 import pytest
@@ -298,13 +300,12 @@ def _equal_b6(got, want):
         assert g.shape == w.shape and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("frac", chip_smoke.B6_FRACTIONS)
-@pytest.mark.parametrize("redundancy", ["none", "tmr"])
-def test_sparse_pack_on_walk_words_equals_plain_twin(card, redundancy,
-                                                     frac):
-    """B6's decode entry on K2's voted and disagreement words (an upset
-    replica under TMR), the chips' decode rows and a valid tail that ends
-    mid-word: (count, idx, vals, dis) equal the twin's."""
+def _walk_case(card, redundancy, frac):
+    """K2's voted and disagreement words of the card's stack (an upset
+    replica under TMR), the chips' decode rows, cuts keeping about
+    ``frac`` and a valid tail that ends mid-word; and a closure that
+    runs the walk again on the same inputs, so a B6 entry can follow it
+    on the stream as on the serving path."""
     chips, _, _ = card
     stack = lut_ops.pack_fabrics([c.config for c in chips],
                                  redundancy=redundancy, layout="bitsliced",
@@ -315,18 +316,140 @@ def test_sparse_pack_on_walk_words_equals_plain_twin(card, redundancy,
     bits = torch.as_tensor(np.random.default_rng(9).integers(
         0, 2, (2, 512, stack.n_inputs)), dtype=torch.int32, device="cuda")
     seg = bs.input_words(bits, stack.n_inputs, stack.in_seg)
-    voted, dis = bs.eval_seg_voted(stack.src, tables, stack.output_nets, seg,
-                                   stack.n_replicas)
+
+    def walk():
+        return bs.eval_seg_voted(stack.src, tables, stack.output_nets, seg,
+                                 stack.n_replicas)
+    voted, dis = walk()
     weight = torch.as_tensor(lut_ops.decode_plan(
         [c.config for c in chips], stack.n_outputs), device="cuda")
     args = chip_smoke.b6_case(torch, np, bs, 2, 16, stack.n_replicas,
                               stack.n_outputs, "plan", frac, seed=3,
                               voted=voted, dis=dis, weight=weight)
+    return args, walk
+
+
+@pytest.mark.parametrize("frac", chip_smoke.B6_FRACTIONS)
+@pytest.mark.parametrize("redundancy", ["none", "tmr"])
+def test_sparse_pack_on_walk_words_equals_plain_twin(card, redundancy,
+                                                     frac):
+    """B6's decode entry on K2's voted and disagreement words (an upset
+    replica under TMR), the chips' decode rows and a valid tail that ends
+    mid-word: (count, idx, vals, dis) equal the twin's, launched alone and
+    as the walk's programmatic dependent."""
+    args, walk = _walk_case(card, redundancy, frac)
+    want = sp.decode_pack_plain(*args)
     n0 = sp.decode_pack.launches
     got = sp.decode_pack(*args)
     assert sp.decode_pack.launches == n0 + 1
-    _equal_b6(got, sp.decode_pack_plain(*args))
+    _equal_b6(got, want)
     assert bool((got[3] != 0).any()) == (redundancy == "tmr")
+    _equal_b6(sp.decode_pack(*walk(), *args[2:], follows_walk=True), want)
+
+
+@pytest.mark.parametrize("frac", chip_smoke.B6_FRACTIONS)
+@pytest.mark.parametrize("redundancy", ["none", "tmr"])
+def test_decode_dense_on_walk_words_equals_plain_twin(card, redundancy,
+                                                      frac):
+    """B6's dense entry on the same words: (score, keep, dis) equal the
+    torch chain's, launched alone and right behind the walk."""
+    args, walk = _walk_case(card, redundancy, frac)
+    want = sp.decode_dense_plain(*args)
+    n0 = sp.decode_dense.launches
+    got = sp.decode_dense(*args)
+    assert sp.decode_dense.launches == n0 + 1
+    _equal_b6(got, want)
+    assert bool((got[2] != 0).any()) == (redundancy == "tmr")
+    _equal_b6(sp.decode_dense(*walk(), *args[2:], follows_walk=True), want)
+
+
+@pytest.mark.parametrize("recipe", chip_smoke.B6_WEIGHTS + ("arbitrary",))
+@pytest.mark.parametrize("words", [16, chip_smoke.B6_WORDS])
+def test_decode_dense_on_synthetic_words_equals_plain_twin(card, words,
+                                                           recipe):
+    """B6's dense entry on random words at the served width and at
+    65,536 events a chip, every decode row (and arbitrary int32 weights)
+    and keep fraction."""
+    for frac in chip_smoke.B6_FRACTIONS:
+        args = chip_smoke.b6_case(torch, np, bs, 4, words, 3, 32, recipe,
+                                  frac, seed=words, dense=True)
+        _equal_b6(sp.decode_dense(*args), sp.decode_dense_plain(*args))
+
+
+def _keep_words_case(C, W, seed):
+    rng = np.random.default_rng(seed)
+    keep = torch.as_tensor(rng.integers(-2**31, 2**31, (C, W)),
+                           dtype=torch.int32, device="cuda")
+    scores = torch.as_tensor(rng.integers(-2**31, 2**31, (C, W, 32)),
+                             dtype=torch.int32, device="cuda")
+    return keep, scores
+
+
+def test_each_b6_entry_is_one_kernel_and_no_memset(card):
+    """One call of each entry, after a warm-up call of each, traced by
+    torch.profiler in one profiling window: three kernels on the device (the
+    sparse kernel for decode-pack and keep-words, the dense one for the
+    dense entry), and no memset or copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = chip_smoke.b6_case(torch, np, bs, 4, 16, 3, 28, "plan", 0.5,
+                              seed=5)
+    kw = _keep_words_case(4, 16, 6)
+    calls = (lambda: sp.decode_pack(*args), lambda: sp.pack_keep_words(*kw),
+             lambda: sp.decode_dense(*args))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    on_device = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [("pack_kernel" in n, "dense_kernel" in n) for n in on_device] \
+        == [(True, False), (True, False), (False, True)], on_device
+
+
+def test_b6_state_survives_graph_replays_and_shape_changes(card):
+    """The look-back state is zero again after every launch: 200 replays
+    of a graph of the three entries (each a programmatic dependent of the
+    one before), then 16, 2,048 and 16 words a chip in turns on one
+    stream with no synchronisation between, every output exact."""
+    shapes = {W: chip_smoke.b6_case(torch, np, bs, 4, W, 3, 28, "plan",
+                                    0.5, seed=W)
+              for W in (16, chip_smoke.B6_WORDS)}
+    kws = {W: _keep_words_case(4, W, W + 1) for W in shapes}
+    want = {W: (sp.decode_pack_plain(*a), sp.decode_dense_plain(*a),
+                sp.pack_words_plain(*kws[W])) for W, a in shapes.items()}
+
+    def calls(W):
+        a = shapes[W]
+        return (sp.decode_pack(*a, follows_walk=True),
+                sp.decode_dense(*a, follows_walk=True),
+                sp.pack_keep_words(*kws[W]))
+
+    for W in shapes:                      # the state at its largest first
+        calls(W)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls(16)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls(16)
+    for _ in range(200):
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(captured, want[16]):
+            _equal_b6(g, w)
+    order = (16, chip_smoke.B6_WORDS, 16, chip_smoke.B6_WORDS, 16)
+    runs = [calls(W) for W in order]
+    torch.cuda.synchronize()
+    for W, got in zip(order, runs):
+        for g, w in zip(got, want[W]):
+            _equal_b6(g, w)
 
 
 @pytest.mark.parametrize("recipe", chip_smoke.B6_WEIGHTS)

@@ -9,11 +9,17 @@ packages; the tolerance is exact equality throughout:
   from ``decode_plan`` and synthetic rows (sign at bit 0, at bit 30, no
   negative weight), and kernel B6's plain twin against JAX's
   decode-then-pack;
+* kernel B6's dense twin ``decode_dense_plain`` against JAX's
+  ``unpack_words`` + ``decode_scores_device`` on random words, for every
+  decode row above and arbitrary int32 weights, R = 1 and R = 3, a valid
+  tail that ends mid-word and an all-invalid row;
 * ``fabric_eval_multi``, ``fabric_eval_multi_scored`` and
   ``fabric_eval_multi_scored_sparse`` on a 2-chip stack, both layouts,
   plain and TMR, on a batch that is not a tile multiple (the re-stride);
-* ``FusedFrontend.score_frames_sparse`` from the JAX featurizer's own
-  features (so the comparison is exact), at B = 128 and B = 100;
+* ``FusedFrontend.score_frames_sparse`` and the bit-sliced dense
+  ``score_frames_voted`` (routed through B6's dense entry) from the JAX
+  featurizer's own features (so the comparison is exact), at B = 128 and
+  B = 100;
 * the readout server with ``sparse=True`` and on the features path, on
   the served stream of test_torch_server.py: both backends, both
   layouts, plain and TMR, a micro-batch mixing frames and features, the
@@ -61,6 +67,8 @@ LAYOUTS = ("bitsliced", "matmul")
 # decode-weight rows: decode_plan of 28/7/1 outputs, and synthetic rows
 # with the sign at bit 0, at bit 30 and with no negative weight
 WEIGHT_RECIPES = ("plan", "sign_bit0", "sign_bit30", "no_negative")
+# the dense decode takes any int32 row, not only two's-complement ones
+DENSE_RECIPES = WEIGHT_RECIPES + ("arbitrary",)
 
 
 def _np(x):
@@ -82,6 +90,8 @@ def _weights(recipe, C, O, rng):
         elif recipe == "sign_bit30":
             w[c, :30] = 1 << np.arange(30)
             w[c, 30] = -(1 << 30)
+        elif recipe == "arbitrary":
+            w[c] = rng.integers(-2**31, 2**31, O)
         else:
             w[c] = rng.integers(0, 4, O)
     return w.astype(np.int32)
@@ -148,6 +158,40 @@ def test_b6_twin_equals_jax_decode_then_pack(words):
         for g, w in zip(got, want["pack"] + [want["decode"][2]]):
             np.testing.assert_array_equal(_np(g), w)
     assert port_sp.decode_pack.launches == n0       # no launch on the CPU
+
+
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("recipe", DENSE_RECIPES)
+def test_b6_dense_twin_equals_jax_unpack_then_decode(recipe, R):
+    """kernel B6's dense twin (and its CPU wrapper) against JAX's
+    unpack_words + decode_scores_device: random words, a valid tail that
+    ends 21 events into the last word, chip 1 with no valid event."""
+    rng = np.random.default_rng(100 + 10 * R + DENSE_RECIPES.index(recipe))
+    C, W, O, B = 3, 4, 32, 117
+    voted = rng.integers(0, 2**32, (C, W, O), dtype=np.uint64).astype(
+        np.uint32)
+    dis = rng.integers(0, 2**32, (C, R, W), dtype=np.uint64).astype(np.uint32)
+    weight = _weights(recipe, C, O, rng)
+    thr = rng.integers(-2**31, 2**31, C).astype(np.int32)
+    thr[0] = 0
+    valid = rng.random((C, B)) < 0.9
+    valid[1] = False
+    want = jax_ops.decode_scores_device(
+        jax_bs.unpack_words(jnp.asarray(voted), B),
+        jax_bs.unpack_words(jnp.asarray(dis)[..., None], B)[..., 0].astype(
+            bool),
+        jnp.asarray(weight), jnp.asarray(thr), jnp.asarray(valid))
+    args = (torch.as_tensor(as_int32(voted)), torch.as_tensor(as_int32(dis)),
+            torch.as_tensor(weight), torch.as_tensor(thr),
+            torch.as_tensor(valid))
+    n0 = port_sp.decode_dense.launches
+    for got in (port_sp.decode_dense_plain(*args),
+                port_sp.decode_dense(*args)):
+        for g, w, what in zip(got, want, ("score", "keep", "dis")):
+            np.testing.assert_array_equal(_np(g), _np(w), err_msg=what)
+        assert got[1].dtype == torch.bool and got[2].shape == (C, R)
+        assert not bool(got[1][1].any()) and not bool(got[2][1].any())
+    assert port_sp.decode_dense.launches == n0      # no launch on the CPU
 
 
 @pytest.mark.parametrize("B", [1, 31, 32, 70])
@@ -256,6 +300,8 @@ def frontend_sparse():
             valid[1, B - 9:] = False
             want[red, B] = [_np(x) for x in jf.score_frames_sparse(
                 fr[:, :B], y0[:, :B], valid=valid)]
+            want[red, B, "dense"] = [_np(x) for x in jf.score_frames_voted(
+                fr[:, :B], y0[:, :B], valid=valid)]
     return pairs, fr, y0, feats, want
 
 
@@ -285,6 +331,33 @@ def test_score_frames_sparse_equals_jax(frontend_sparse, monkeypatch, red,
                                         jnp.asarray(keep.numpy()))
     for g, w in zip(got, [*packed, dis]):
         np.testing.assert_array_equal(_np(g), _np(w))
+
+
+@pytest.mark.parametrize("B", [128, 100])
+@pytest.mark.parametrize("red", REDUNDANCIES)
+def test_bitsliced_dense_frames_route_through_b6_and_equal_jax(
+        frontend_sparse, monkeypatch, red, B):
+    """The bit-sliced dense fused pass takes the walk's words to B6's
+    dense entry (once a dispatch) and, from the JAX featurizer's features,
+    equals JAX's score_frames_voted bit for bit."""
+    pairs, fr, y0, feats, want = frontend_sparse
+    monkeypatch.setattr(port_yp, "yprofile_traced",
+                        lambda f, z, threshold: torch.as_tensor(feats))
+    calls = []
+    dense = port_sp.decode_dense
+    monkeypatch.setattr(port_sp, "decode_dense",
+                        lambda *a, **k: calls.append(k) or dense(*a, **k))
+    pf = port_fe.pack_frontend([p[1].config for p in pairs],
+                               [p[1].frontend_spec() for p in pairs],
+                               layout="bitsliced", redundancy=red,
+                               device="cpu")
+    valid = np.ones((2, B), bool)
+    valid[1, B - 9:] = False
+    got = pf.score_frames_voted(fr[:, :B], y0[:, :B], valid=valid)
+    assert calls == [{"follows_walk": True}]
+    for g, w, what in zip(got, want[red, B, "dense"],
+                          ("score", "keep", "dis")):
+        np.testing.assert_array_equal(_np(g), w, err_msg=what)
 
 
 def test_score_frames_sparse_needs_the_word_layout(frontend_sparse):
