@@ -453,21 +453,23 @@ def b6_launcher(args, keep_w, scores, decode):
         outs = [t.data_ptr() for t in out[:3]] + [
             out[3].data_ptr() if decode else None]
         dims = [C, W, O, R, B] if decode else [C, W, 0, 0, 0]
-        if hasattr(lib, "sparse_pack_state_words"):
+        stateful = hasattr(lib, "sparse_pack_state_words")
+        if stateful:
             fn.argtypes = list(
                 build.PROTOTYPES["sparse_pack"]["sparse_pack_launch"])
-            st = sp._state(voted.device, sp.state_words(C, R, W))
-            ptrs = ins + [st.data_ptr()] + outs
-            tail = [st.numel(), 0]
         else:
             fn.argtypes = [_P] * 12 + [_I] * 5 + [_P]
             scratch = torch.empty(2 * C * W, dtype=torch.int32,
                                   device="cuda")
-            ptrs = ins + [scratch.data_ptr()] + outs
-            tail = []
 
         def go():
             stream = torch.cuda.current_stream().cuda_stream
+            if stateful:    # the state of the stream it launches on
+                st = sp._state(voted.device, stream,
+                               sp.state_words(C, R, W))
+                ptrs, tail = ins + [st.data_ptr()] + outs, [st.numel()]
+            else:
+                ptrs, tail = ins + [scratch.data_ptr()] + outs, []
             build.check(lib, fn(*ptrs, *dims, *tail, stream),
                         "sparse_pack A/B")
         return go, out if decode else out[:3]
@@ -512,7 +514,7 @@ def stamped_b6_source():
     """csrc/sparse_pack.cu with %globaltimer stamps, an empty kernel and
     C functions read_stamps(host) and empty_launch(blocks, stream):
     ns[i] stamp i of block 0, ns[16 + i] of the last block; stamps 0
-    start, 1 after the wait, 2 decoded, 3 counts added, 4 looked back, 5
+    start, 1 after the wait and the prologue's loads, 2 decoded, 3 counts added, 4 looked back, 5
     scattered / written, 6 the last tile's wait for every prefix, 7 end
     (of a single block, or of the last)."""
     src = (build.CSRC / "sparse_pack.cu").read_text()
@@ -533,7 +535,8 @@ def stamped_b6_source():
         "g_ns[i] = gtime(); if (blockIdx.x == gridDim.x - 1) "
         "g_ns[16 + (i)] = gtime(); } } while (0)\n"
         "__global__ void empty_kernel() {}\n"))
-    put("  Prologue p[kWordsPerWarp] = {};\n", "  S(0);\n", after=False)
+    put("  wait_for_prior_grids();\n  Prologue p[kWordsPerWarp] = {};\n",
+        "  S(0);\n", after=False)
     put("  // a block of several pads its slot range", "  S(1);\n",
         after=False)
     put("  if (!single) add_counts(", "  S(2);\n", after=False)
@@ -547,9 +550,9 @@ def stamped_b6_source():
         after=False)
     put("  for (int q = threadIdx.x; q < t; q += kThreads) status[q] = 0u;\n",
         "  S(7);\n")
-    put("  Prologue p[kWordsPerWarp];\n  prologue(", "  S(0);\n",
-        after=False)
-    put("  wait_for_prior_grids();\n\n  unsigned mine[kWordsPerWarp], "
+    put("  wait_for_prior_grids();\n  Prologue p[kWordsPerWarp];\n",
+        "  S(0);\n", after=False)
+    put("  __syncthreads();\n\n  unsigned mine[kWordsPerWarp], "
         "dword[kWordsPerWarp];\n", "  S(1);\n")
     put("  if (gridDim.x == 1) {  ", "  S(5);\n", after=False)
     put("  if (threadIdx.x == 0) state[0] = 0u;\n", "  S(7);\n")

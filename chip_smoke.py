@@ -158,7 +158,8 @@ def graph_ms(fn, reps=20, inner=20):
     graph holding `inner` calls of `fn`, per call: the device's time
     without the host's launch cost, which sets the back-to-back time of
     a kernel of a few microseconds. `fn` must launch on the current
-    stream, read when it is called."""
+    stream, read when it is called; it is warmed up and captured on one
+    side stream (B6 keeps its state a stream)."""
     import numpy as np
     import torch
 
@@ -169,7 +170,7 @@ def graph_ms(fn, reps=20, inner=20):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(inner):
             fn()
     graph.replay()
@@ -554,11 +555,16 @@ def b6_keep_words_counts(C, W):
 def b6_dense_counts(C, W, O, R, B):
     """Bytes and operations of one dense call: voted and disagreement
     words, weights, cuts and the valid mask in once; score (int32), keep
-    (bool) and dis out once; per event a select and an add for each
-    output bit (the general weighted sum)."""
+    (bool) and dis out once; per event the butterfly 32x32 bit transpose
+    that hands it its output bits (15 operations), a table lookup and an
+    add for each nibble of its first 32 output bits, a select and an add
+    for each output past them, and the cut (a compare and an and); per
+    chip its nibble tables (16 sums of up to 4 weights a nibble)."""
     nbytes = (C * W * O * 4 + C * R * W * 4 + C * O * 4 + C * 4 + C * B
               + C * B * 5 + C * R * 4)
-    return bound(C * B * 2 * O, nbytes)
+    nib = -(-min(O, 32) // 4)
+    per_event = 15 + 2 * nib + 2 * max(O - 32, 0) + 2
+    return bound(C * B * per_event + C * nib * 16 * 4, nbytes)
 
 
 def bound(ops, nbytes):
@@ -583,13 +589,12 @@ def check_b6(torch, np, bs, sp, cp, lut_ops, chips):
     decode-pack (count, idx, vals, dis) and dense (score, keep, dis) on
     K2's real voted words of the 4-chip served stack (W=SERVED_B/32, R=1
     and R=3 with an upset replica) at every keep fraction, launched alone
-    and as the walk's programmatic dependent, and on synthetic words at
+    and right behind the walk that makes them, and on synthetic words at
     the served width and at B6_WORDS a chip, for every weight recipe and
     keep fraction; the keep-words entry through
     compression.sparse_trigger_pack on (4, 512) and (4, 8) event masks.
     Every entry timed at both widths by CUDA-graph replay (``ms``) and
-    back to back (``stream_ms``), each launch a full serialization (the
-    walk-dependent form's graph time is ``pdl_ms``)."""
+    back to back (``stream_ms``), its outputs exact after each."""
     configs = [c.config for c in chips]
     checked = []
     pack_names = ("count", "idx", "vals", "dis")
@@ -607,9 +612,9 @@ def check_b6(torch, np, bs, sp, cp, lut_ops, chips):
                  dense_names)
         if walk is not None:
             b6_equal(torch, f"{what} after the walk", sp.decode_pack(
-                *walk(), *args[2:], follows_walk=True), want, pack_names)
+                *walk(), *args[2:]), want, pack_names)
             b6_equal(torch, f"dense {what} after the walk", sp.decode_dense(
-                *walk(), *args[2:], follows_walk=True), want_d, dense_names)
+                *walk(), *args[2:]), want_d, dense_names)
         checked.append(what)
         return got
 
@@ -692,7 +697,9 @@ def check_b6(torch, np, bs, sp, cp, lut_ops, chips):
 def time_b6(torch, np, bs, sp):
     """The three entries at the served width and at B6_WORDS a chip (4
     chips, R=3, O=28, the plan's rows, about half kept), outputs
-    preallocated so that a call is the launch alone."""
+    preallocated so that a call is the launch alone; the outputs of the
+    last graph replay and of the last call back to back held against the
+    plain twin."""
     from repro_torch.kernels.lut_eval.ops import decode_keep_words_device
 
     runs = {}
@@ -711,33 +718,38 @@ def time_b6(torch, np, bs, sp):
         keep = torch.empty((C, B), dtype=torch.bool, device="cuda")
         keep_w, scores, _ = decode_keep_words_device(*args)
 
-        def pack(pdl=False):
+        def pack():
             sp.launch_pack(voted, dis, weight, thr, valid, None, None, count,
-                           idx, vals, d, C, words, O, 3, B, pdl=pdl)
+                           idx, vals, d, C, words, O, 3, B)
 
         def keep_words():
             sp.launch_pack(None, None, None, None, None, keep_w, scores,
                            count, idx, vals, None, C, words, 0, 0, 0)
 
-        def dense(pdl=False):
+        def dense():
             sp.launch_dense(voted, dis, weight, thr, valid, score, keep, d,
-                            C, words, O, 3, B, pdl=pdl)
+                            C, words, O, 3, B)
         kept = int(bs.popcount(keep_w).sum())
-        for name, fn, pdl_fn, plain, counts in (
-                ("decode_pack", pack, lambda: pack(True),
-                 lambda: sp.decode_pack_plain(*args),
-                 b6_counts(C, words, O, 3, B)),
-                ("keep_words", keep_words, None,
+        for name, fn, plain, outs, counts in (
+                ("decode_pack", pack, lambda: sp.decode_pack_plain(*args),
+                 (count, idx, vals, d), b6_counts(C, words, O, 3, B)),
+                ("keep_words", keep_words,
                  lambda: sp.pack_words_plain(keep_w, scores),
-                 b6_keep_words_counts(C, words)(kept)),
-                ("dense", dense, lambda: dense(True),
-                 lambda: sp.decode_dense_plain(*args),
-                 b6_dense_counts(C, words, O, 3, B))):
+                 (count, idx, vals), b6_keep_words_counts(C, words)(kept)),
+                ("dense", dense, lambda: sp.decode_dense_plain(*args),
+                 (score, keep, d), b6_dense_counts(C, words, O, 3, B))):
+            names = (("score", "keep", "dis") if name == "dense"
+                     else ("count", "idx", "vals", "dis"))
+            want = plain()
+            ms = graph_ms(fn)
+            b6_equal(torch, f"{name} W={words} after graph replays", outs,
+                     want, names)
+            stream_ms = time_ms(fn, inner=20)
+            b6_equal(torch, f"{name} W={words} back to back", outs, want,
+                     names)
             runs[f"{name}_R3_W{words}"] = {
                 "words": words, "events": n, "outputs": O,
-                "ms": graph_ms(fn),
-                "pdl_ms": graph_ms(pdl_fn) if pdl_fn else None,
-                "stream_ms": time_ms(fn, inner=20),
+                "ms": ms, "stream_ms": stream_ms,
                 "plain_ms": time_ms(plain, reps=10, inner=1),
                 **counts,
             }
@@ -1325,9 +1337,8 @@ def main():
     # B6's entries at both widths, its second source line, why it has no
     # library call, and its launches in the matmul sparse stream
     # (keep-words entry); the dense entry's launches under TMR
-    b6_runs = {key: {k: r[k] for k in ("ms", "pdl_ms", "stream_ms",
-                                       "plain_ms", "bound_ms", "bound_by",
-                                       "bytes_ms")}
+    b6_runs = {key: {k: r[k] for k in ("ms", "stream_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "bytes_ms")}
                for key, r in b6["runs"].items()}
     kernels[5]["runs"] = {k: r for k, r in b6_runs.items()
                           if not k.startswith("dense")}

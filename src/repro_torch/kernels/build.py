@@ -39,8 +39,8 @@ PROTOTYPES = {
     "lut_eval": {"lut_eval_launch": (_P,) * 8 + (_I,) * 9 + (_P,)},
     "bdt_infer": {"bdt_infer_launch": (_P,) * 10 + (_I,) * 5 + (_P,)},
     "sparse_pack": {
-        "sparse_pack_launch": (_P,) * 12 + (_I,) * 5 + (_LL, _I, _P),
-        "decode_dense_launch": (_P,) * 9 + (_I,) * 5 + (_LL, _I, _P)},
+        "sparse_pack_launch": (_P,) * 12 + (_I,) * 5 + (_LL, _P),
+        "decode_dense_launch": (_P,) * 9 + (_I,) * 5 + (_LL, _P)},
 }
 KERNELS = tuple(PROTOTYPES)
 

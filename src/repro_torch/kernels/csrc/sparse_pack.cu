@@ -50,8 +50,9 @@
 //     the persistent state, which one block then reads out (order-free,
 //     so exact).
 //
-// The persistent state (uint32, owned by the wrapper and zeroed once when
-// it is allocated: kernels/sparse_pack/sparse_pack.py) is
+// The persistent state (uint32, owned by the wrapper, one for each device
+// and stream, zeroed once when it is allocated:
+// kernels/sparse_pack/sparse_pack.py) is
 //   [0]                       done: blocks finished (dense, >1 block)
 //   [1, 1 + C*R)              dis accumulators (>1 block)
 //   [1 + C*R, ... + n_tiles)  tile statuses (sparse, >1 block)
@@ -68,9 +69,9 @@
 // once every earlier grid on the stream has completed and its writes are
 // visible. So back-to-back or overlapping (programmatic) launches and the
 // replays of a captured graph all start from the zeroed state and never
-// read a stale status. Two streams must not run launches that share one
-// state at once (the wrapper keeps one a device; the serving path runs
-// on one stream).
+// read a stale status. Launches that could run at once never share a
+// state: the wrapper keeps one for each stream (a captured graph keeps
+// its capture stream's).
 //
 // Hazards of the look-back without a memset, and how each is solved:
 //   * status words: (flag << 30) | value, flag 0 = not yet published (the
@@ -90,7 +91,9 @@
 //     that (see above). A later tile writes kept lanes only after its
 //     look-back acquired this tile's status or, past it, an inclusive
 //     prefix whose publisher had acquired it in turn (release and acquire
-//     are cumulative): every padding write is ordered before every kept
+//     are cumulative; the look-back's lanes each acquire a status, and a
+//     __syncwarp orders their acquires before lane 0's release of the
+//     inclusive prefix): every padding write is ordered before every kept
 //     write to the same slot. The tile's own kept lanes follow its
 //     padding across __syncthreads. A single block knows `count` after
 //     its scan and pads [count, n) after its kept lanes, each slot
@@ -104,13 +107,13 @@
 //     single-pass scan assumes).
 //   * count: the last tile writes its inclusive prefix.
 //
-// Programmatic dependent launch (pdl != 0): the launch may overlap the
-// kernel before it on the stream (the fabric walk on the serving path).
-// Before griddepcontrol.wait a block reads only the decode weights, the
-// cut and the valid mask (its prologue: sign position or nibble tables,
-// threshold, valid word), which that kernel must not write; every read of
-// the words and of the state, and every write, comes after the wait (an
-// output may reuse memory the kernel before still reads).
+// Every launch is a programmatic dependent of the kernel before it on the
+// stream (the fabric walk on the serving path): its blocks may start
+// while that kernel ends, and wait (griddepcontrol.wait) before their
+// first access to global memory, so it is safe after any kernel (the
+// kernel before may write any input, and an output may reuse memory it
+// still reads). Before the wait a block only indexes its words and clears
+// shared memory.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -201,7 +204,7 @@ __device__ __forceinline__ WordAt word_at(int t, int k, int W, int n_words) {
 }
 
 // The prologue of a warp's words: valid words, the cut, and (sparse) the
-// sign position; nothing the kernel before writes. Loads first.
+// sign position. Loads first.
 struct Prologue {
   unsigned vw;
   int thr, sp;
@@ -288,12 +291,13 @@ pack_kernel(const int* __restrict__ voted,      // (C, W, O) or null
   WordAt a[kWordsPerWarp];
 #pragma unroll
   for (int k = 0; k < kWordsPerWarp; ++k) a[k] = word_at(t, k, W, n_words);
-  Prologue p[kWordsPerWarp] = {};
-  if (decode) prologue(a, out_weight, threshold, valid, O, B, true, p);
   for (int i = threadIdx.x; i < (c1 - c0 + 1) * R; i += kThreads)
     s_dis[i] = 0;
-  __syncthreads();
+  // every access to global memory after this (see the head)
   wait_for_prior_grids();
+  Prologue p[kWordsPerWarp] = {};
+  if (decode) prologue(a, out_weight, threshold, valid, O, B, true, p);
+  __syncthreads();
 
   // a block of several pads its slot range first (see the head)
   if (!single) {
@@ -386,6 +390,7 @@ pack_kernel(const int* __restrict__ voted,      // (C, W, O) or null
         prefix += v;
         if (pm) break;
       }
+      __syncwarp();  // every lane's acquires before lane 0's release
       if (!last && lane == 0)
         st_release(&status[t], kPrefix | (unsigned)(prefix + agg));
     }
@@ -454,6 +459,10 @@ dense_kernel(const int* __restrict__ voted,      // (C, W, O)
   WordAt a[kWordsPerWarp];
 #pragma unroll
   for (int k = 0; k < kWordsPerWarp; ++k) a[k] = word_at(t, k, W, n_words);
+  for (int i = threadIdx.x; i < (c1 - c0 + 1) * R; i += kThreads)
+    s_dis[i] = 0;
+  // every access to global memory after this (see the head)
+  wait_for_prior_grids();
   Prologue p[kWordsPerWarp];
   prologue(a, out_weight, threshold, valid, O, B, false, p);
   // the nibble tables of the tile's chips (int32 sums wrap: unsigned)
@@ -466,10 +475,7 @@ dense_kernel(const int* __restrict__ voted,      // (C, W, O)
       if (((v >> b) & 1) && 4 * g + b < o32) sum += (unsigned)w_row[b];
     s_sum[ch][g][v] = sum;
   }
-  for (int i = threadIdx.x; i < (c1 - c0 + 1) * R; i += kThreads)
-    s_dis[i] = 0;
   __syncthreads();
-  wait_for_prior_grids();
 
   unsigned mine[kWordsPerWarp], dword[kWordsPerWarp];
 #pragma unroll
@@ -528,8 +534,8 @@ long long tiles(long long n_words) {
   return n > 0 ? n : 1;
 }
 
-// One block of kThreads a tile; programmatic serialization when pdl.
-cudaLaunchConfig_t config(long long blocks, int pdl, cudaStream_t s,
+// One block of kThreads a tile, a programmatic dependent launch.
+cudaLaunchConfig_t config(long long blocks, cudaStream_t s,
                           cudaLaunchAttribute* attr) {
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
@@ -538,7 +544,7 @@ cudaLaunchConfig_t config(long long blocks, int pdl, cudaStream_t s,
   cfg.blockDim = dim3(kThreads);
   cfg.stream = s;
   cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
+  cfg.numAttrs = 1;
   return cfg;
 }
 
@@ -564,7 +570,7 @@ int sparse_pack_launch(const void* voted, const void* dis_w,
                        const void* valid, const void* keep_in,
                        const void* scores_in, void* state, void* count,
                        void* idx, void* vals, void* dis, int C, int W, int O,
-                       int R, int B, long long state_words, int pdl,
+                       int R, int B, long long state_words,
                        void* stream) {
   if (voted == nullptr) R = 0;
   const long long n_words = (long long)C * W;
@@ -577,7 +583,7 @@ int sparse_pack_launch(const void* voted, const void* dis_w,
     return (int)cudaErrorMisalignedAddress;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
-      config(tiles(n_words), pdl, (cudaStream_t)stream, attr);
+      config(tiles(n_words), (cudaStream_t)stream, attr);
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, pack_kernel, (const int*)voted, (const int*)dis_w,
       (const int*)out_weight, (const int*)threshold, (const uint8_t*)valid,
@@ -595,7 +601,7 @@ int decode_dense_launch(const void* voted, const void* dis_w,
                         const void* out_weight, const void* threshold,
                         const void* valid, void* state, void* score,
                         void* keep, void* dis, int C, int W, int O, int R,
-                        int B, long long state_words, int pdl, void* stream) {
+                        int B, long long state_words, void* stream) {
   const long long n_words = (long long)C * W;
   if (C < 0 || W <= 0 || R < 0 || R > kMaxReplicas ||
       n_words * 32 > (long long)kValue || (long long)C * B > kValue ||
@@ -605,7 +611,7 @@ int decode_dense_launch(const void* voted, const void* dis_w,
   if (n_words == 0) return 0;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
-      config(tiles(n_words), pdl, (cudaStream_t)stream, attr);
+      config(tiles(n_words), (cudaStream_t)stream, attr);
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, dense_kernel, (const int*)voted, (const int*)dis_w,
       (const int*)out_weight, (const int*)threshold, (const uint8_t*)valid,

@@ -746,8 +746,7 @@ def _eval_stack_scored(stack: PackedFabricStack, bits, out_weight,
             in_seg=stack.in_seg)
         tail = (_sparse_pack.decode_pack if sparse
                 else _sparse_pack.decode_dense)
-        return tail(voted_w, dis_w, out_weight, threshold_raw, valid,
-                    follows_walk=True)
+        return tail(voted_w, dis_w, out_weight, threshold_raw, valid)
     if sparse:
         raise ValueError(
             "sparse=True needs the word domain: pack the stack with "

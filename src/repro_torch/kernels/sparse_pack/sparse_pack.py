@@ -28,11 +28,15 @@ int32 kept scores, 0 padded. Nothing synchronises with the host:
 ``count`` stays on the device, and every output has a size fixed by the
 shapes.
 
-The kernel's look-back scan and SEU counters keep a persistent state on
-each device (``_state``): zeroed once when it is allocated, left zero by
-every launch. Launches that share it are ordered by one stream, as the
-serving path's are; grow it (one call at the largest shape) before
-capturing a CUDA graph.
+Every launch is a programmatic dependent of the kernel before it on the
+stream, which it waits for before it touches memory. The kernel's
+look-back scan and SEU counters keep a persistent state for each device
+and stream (``_state``): zeroed once when it is allocated, left zero by
+every launch, so the launches that share it are ordered by their stream.
+A captured CUDA graph keeps its capture stream's state: make one call at
+the largest shape on that stream before capturing
+(``torch.cuda.graph(g, stream=s)``), and do not replay the graph while
+launches on that stream, or another replay of it, run.
 """
 from __future__ import annotations
 
@@ -53,7 +57,8 @@ STATE_WORDS_MIN = 1 << 16
 
 Packed = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-_STATE: Dict[torch.device, torch.Tensor] = {}
+# (device, CUDA stream handle) -> that stream's state
+_STATE: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 # states outgrown, kept alive: a captured graph may still point at one
 _RETIRED: List[torch.Tensor] = []
 
@@ -115,23 +120,26 @@ def state_words(C: int, R: int, W: int) -> int:
     return 1 + C * R + max(-(-C * W // TILE_WORDS), 1)
 
 
-def _state(device: torch.device, n: int) -> torch.Tensor:
-    """The device's persistent kernel state, at least ``n`` words, zero.
-    It grows by a fresh zeroed buffer (a fill kernel, once), never while
-    a CUDA graph is being captured."""
-    st = _STATE.get(device)
+def _state(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The persistent kernel state of a stream of the device (its CUDA
+    handle), at least ``n`` words, zero. It grows by a fresh zeroed
+    buffer (a fill kernel, once), never while a CUDA graph is being
+    captured."""
+    key = (device, stream)
+    st = _STATE.get(key)
     if st is None or st.numel() < n:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
                 "B6's state must grow outside CUDA graph capture: call "
-                "the wrapper once at this shape before capturing")
+                "the wrapper once at this shape on the capture stream "
+                "before capturing")
         old = 0
         if st is not None:
             _RETIRED.append(st)
             old = st.numel()
         st = torch.zeros((max(n, STATE_WORDS_MIN, 2 * old),),
                          dtype=torch.int32, device=device)
-        _STATE[device] = st
+        _STATE[key] = st
     return st
 
 
@@ -163,14 +171,12 @@ def _decode_inputs(voted_w, dis_w, out_weight, threshold_raw, valid,
 
 
 def _cuda_decode_arrays(arrays, R: int, what: str):
-    """The decode arrays contiguous on their card, and whether none had
-    to be copied (a copy is a kernel that writes a prologue input)."""
+    """The decode arrays contiguous on their card."""
     _check_cuda(arrays, (torch.int32,) * 4 + (torch.bool,), what)
     if R > MAX_REPLICAS:
         raise ValueError(f"{what} takes at most {MAX_REPLICAS} replicas, "
                          f"got {R}")
-    as_is = all(t.is_contiguous() for t in arrays)
-    return tuple(t.contiguous() for t in arrays), as_is
+    return tuple(t.contiguous() for t in arrays)
 
 
 def _stream(device) -> int:
@@ -178,33 +184,34 @@ def _stream(device) -> int:
 
 
 def launch_pack(voted, dis_w, out_weight, threshold, valid, keep_in,
-                scores_in, count, idx, vals, dis, C, W, O, R, B,
-                pdl: bool = False) -> None:
+                scores_in, count, idx, vals, dis, C, W, O, R, B) -> None:
     """One launch of the sparse entry (voted None selects keep-words; a
     None array is a null pointer) into the given outputs."""
     lib = build.load("sparse_pack")
     ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
     dev = idx.device
-    n = state_words(C, R if voted is not None else 0, W)
-    st = _state(dev, n)
+    stream = _stream(dev)
+    st = _state(dev, stream,
+                state_words(C, R if voted is not None else 0, W))
     code = lib.sparse_pack_launch(
         ptr(voted), ptr(dis_w), ptr(out_weight), ptr(threshold), ptr(valid),
         ptr(keep_in), ptr(scores_in), st.data_ptr(), count.data_ptr(),
         idx.data_ptr(), vals.data_ptr(), ptr(dis), C, W, O, R, B,
-        st.numel(), int(pdl), _stream(dev))
+        st.numel(), stream)
     build.check(lib, code, "sparse_pack kernel")
 
 
 def launch_dense(voted, dis_w, out_weight, threshold, valid, score, keep,
-                 dis, C, W, O, R, B, pdl: bool = False) -> None:
+                 dis, C, W, O, R, B) -> None:
     """One launch of the dense entry into the given outputs."""
     lib = build.load("sparse_pack")
-    st = _state(voted.device, state_words(C, R, W))
+    stream = _stream(voted.device)
+    st = _state(voted.device, stream, state_words(C, R, W))
     code = lib.decode_dense_launch(
         voted.data_ptr(), dis_w.data_ptr(), out_weight.data_ptr(),
         threshold.data_ptr(), valid.data_ptr(), st.data_ptr(),
         score.data_ptr(), keep.data_ptr(), dis.data_ptr(), C, W, O, R, B,
-        st.numel(), int(pdl), _stream(voted.device))
+        st.numel(), stream)
     build.check(lib, code, "sparse_pack dense kernel")
 
 
@@ -223,28 +230,20 @@ def decode_pack(
     out_weight: torch.Tensor,    # (C, O) int32 two's-complement weights
     threshold_raw: torch.Tensor, # (C,) int32
     valid: torch.Tensor,         # (C, B) bool, W == ceil(B/32)
-    *,
-    follows_walk: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """Word-domain keep cut, SEU counters and compaction in one launch:
     (count (), idx (C*W*32,), vals (C*W*32,), dis (C, R)) int32. CUDA
-    tensors launch B6; CPU tensors run ``decode_pack_plain``.
-
-    ``follows_walk``: the kernel launched just before on this stream is
-    the fabric walk that made the words, and it writes none of
-    ``out_weight``, ``threshold_raw`` and ``valid``. B6 then launches as
-    its programmatic dependent and reads those while the walk ends."""
+    tensors launch B6; CPU tensors run ``decode_pack_plain``."""
     C, W, O, R, B = _decode_inputs(voted_w, dis_w, out_weight,
                                    threshold_raw, valid, "decode_pack")
     if voted_w.device.type == "cpu":
         return decode_pack_plain(voted_w, dis_w, out_weight, threshold_raw,
                                  valid)
-    arrays, as_is = _cuda_decode_arrays(
+    arrays = _cuda_decode_arrays(
         (voted_w, dis_w, out_weight, threshold_raw, valid), R, "decode_pack")
     count, idx, vals = _outputs(C, W, voted_w.device)
     dis = torch.empty((C, R), dtype=torch.int32, device=voted_w.device)
-    launch_pack(*arrays, None, None, count, idx, vals, dis, C, W, O, R, B,
-                pdl=follows_walk and as_is)
+    launch_pack(*arrays, None, None, count, idx, vals, dis, C, W, O, R, B)
     decode_pack.launches += 1
     return count, idx, vals, dis
 
@@ -284,29 +283,25 @@ def decode_dense(
     out_weight: torch.Tensor,    # (C, O) int32 weights, any values
     threshold_raw: torch.Tensor, # (C,) int32
     valid: torch.Tensor,         # (C, B) bool, W == ceil(B/32)
-    *,
-    follows_walk: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Score every event of the words in one launch: (score (C, B) int32
     = the sum of output bit o times ``out_weight[:, o]`` with int32 wrap,
     keep (C, B) bool = score <= cut on valid events, dis (C, R) int32
     disagreements over valid events). CUDA tensors launch B6's dense
-    entry; CPU tensors run ``decode_dense_plain``. ``follows_walk`` as
-    for ``decode_pack``."""
+    entry; CPU tensors run ``decode_dense_plain``."""
     C, W, O, R, B = _decode_inputs(voted_w, dis_w, out_weight,
                                    threshold_raw, valid, "decode_dense")
     if voted_w.device.type == "cpu":
         return decode_dense_plain(voted_w, dis_w, out_weight, threshold_raw,
                                   valid)
-    arrays, as_is = _cuda_decode_arrays(
+    arrays = _cuda_decode_arrays(
         (voted_w, dis_w, out_weight, threshold_raw, valid), R,
         "decode_dense")
     dev = voted_w.device
     score = torch.empty((C, B), dtype=torch.int32, device=dev)
     keep = torch.empty((C, B), dtype=torch.bool, device=dev)
     dis = torch.empty((C, R), dtype=torch.int32, device=dev)
-    launch_dense(*arrays, score, keep, dis, C, W, O, R, B,
-                 pdl=follows_walk and as_is)
+    launch_dense(*arrays, score, keep, dis, C, W, O, R, B)
     decode_dense.launches += 1
     return score, keep, dis
 

@@ -336,7 +336,7 @@ def test_sparse_pack_on_walk_words_equals_plain_twin(card, redundancy,
     """B6's decode entry on K2's voted and disagreement words (an upset
     replica under TMR), the chips' decode rows and a valid tail that ends
     mid-word: (count, idx, vals, dis) equal the twin's, launched alone and
-    as the walk's programmatic dependent."""
+    right behind the walk that makes the words."""
     args, walk = _walk_case(card, redundancy, frac)
     want = sp.decode_pack_plain(*args)
     n0 = sp.decode_pack.launches
@@ -344,7 +344,7 @@ def test_sparse_pack_on_walk_words_equals_plain_twin(card, redundancy,
     assert sp.decode_pack.launches == n0 + 1
     _equal_b6(got, want)
     assert bool((got[3] != 0).any()) == (redundancy == "tmr")
-    _equal_b6(sp.decode_pack(*walk(), *args[2:], follows_walk=True), want)
+    _equal_b6(sp.decode_pack(*walk(), *args[2:]), want)
 
 
 @pytest.mark.parametrize("frac", chip_smoke.B6_FRACTIONS)
@@ -360,7 +360,7 @@ def test_decode_dense_on_walk_words_equals_plain_twin(card, redundancy,
     assert sp.decode_dense.launches == n0 + 1
     _equal_b6(got, want)
     assert bool((got[2] != 0).any()) == (redundancy == "tmr")
-    _equal_b6(sp.decode_dense(*walk(), *args[2:], follows_walk=True), want)
+    _equal_b6(sp.decode_dense(*walk(), *args[2:]), want)
 
 
 @pytest.mark.parametrize("recipe", chip_smoke.B6_WEIGHTS + ("arbitrary",))
@@ -411,11 +411,10 @@ def test_each_b6_entry_is_one_kernel_and_no_memset(card):
         == [(True, False), (True, False), (False, True)], on_device
 
 
-def test_b6_state_survives_graph_replays_and_shape_changes(card):
-    """The look-back state is zero again after every launch: 200 replays
-    of a graph of the three entries (each a programmatic dependent of the
-    one before), then 16, 2,048 and 16 words a chip in turns on one
-    stream with no synchronisation between, every output exact."""
+def _b6_state_cases():
+    """The three entries' inputs and plain outputs at 16 words a chip (one
+    block, no shared state) and at B6_WORDS (128 blocks: the look-back,
+    the SEU accumulators and the done counter)."""
     shapes = {W: chip_smoke.b6_case(torch, np, bs, 4, W, 3, 28, "plan",
                                     0.5, seed=W)
               for W in (16, chip_smoke.B6_WORDS)}
@@ -424,30 +423,60 @@ def test_b6_state_survives_graph_replays_and_shape_changes(card):
                 sp.pack_words_plain(*kws[W])) for W, a in shapes.items()}
 
     def calls(W):
-        a = shapes[W]
-        return (sp.decode_pack(*a, follows_walk=True),
-                sp.decode_dense(*a, follows_walk=True),
+        return (sp.decode_pack(*shapes[W]), sp.decode_dense(*shapes[W]),
                 sp.pack_keep_words(*kws[W]))
+    return calls, want
 
-    for W in shapes:                      # the state at its largest first
-        calls(W)
+
+def test_b6_state_survives_graph_replays_and_shape_changes(card):
+    """The look-back state is zero again after every launch: 200 replays
+    of a graph of the three entries at 16 and at 2,048 words a chip (each
+    a programmatic dependent of the one before), every output exact after
+    each replay; then 16, 2,048 and 16 words a chip in turns on one
+    stream with no synchronisation between, every output exact."""
+    calls, want = _b6_state_cases()
+    order = (16, chip_smoke.B6_WORDS)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        calls(16)
+    with torch.cuda.stream(side):         # the capture stream's state
+        for W in order:
+            calls(W)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        captured = calls(16)
+    with torch.cuda.graph(graph, stream=side):
+        captured = [calls(W) for W in order]
     for _ in range(200):
         graph.replay()
         torch.cuda.synchronize()
-        for g, w in zip(captured, want[16]):
-            _equal_b6(g, w)
+        for W, got in zip(order, captured):
+            for g, w in zip(got, want[W]):
+                _equal_b6(g, w)
     order = (16, chip_smoke.B6_WORDS, 16, chip_smoke.B6_WORDS, 16)
     runs = [calls(W) for W in order]
     torch.cuda.synchronize()
     for W, got in zip(order, runs):
+        for g, w in zip(got, want[W]):
+            _equal_b6(g, w)
+
+
+def test_b6_launches_on_two_streams_at_once_stay_exact(card):
+    """Each stream has its own look-back state: the three entries at
+    2,048 words a chip launched in turns on two streams with no
+    synchronisation between them, 20 rounds, every output exact."""
+    calls, want = _b6_state_cases()
+    W = chip_smoke.B6_WORDS
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    runs = []
+    for _ in range(20):
+        for st in streams:
+            with torch.cuda.stream(st):
+                runs.append(calls(W))
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
+    torch.cuda.synchronize()
+    for got in runs:
         for g, w in zip(got, want[W]):
             _equal_b6(g, w)
 

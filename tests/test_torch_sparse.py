@@ -354,7 +354,7 @@ def test_bitsliced_dense_frames_route_through_b6_and_equal_jax(
     valid = np.ones((2, B), bool)
     valid[1, B - 9:] = False
     got = pf.score_frames_voted(fr[:, :B], y0[:, :B], valid=valid)
-    assert calls == [{"follows_walk": True}]
+    assert calls == [{}]
     for g, w, what in zip(got, want[red, B, "dense"],
                           ("score", "keep", "dis")):
         np.testing.assert_array_equal(_np(g), w, err_msg=what)
