@@ -83,6 +83,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
                dense and sparse: every result equal to the oracle on those
                features; K2 (bit-sliced) or B3 (matmul) launched, and B6
                when sparse.
+  9. serve   — the scrub/SEU loop on the stream without its hot swap
+     scrub     (7 batches, a flush, one batch more: 8,192 events),
+               scrub_interval=1: TMR bit-sliced and matmul, steered and
+               round-robin, then plain (CRC-only) bit-sliced. Before batch
+               3, inject_seu flips one output-changing bit (searched with
+               the numpy FabricSim oracle) of the replica frame the
+               round-robin pointer samples next. Checks: under TMR every
+               event equal to the oracle, without it every event submitted
+               after the heal; one detection and one healed bit; the upset
+               replica's counter climbed and stays after the heal; every
+               frame verifies at the end; K1, K2 or B3, and (bit-sliced)
+               B6's dense entry launched. Then served events/s of the TMR
+               stream with scrub on and off, alternating rounds.
+ 10. serve   — deadline admission on the same stream, defaults: first
+     deadline  overload_policy="observe" (10 ms deadline; latency p50,
+               p99, p99.9), then "degrade" with the sparse_egress rung
+               only, at half the first run's service p50. Checks: every
+               drained event equal to the oracle, every admitted event
+               missing from the drain dropped by the oracle, every shed
+               submission None and counted, n_in + n_shed the submitted
+               count a chip, a ladder transition, B6's decode-pack entry
+               launched after it.
 Then a `kernels` JSON line, the card's name and power limit, and the
 final line {"ok": true, "device": {...}}.
 """
@@ -1158,6 +1180,280 @@ def serve(torch, np, chips, swap_chip, blocks, want, redundancy, counters,
             "link_bytes": link, "stages": rep["stages"]}
 
 
+# 9-10: the scrub/SEU loop and deadline admission, on the served stream
+# without its hot swap (7 batches a stream, then one more after a flush:
+# 8,192 events a configuration)
+SEU_AT = 3
+SCRUB_RATE_ROUNDS = 3
+DEADLINE_OBSERVE_US = 10_000.0
+
+
+def effective_flips(np, chips, want):
+    """Per chip: the (lut, bit) of its base encoding, among the first 64
+    that change its outputs on its batch SEU_AT block, that changes the
+    most events there (the numpy FabricSim oracle)."""
+    from repro_torch.core.fabric import FabricSim
+    from repro_torch.core.tmr import inject_seu
+
+    flips = []
+    for s, chip in enumerate(chips):
+        bits = chip.encode_features(want[SEU_AT][s][0])
+        good = np.asarray(FabricSim(chip.config).run(bits)[0])
+        best, n_found = None, 0
+        for li in range(chip.config.n_luts):
+            for bi in range(16):
+                outs = np.asarray(FabricSim(
+                    inject_seu(chip.config, li, bi)).run(bits)[0])
+                n = int((outs != good).any(-1).sum())
+                if n:
+                    n_found += 1
+                    if best is None or n > best[2]:
+                        best = (li, bi, n)
+            if n_found >= 64:
+                break
+        if best is None:
+            raise RuntimeError(f"chip {s}: no output-changing flip")
+        flips.append(best)
+    return flips
+
+
+def drive_frames(server, blocks, steps, results, where, before=None,
+                 after=None):
+    """Submit each step's sensor blocks as raw frames, polling after each,
+    with ``before(step)`` / ``after(step)`` hooks; records every admitted
+    event's (step, sensor, row) in ``where`` and the drained results."""
+    for step in steps:
+        if before is not None:
+            before(step)
+        for s in range(N_CHIPS):
+            blk = blocks[step][s]
+            seqs = server.submit_frames(s, blk["frames"], blk["y0"])
+            for row, seq in enumerate(seqs):
+                if seq is not None:
+                    where[seq] = (step, s, row)
+            results += server.poll()
+        if after is not None:
+            after(step)
+
+
+def mismatches(want, results, where, steps=None):
+    """Drained results that differ from the oracle (seq -> (chip, score,
+    keep)); only events of ``steps`` when given."""
+    bad = 0
+    for r in results:
+        step, s, row = where[r.seq]
+        if steps is not None and step not in steps:
+            continue
+        _, score, keep = want[step][s]
+        bad += (r.chip, r.score_raw, r.keep) != (s, int(score[row]),
+                                                 bool(keep[row]))
+    return bad
+
+
+def serve_scrub(torch, np, chips, blocks, want, flips, counters, layout,
+                redundancy, mode):
+    """One scrub run: scrub_interval=1; before batch SEU_AT one
+    output-changing bit of the replica frame the round-robin pointer
+    samples next is flipped (``flips``, in replica coordinates under
+    TMR), so both scrub modes reach it within the stream. Under TMR every event
+    must equal the oracle; without it, every event submitted after the
+    heal. Exactly one detection and one healed bit, the upset replica's
+    counter climbing and then still after the heal, every frame clean at
+    the end, the fabric kernel and (bit-sliced) B6's dense entry
+    launched."""
+    from repro_torch.core.tmr import replica_lut_index
+    from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
+
+    phase = "serve_scrub"
+    server = ReadoutServer(list(chips), ServerConfig(
+        redundancy=redundancy, layout=layout, scrub_interval=1,
+        scrub_mode=mode), device="cuda")
+    what = f"{server.layout} {redundancy} {mode}"
+    R = server.n_replicas
+    hit = {}
+
+    def inject(step):
+        if step != SEU_AT:
+            return
+        slot, replica = divmod(server._scrub_rr, R)
+        li, bi, n = flips[slot]
+        server.inject_seu(slot, replica,
+                          replica_lut_index(chips[slot].config, replica, li)
+                          if R > 1 else li, bi)
+        if server.verify_frame(slot, replica):
+            fail(phase, f"{what}: the injected upset verifies clean")
+        hit.update(slot=slot, replica=replica, events_changed=n)
+
+    healed_after = []
+
+    def note_heal(step):
+        if not healed_after and server.report()["scrub"]["healed_bits"]:
+            healed_after.append(step)
+
+    reset(counters)
+    results, where = [], {}
+    drive_frames(server, blocks, range(SERVE_BATCHES - 1), results, where,
+                 before=inject, after=note_heal)
+    results += server.flush()
+    slot, replica = hit["slot"], hit["replica"]
+    climbed = server.report()["per_chip"][slot]["seu_disagreements"][replica]
+    drive_frames(server, blocks, [SERVE_BATCHES - 1], results, where)
+    results += server.flush()
+    torch.cuda.synchronize()
+    launches = read(counters)
+    rep = server.report()
+    scrub = rep["scrub"]
+    after = rep["per_chip"][slot]["seu_disagreements"][replica]
+    if len(results) != len(where) or {r.seq for r in results} != set(where):
+        fail(phase, f"{what}: {len(results)} results for {len(where)} "
+                    "events")
+    checked = (None if R > 1 else
+               set(range((healed_after or [SERVE_BATCHES - 2])[0] + 1,
+                         SERVE_BATCHES)))
+    mism = mismatches(want, results, where, checked)
+    # without TMR the events served while the upset was live may differ
+    wrong_before = mismatches(want, results, where) - mism
+    if mism:
+        fail(phase, f"{what}: {mism} events differ from the oracle")
+    if scrub["detections"] != 1 or scrub["healed_bits"] != 1:
+        fail(phase, f"{what}: scrub report {scrub}")
+    if R > 1 and not (climbed > 0 and after == climbed):
+        fail(phase, f"{what}: upset replica's disagreements {climbed} at "
+                    f"the flush, {after} after one more batch")
+    clean = [server.verify_frame(s, r) for s in range(N_CHIPS)
+             for r in range(R)]
+    if not all(clean):
+        fail(phase, f"{what}: frames failing verify at the end: {clean}")
+    need = ["yprofile", FABRIC_KERNEL[server._stack.layout]]
+    if server._stack.bitsliced:
+        need.append("decode_dense")
+    for k in need:
+        if launches[k] <= 0:
+            fail(phase, f"{what}: kernel {k} never launched")
+    return {"layout": rep["layout"], "stack": server._stack.layout,
+            "redundancy": redundancy, "mode": mode,
+            "events": rep["n_in"], "upset": hit,
+            "healed_after_batch": (healed_after or [None])[0],
+            "oracle_mismatches": mism,
+            "wrong_before_heal": wrong_before,
+            "upset_disagreements": climbed, "scrub": scrub,
+            "scrub_stage": rep["stages"].get("scrub"),
+            "launches": launches, "events_per_s": rep["events_per_s"]}
+
+
+def scrub_rates(np, chips, blocks):
+    """Served events/s of the TMR bit-sliced stream (no upset) with a
+    scrub step every dispatch and without scrubbing, in alternating
+    rounds (off, on, on, off, ...), with each run's host stage seconds
+    and the seconds Python's garbage collector ran during it."""
+    import gc
+
+    from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
+
+    rates = {"on": [], "off": []}
+    stages = {"on": [], "off": []}
+    gc_s = {"on": [], "off": []}
+    scrub_s = []
+    t_gc = [0.0, 0.0]            # start of the running collection, total
+
+    def gc_clock(phase, info):
+        if phase == "start":
+            t_gc[0] = time.monotonic()
+        else:
+            t_gc[1] += time.monotonic() - t_gc[0]
+    order = [("off", "on") if k % 2 == 0 else ("on", "off")
+             for k in range(SCRUB_RATE_ROUNDS)]
+    for pair in order:
+        for side in pair:
+            server = ReadoutServer(list(chips), ServerConfig(
+                redundancy="tmr",
+                scrub_interval=1 if side == "on" else None), device="cuda")
+            results, where = [], {}
+            t_gc[1] = 0.0
+            gc.callbacks.append(gc_clock)
+            try:
+                drive_frames(server, blocks, range(SERVE_BATCHES), results,
+                             where)
+                results += server.flush()
+            finally:
+                gc.callbacks.remove(gc_clock)
+            gc_s[side].append(round(t_gc[1], 6))
+            rep = server.report()
+            if len(results) != len(where):
+                fail("serve_scrub", f"scrub {side}: {len(results)} results "
+                                    f"for {len(where)} events")
+            rates[side].append(rep["events_per_s"])
+            stages[side].append({k: round(v["seconds"], 6)
+                                 for k, v in rep["stages"].items()})
+            if side == "on":
+                scrub_s.append(rep["stages"]["scrub"]["seconds"])
+    return {"order": [s for pair in order for s in pair],
+            "events_per_s": rates,
+            "median_on": float(np.median(rates["on"])),
+            "median_off": float(np.median(rates["off"])),
+            "scrub_stage_seconds": scrub_s, "stage_seconds": stages,
+            "gc_seconds": gc_s}
+
+
+def serve_deadline(torch, np, chips, blocks, want, counters, deadline_us,
+                   policy, rungs=None):
+    """One deadline run of the served stream (8,192 events submitted).
+    Checks: every drained event equals the oracle, every admitted event
+    missing from the drain was dropped by the oracle (a sparse batch),
+    every shed submission returned None and is counted in n_shed, and
+    n_in + n_shed is the submitted count a chip."""
+    from repro_torch.launch.readout_server import (DEGRADE_RUNGS,
+                                                   ReadoutServer,
+                                                   ServerConfig)
+
+    phase = "serve_deadline"
+    server = ReadoutServer(list(chips), ServerConfig(
+        deadline_us=deadline_us, overload_policy=policy,
+        degrade_rungs=rungs or DEGRADE_RUNGS), device="cuda")
+    what = f"{policy} deadline {deadline_us:.1f} us"
+    reset(counters)
+    results, where = [], {}
+    drive_frames(server, blocks, range(SERVE_BATCHES), results, where)
+    results += server.flush()
+    torch.cuda.synchronize()
+    launches = read(counters)
+    rep = server.report()
+    mism = mismatches(want, results, where)
+    drained = {r.seq for r in results}
+    missing_kept = sum(bool(want[st][s][2][row])
+                       for q, (st, s, row) in where.items()
+                       if q not in drained)
+    if mism or missing_kept or not drained <= set(where):
+        fail(phase, f"{what}: {mism} drained events differ from the "
+                    f"oracle, {missing_kept} kept events missing")
+    submitted = SERVE_BATCHES * SERVE_EVENTS
+    for c, row in enumerate(rep["per_chip"]):
+        admitted = sum(1 for (_, s, _) in where.values() if s == c)
+        if row["n_in"] != admitted or row["n_in"] + row["n_shed"] != submitted:
+            fail(phase, f"{what}: chip {c} n_in {row['n_in']} + n_shed "
+                        f"{row['n_shed']} against {admitted} admitted of "
+                        f"{submitted} submitted")
+    lat = rep["latency"]
+    return {"policy": policy, "deadline_us": deadline_us,
+            "rungs": list(rungs or DEGRADE_RUNGS),
+            "submitted": submitted * N_CHIPS, "admitted": len(where),
+            "drained": len(results), "n_in": rep["n_in"],
+            "shed": rep["deadline"]["shed"],
+            "oracle_mismatches": mism,
+            "latency_us": {k: lat["total"][k] for k in (
+                "count", "p50_us", "p99_us", "p999_us", "max_us")},
+            "service_us": {k: lat["service"][k] for k in (
+                "p50_us", "p99_us")},
+            "queue_wait_us": {k: lat["queue_wait"][k] for k in (
+                "p50_us", "p99_us")},
+            "deadline": {k: rep["deadline"][k] for k in (
+                "met", "missed", "miss_fraction", "effective_max_batch",
+                "batch_shrinks", "batch_grows")},
+            "transitions": rep["deadline"]["ladder"]["transitions"],
+            "link_bytes": rep["link_bytes"], "launches": launches,
+            "events_per_s": rep["events_per_s"]}
+
+
 def main():
     import torch
 
@@ -1293,6 +1589,36 @@ def main():
                               else runs["matmul", red])
                 run["frames_events_per_s"] = frames_run["events_per_s"]
                 emit("serve_features", ok=True, card=card, **run)
+
+    # 9. the scrub/SEU loop on the stream without its hot swap
+    want0 = oracle(np, chips, chips[0], blocks, yp)
+    flips = effective_flips(np, chips, want0)
+    for layout, red, mode in ((None, "tmr", "steered"),
+                              (None, "tmr", "round_robin"),
+                              ("matmul", "tmr", "steered"),
+                              ("matmul", "tmr", "round_robin"),
+                              (None, "none", "steered")):
+        run = serve_scrub(torch, np, chips, blocks, want0, flips, counters,
+                          layout, red, mode)
+        emit("serve_scrub", ok=True, card=card, **run)
+    emit("serve_scrub_rates", ok=True, card=card,
+         **scrub_rates(np, chips, blocks))
+
+    # 10. deadline admission: observe, then the ladder's sparse_egress
+    # rung under a deadline below the observed service time
+    observe = serve_deadline(torch, np, chips, blocks, want0, counters,
+                             DEADLINE_OBSERVE_US, "observe")
+    emit("serve_deadline", ok=True, card=card, **observe)
+    tight = 0.5 * observe["service_us"]["p50_us"]
+    degrade = serve_deadline(torch, np, chips, blocks, want0, counters,
+                             tight, "degrade", rungs=("sparse_egress",))
+    if not degrade["transitions"]:
+        fail("serve_deadline", f"degrade at {tight:.1f} us: no ladder "
+                               "transition")
+    if degrade["launches"]["sparse_pack_decode"] <= 0:
+        fail("serve_deadline", "degrade: B6's sparse entry never launched "
+                               "after the sparse_egress transition")
+    emit("serve_deadline", ok=True, card=card, **degrade)
 
     kernels = []
     # K2's row carries the times of its R=3 (TMR) run; K1, K2 and B6's

@@ -13,7 +13,9 @@ The JAX package's kernels/lut_eval/ops.py, both device layouts:
 ``ReadoutChip.verify_vs_golden`` through ``KernelBackend``).
 ``pack_fabrics`` stacks N bitstreams into one ``PackedFabricStack``
 sharing a padded geometry (the chip axis is the leading tensor dimension
-on one device), ``swap_chip`` hot-swaps one chip's rows, and
+on one device), ``swap_chip`` hot-swaps one chip's rows, ``swap_replica``
+one replica row and ``readback_replica`` reads a replica's truth tables
+back (the scrub loop's ports), and
 ``_eval_stack_scored`` is the fabric and decode stage of the fused
 frontend: ``fabric_eval_bits_voted`` + ``decode_scores_device`` on a
 matmul stack, the bit-sliced walk + kernel B6 (kernels/sparse_pack) on a
@@ -221,6 +223,62 @@ class PackedFabricStack:
             n_outputs_each=tuple(each_out),
             **routing,
         )
+
+    def swap_replica(
+        self, slot: int, replica: int, config: FabricConfig
+    ) -> "PackedFabricStack":
+        """Replace ONE replica row — the fault-injection and heal port of
+        the scrub loop — as a row update of fresh tensors, like
+        ``swap_chip``. The other replicas and the per-chip widths are
+        untouched; the config must keep the slot's IO widths."""
+        R = self.n_replicas
+        if not 0 <= replica < R:
+            raise ValueError(f"replica must be in [0, {R}), got {replica!r}")
+        self._check_admits(config)
+        if (config.n_inputs != self.n_inputs_each[slot]
+                or len(config.output_nets) != self.n_outputs_each[slot]):
+            raise ValueError(
+                f"replica IO widths ({config.n_inputs} in, "
+                f"{len(config.output_nets)} out) must match slot {slot}'s "
+                f"({self.n_inputs_each[slot]} in, "
+                f"{self.n_outputs_each[slot]} out)"
+            )
+        pack_one = _pack_arrays_bitsliced if self.bitsliced else _pack_arrays
+        packed = pack_one(config, self.n_levels, self.m_pad, self.in_seg,
+                          self.n_outputs,
+                          band_k=self.band_k if self.banded else None)
+        r = slot * R + replica
+
+        def row(old: torch.Tensor, k: int) -> torch.Tensor:
+            new = old.clone()
+            new[r] = torch.as_tensor(packed[k]).to(old.device, old.dtype)
+            return new
+
+        routing = (dict(src=row(self.src, 0)) if self.bitsliced
+                   else dict(sel=row(self.sel, 0)))
+        return dataclasses.replace(
+            self, tables=row(self.tables, 1),
+            output_nets=row(self.output_nets, 2), **routing)
+
+    def readback_replica(self, slot: int, replica: int = 0) -> np.ndarray:
+        """ONE replica's live truth tables as the (n_levels, m_pad, 16)
+        uint8 scrub-loop image (core.fabric.packed_table_image): what the
+        kernels evaluate with, any injected upset included. The tables
+        are exact 0.0/1.0, so the cast is lossless. Synchronous."""
+        R = self.n_replicas
+        if not 0 <= slot < self.n_chips:
+            raise ValueError(
+                f"slot must be in [0, {self.n_chips}), got {slot!r}")
+        if not 0 <= replica < R:
+            raise ValueError(f"replica must be in [0, {R}), got {replica!r}")
+        return self.tables[slot * R + replica].cpu().numpy().astype(np.uint8)
+
+    def readback_chip(self, slot: int) -> np.ndarray:
+        """Every replica row of one logical chip: (n_replicas, n_levels,
+        m_pad, 16) uint8."""
+        return np.stack([
+            self.readback_replica(slot, r) for r in range(self.n_replicas)
+        ])
 
 
 def _win_base(L: int, band_k: int, m_pad: int, in_seg: int) -> np.ndarray:

@@ -1,24 +1,40 @@
 """Multi-chip streaming readout server (PyTorch port).
 
-The core loop of the JAX package's launch/readout_server.py, with both
-ingestion forms:
+The JAX package's launch/readout_server.py, with both ingestion forms:
 
     submit_frames(chip, frames, y0)   RAW charge frames
     submit(chip, features)            pre-featurized events
-      -> micro-batch queue            (coalesce: max_batch / max_latency)
+      -> deadline admission           (overload_policy "shed"/"degrade":
+                                       a submission whose predicted
+                                       completion blows deadline_us is
+                                       shed, seq None, counted per chip)
+      -> micro-batch queue            (coalesce: the effective max_batch /
+                                       max_latency_s, shrunk and re-grown
+                                       by the service time under a
+                                       deadline)
       -> device passes, one per kind  (frames: kernels/frontend.py,
                                        yprofile -> quantize -> bit gather
                                        -> fabric kernel + TMR vote ->
                                        score -> keep/drop; features: host
                                        encode, then lut_eval/ops.py
                                        fabric_eval_multi_scored)
-      -> egress, dense or sparse      (sparse=True: only the kept events'
-                                       (flat index, score) pairs, packed
-                                       on the device by kernel B6)
+      -> egress, dense or sparse      (sparse=True, or the degrade
+                                       ladder's sparse_egress rung: only
+                                       the kept events' (flat index,
+                                       score) pairs, packed on the device
+                                       by kernel B6)
       -> pinned host copy, drained    (poll never blocks; flush does)
+      -> background scrub             (scrub_interval=k: every k
+                                       dispatches, read back one replica's
+                                       live truth tables, CRC-verify them
+                                       against the golden store and
+                                       re-encode a corrupted replica)
       -> per-chip trigger report      (rates, reduction, link bytes,
                                        per-stage host timing, per-replica
-                                       SEU disagreement counters)
+                                       SEU disagreement counters, scrub
+                                       detections and heals, latency
+                                       histograms, the deadline ledger and
+                                       the degrade ladder)
 
 Two backends: "kernel" is the device path; "host" is the staged numpy
 oracle (featurize on the device, then numpy quantize + pack + FabricSim
@@ -31,11 +47,15 @@ and disagree counts) into pinned host memory without blocking, and
 records a CUDA event behind them; ``poll`` retires a batch only once its
 event has completed, and up to ``pipeline_depth`` batches stay in flight.
 A sparse batch's kept prefix ``idx[:count]``, ``vals[:count]`` is copied
-at the drain, on a side stream, so it waits for no later batch.
+at the drain, on a side stream, so it waits for no later batch. A scrub
+readback is the same kind of copy: the replica's row of ``tables`` goes
+to pinned memory behind a CUDA event and is verified on a later scrub
+step, once the event has completed.
 
-Not ported yet (each raises NotPortedError — nothing is silently
-ignored): scrubbing, deadline admission and the degrade ladder, and
-per-tenant quotas. See ROADMAP queue A.
+Every time comes from the one injected ``clock``.
+
+Not ported yet: per-tenant quotas (``tenant_quota_queued`` raises
+NotPortedError). See ROADMAP queue A.
 """
 from __future__ import annotations
 
@@ -48,16 +68,24 @@ from typing import Deque, Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.bitstream import GoldenImageStore
 from repro_torch.core.fabric import (
     FabricSim,
     FrontendSpec,
     MultiFabricSim,
     StackGeometry,
     check_stackable,
+    packed_table_image,
     stack_event_bits,
 )
 from repro_torch.core.readout import ReadoutChip
-from repro_torch.core.tmr import N_REPLICAS, majority_vote, replicate_config
+from repro_torch.core.tmr import (
+    N_REPLICAS,
+    inject_seu as _inject_seu_config,
+    majority_vote,
+    replica_table_images,
+    replicate_config,
+)
 from repro_torch.data.smartpixel import N_FEATURES as _N_FEATURES
 from repro_torch.data.smartpixel import N_T, N_X, N_Y
 from repro_torch.device import NotPortedError, resolve_device
@@ -68,19 +96,126 @@ from repro_torch.parallel.compression import (
     sparse_trigger_pack,
 )
 
+# The degrade ladder's rungs, in the default order (cheapest concession
+# first). None changes the keep/drop of an admitted event:
+#   scrub_relax     widen the scrub interval by SCRUB_RELAX_FACTOR
+#   scrub_crc_only  keep CRC detection live, defer the heals until the
+#                   rung exits
+#   sparse_egress   ship only the kept events on the host link
 DEGRADE_RUNGS = ("scrub_relax", "scrub_crc_only", "sparse_egress")
+SCRUB_RELAX_FACTOR = 4
+
+# The latency histograms' one shared grid: 8 log-scale buckets a decade
+# from 1 us to 100 s, plus an underflow and an overflow slot (fixed, so
+# the state stays O(1) and histograms merge across chips and runs).
+_HIST_BUCKETS_PER_DECADE = 8
+_HIST_DECADES = 8
+_HIST_N = _HIST_BUCKETS_PER_DECADE * _HIST_DECADES
+_HIST_EDGES_US = np.power(
+    10.0, np.arange(_HIST_N + 1) / _HIST_BUCKETS_PER_DECADE)
+
+
+class LatencyHistogram:
+    """Streaming latency histogram on the shared log-scale grid.
+
+    ``add_many`` is one bincount per drained batch; percentiles
+    interpolate log-linearly inside the owning bucket, so they are exact
+    to within one bucket width (~33% at 8 buckets a decade)."""
+
+    __slots__ = ("counts", "_sum_us", "_max_us")
+
+    def __init__(self):
+        # counts[0] = underflow (<1 us), [1..N] = grid, [N+1] = overflow
+        self.counts = np.zeros(_HIST_N + 2, np.int64)
+        self._sum_us = 0.0
+        self._max_us = 0.0
+
+    @property
+    def count(self) -> int:
+        return int(self.counts.sum())
+
+    def add(self, us: float) -> None:
+        self.add_many(np.asarray([us], np.float64))
+
+    def add_many(self, us: np.ndarray) -> None:
+        us = np.asarray(us, np.float64)
+        if us.size == 0:
+            return
+        idx = np.zeros(us.shape, np.int64)
+        pos = us >= 1.0
+        if pos.any():
+            idx[pos] = 1 + np.minimum(
+                (np.log10(us[pos]) * _HIST_BUCKETS_PER_DECADE).astype(
+                    np.int64),
+                _HIST_N,  # >= the top edge lands in the overflow slot
+            )
+        self.counts += np.bincount(idx, minlength=_HIST_N + 2)
+        self._sum_us += float(us.sum())
+        self._max_us = max(self._max_us, float(us.max()))
+
+    def merge(self, other: "LatencyHistogram") -> None:
+        self.counts += other.counts
+        self._sum_us += other._sum_us
+        self._max_us = max(self._max_us, other._max_us)
+
+    def percentile(self, q: float) -> float:
+        """q in [0, 100] -> latency in us, log-interpolated in-bucket."""
+        total = int(self.counts.sum())
+        if total == 0:
+            return 0.0
+        target = total * (q / 100.0)
+        cum = np.cumsum(self.counts)
+        b = int(np.searchsorted(cum, target, side="left"))
+        if b <= 0:
+            return float(_HIST_EDGES_US[0])     # underflow: "< 1 us"
+        if b >= _HIST_N + 1:
+            return float(self._max_us)          # overflow: observed max
+        lo, hi = float(_HIST_EDGES_US[b - 1]), float(_HIST_EDGES_US[b])
+        inside = int(self.counts[b])
+        frac = ((target - float(cum[b - 1])) / inside) if inside else 0.0
+        return lo * (hi / lo) ** min(max(frac, 0.0), 1.0)
+
+    def cdf(self) -> List[List[float]]:
+        """[[upper edge us, cumulative fraction], ...] over the non-empty
+        buckets; underflow folds into the first point, and the last point
+        is the observed max at fraction 1.0."""
+        total = int(self.counts.sum())
+        if total == 0:
+            return []
+        cum = np.cumsum(self.counts)
+        out: List[List[float]] = []
+        prev = -1
+        for i in range(1, _HIST_N + 2):
+            c = int(cum[i])
+            if c != prev:
+                edge = (float(_HIST_EDGES_US[i - 1]) if i <= _HIST_N
+                        else float(self._max_us))
+                out.append([round(edge, 3), round(c / total, 6)])
+                prev = c
+            if c == total:
+                break
+        return out
+
+    def summary(self) -> Dict[str, float]:
+        n = self.count
+        return {
+            "count": n,
+            "mean_us": (self._sum_us / n) if n else 0.0,
+            "max_us": self._max_us,
+            "p50_us": self.percentile(50.0),
+            "p99_us": self.percentile(99.0),
+            "p999_us": self.percentile(99.9),
+        }
 
 
 @dataclasses.dataclass(frozen=True)
 class ServerConfig:
-    """Micro-batching knobs; the same fields and defaults as the JAX
-    package's ServerConfig, validated on construction with named errors.
+    """Micro-batching knobs; the same fields, defaults and validation
+    errors as the JAX package's ServerConfig (its docstring documents
+    each knob).
 
-    Ported: max_batch, max_latency_s, backend ("kernel" | "host"),
-    batch_tile, band, layout (None | "matmul" | "bitsliced"), redundancy
-    ("none" | "tmr"), sparse, pipeline_depth, threshold_electrons,
-    bits_per_hit, hit_rate_hz. Every other knob must keep its default: a
-    non-default value raises NotPortedError naming the ROADMAP item.
+    Every knob is served except ``tenant_quota_queued``: a non-default
+    value raises NotPortedError naming the ROADMAP item.
     """
 
     max_batch: int = 2048
@@ -218,26 +353,11 @@ class ServerConfig:
     def _check_ported(self) -> None:
         """A non-default value of a knob this port does not carry yet is
         refused here, by name — never silently ignored."""
-        default = ServerConfig.__dataclass_fields__
-        unported = {
-            "scrub_interval": "scrubbing (server scrub/TMR-SEU slice)",
-            "scrub_mode": "scrubbing (server scrub/TMR-SEU slice)",
-            "deadline_us": "deadline admission (server deadline slice)",
-            "overload_policy": "deadline admission (server deadline slice)",
-            "degrade_rungs": "the degrade ladder (server deadline slice)",
-            "degrade_window": "the degrade ladder (server deadline slice)",
-            "degrade_enter_frac":
-                "the degrade ladder (server deadline slice)",
-            "degrade_exit_frac":
-                "the degrade ladder (server deadline slice)",
-            "min_batch": "adaptive batch sizing (server deadline slice)",
-            "tenant_quota_queued": "tenant quotas (fleet slice)",
-        }
-        for name, item in unported.items():
-            if getattr(self, name) != default[name].default:
-                raise NotPortedError(
-                    f"ServerConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported yet: ROADMAP queue A, {item}")
+        if self.tenant_quota_queued is not None:
+            raise NotPortedError(
+                f"ServerConfig.tenant_quota_queued="
+                f"{self.tenant_quota_queued!r} is not ported yet: ROADMAP "
+                "queue A, tenant quotas (fleet slice, A.8)")
 
     @property
     def n_replicas(self) -> int:
@@ -247,6 +367,10 @@ class ServerConfig:
     def effective_layout(self) -> str:
         """The layout actually served: None selects "bitsliced"."""
         return self.layout if self.layout is not None else "bitsliced"
+
+    @property
+    def deadline_s(self) -> Optional[float]:
+        return None if self.deadline_us is None else self.deadline_us * 1e-6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,6 +388,7 @@ class ChipStreamStats:
     n_in: int = 0
     n_kept: int = 0
     n_dispatches: int = 0
+    # submissions shed by deadline admission (counted, never silent)
     n_shed: int = 0
     # per-replica SEU health: events where replica r's output word was
     # voted against (always zeros on a healthy or non-redundant server)
@@ -276,11 +401,31 @@ class ChipStreamStats:
 # (seq, chip, kind, payload, t_enqueue): kind "frames" carries
 # (frame, y0), kind "features" a (n_features,) float64 row
 _Event = Tuple[int, int, str, object, float]
-# (kind, pending, per_chip_seq, counts, ready): kind "scored" holds
+# (kind, pending, per_chip_seq, counts, ready, meta): kind "scored" holds
 # (score (C, B), keep (C, B), disagree (C, R)), kind "sparse" holds
 # (count, idx, vals, disagree (C, R), B); ready is the CUDA event behind
-# the batch's pinned copies, or None for results already on the host
-_Inflight = Tuple[str, Tuple, List[List[int]], List[int], object]
+# the batch's pinned copies, or None for results already on the host;
+# meta = {"t_enq": per-chip enqueue times (the latency ledger), "trace":
+# the batch's stage timestamps}. A batch keeps the egress kind it was
+# launched with, whatever the ladder does before it drains.
+_Inflight = Tuple[str, Tuple, List[List[int]], List[int], object, Dict]
+
+
+@dataclasses.dataclass
+class _Readback:
+    """One scrub sample in flight: frame ``fi`` at generation ``gen``.
+    On the card ``image`` is a pinned host tensor filled by an async copy
+    of ``source`` (the sampled row of ``tables``, held so its storage
+    outlives the copy) and ``ready`` the CUDA event behind it; on the CPU
+    ``image`` is the row itself and ``ready`` None."""
+
+    fi: int
+    gen: int
+    image: torch.Tensor
+    ready: object
+    source: torch.Tensor
+    prev_pass: int
+    issue_idx: int
 
 
 class ReadoutServer:
@@ -372,6 +517,79 @@ class ReadoutServer:
         self._link_bytes_wire = 0
         self._link_bytes_dense = 0
 
+        # ---- latency ledger: end to end (enqueue -> drained) per chip and
+        # in total, and the queue-wait (enqueue -> coalesce) and service
+        # (coalesce -> drained) parts of the same batches
+        self._hist_total = LatencyHistogram()
+        self._hist_queue = LatencyHistogram()
+        self._hist_service = LatencyHistogram()
+        self._hist_chip = [LatencyHistogram() for _ in self.chips]
+        self._last_batch_trace: Dict[str, float] = {}
+        self._n_batches_drained = 0
+
+        # ---- deadline enforcement
+        self._deadline_met = 0
+        self._deadline_missed = 0
+        # EWMA of the batch service time: admission's look-ahead
+        self._service_ewma_s = 0.0
+        # (t_drained, n_events) of recent batches: admission's backlog term
+        self._drain_hist: Deque[Tuple[float, int]] = collections.deque(
+            maxlen=16)
+        # adaptive micro-batch knobs: the coalescer reads THESE, the
+        # config fields stay the ceilings
+        self._eff_max_batch = config.max_batch
+        self._min_batch = min(config.min_batch, config.max_batch)
+        if (config.deadline_s is not None
+                and config.overload_policy != "observe"):
+            # never coalesce past half the budget: the rest is service
+            self._lat_cap_s = min(config.max_latency_s,
+                                  config.deadline_s / 2.0)
+        else:
+            self._lat_cap_s = config.max_latency_s
+        self._eff_max_latency_s = self._lat_cap_s
+        self._batch_shrinks = 0
+        self._batch_grows = 0
+
+        # ---- degrade ladder: level k = the first k configured rungs on
+        self._rung_level = 0
+        self._ladder_transitions: List[Dict[str, object]] = []
+        self._window_missed = 0
+        self._window_drained = 0
+        # (slot, replica) frames whose heal scrub_crc_only deferred
+        self._deferred_heals: List[Tuple[int, int]] = []
+
+        # ---- scrubbing (readback -> verify -> heal). One image layout
+        # for readbacks and golden digests: the kernel stack's padded
+        # (levels, m_pad), the same formula on the host backend.
+        if self._stack is not None:
+            self._img_levels = self._stack.n_levels
+            self._img_m_pad = self._stack.m_pad
+        else:
+            self._img_levels = self.geometry.n_levels
+            self._img_m_pad = -(-self.geometry.max_level_size // 128) * 128
+        self._golden = GoldenImageStore()
+        for i in range(self.n_chips):
+            self._register_golden(i)
+        self._dispatch_idx = 0
+        n_frames = self.n_chips * self.n_replicas
+        self._scrub_rr = 0          # round-robin frame pointer
+        self._scrub_cycles = 0      # completed round-robin passes
+        self._scrub_steps = 0
+        self._scrub_detections = 0
+        self._scrub_healed_bits = 0
+        # per detection: dispatches since the frame's last clean scrub
+        self._scrub_latencies: List[int] = []
+        self._scrub_per_frame = [0] * n_frames
+        # disagreement count at each frame's last scrub (steering key)
+        self._scrub_last_dis = [0] * n_frames
+        # dispatch index at each frame's last scrub (latency reference)
+        self._scrub_last_pass = [0] * n_frames
+        # readbacks issued and not yet verified (kernel backend)
+        self._scrub_pending: Deque[_Readback] = collections.deque()
+        # bumped whenever a frame is re-encoded (inject, heal,
+        # reconfigure): an older pending sample is stale
+        self._frame_gen = [0] * n_frames
+
     # ------------------------------------------------------------- intake
     @property
     def n_chips(self) -> int:
@@ -386,28 +604,52 @@ class ReadoutServer:
             raise ValueError(
                 f"chip must be in [0, {self.n_chips}), got {chip}")
 
+    def _admit(self, chip: int, now: float) -> bool:
+        """Deadline admission (overload_policy "shed"/"degrade"): shed a
+        submission, counted in the chip's ``n_shed``, when the worse of
+        two predictors blows the deadline: the queue head's wait, or the
+        backlog's drain time at the recent drain rate, plus the EWMA
+        service time. An idle server always admits (the only way to
+        refresh a stale EWMA)."""
+        dl = self.config.deadline_s
+        if dl is None or self.config.overload_policy == "observe":
+            return True
+        if not self._queue and not self._inflight:
+            return True
+        wait = (now - self._queue[0][4]) if self._queue else 0.0
+        rate = self._drain_rate()
+        backlog = (len(self._queue) / rate) if rate > 0.0 else 0.0
+        if max(wait, backlog) + self._service_ewma_s < dl:
+            return True
+        self._stats[chip].n_shed += 1
+        return False
+
     def submit(self, chip: int, features: np.ndarray) -> Optional[int]:
-        """Enqueue one pre-featurized event for one chip; returns its seq
-        (every event is admitted: deadline admission is not ported)."""
+        """Enqueue one pre-featurized event for one chip; returns its seq,
+        or None when deadline admission shed it."""
         self._check_chip(chip)
+        now = self._clock()
+        if not self._admit(chip, now):
+            return None
         seq = self._seq
         self._seq += 1
         self._queue.append((seq, chip, "features",
-                            np.asarray(features, np.float64), self._clock()))
+                            np.asarray(features, np.float64), now))
         return seq
 
     def submit_batch(self, chip: int, X: np.ndarray) -> List[Optional[int]]:
-        """Enqueue a block of pre-featurized events (rows of X)."""
+        """Enqueue a block of pre-featurized events (rows of X); shed rows
+        yield None."""
         return [self.submit(chip, row) for row in np.asarray(X)]
 
     def submit_frames(
         self, chip: int, frames: np.ndarray, y0: np.ndarray
     ) -> List[Optional[int]]:
         """Enqueue raw-frame events: (n, T, Y, X) charge + (n,) y0; returns
-        their seqs (every event is admitted: deadline admission is not
-        ported). Frames and features of one micro-batch score as two
-        passes, so results follow the passes, not the global seq order
-        (every event stays seq-tagged)."""
+        their seqs, None for each event deadline admission shed. Frames
+        and features of one micro-batch score as two passes, so results
+        follow the passes, not the global seq order (every event stays
+        seq-tagged)."""
         self._check_chip(chip)
         frames = np.asarray(frames, np.float32)
         y0 = np.asarray(y0, np.float32)
@@ -419,6 +661,9 @@ class ReadoutServer:
         seqs: List[Optional[int]] = []
         now = self._clock()
         for i in range(len(frames)):
+            if not self._admit(chip, now):
+                seqs.append(None)
+                continue
             seq = self._seq
             self._seq += 1
             self._queue.append(
@@ -437,13 +682,23 @@ class ReadoutServer:
         return out
 
     def flush(self) -> List[ScoredEvent]:
-        """Force out everything: queued events and in-flight results."""
+        """Force out everything: queued events and in-flight results.
+        With scrubbing on it also settles the scrub loop: readbacks in
+        flight are resolved, and a last steered check chases counters
+        that folded only during this drain."""
         out: List[ScoredEvent] = []
         while self._queue:
             out.extend(self._dispatch(self._coalesce()))
             while len(self._inflight) > self.config.pipeline_depth:
                 out.extend(self._drain_one())       # flush MAY block
         out.extend(self._drain_all())
+        if self.config.scrub_interval is not None:
+            t0 = self._clock()
+            self.scrub_flush()
+            if self.config.scrub_mode == "steered":
+                self._scrub_steered_check()
+                self.scrub_flush()      # device idle: resolve it now
+            self._stage("scrub", t0)
         return out
 
     def score_stream(
@@ -465,15 +720,17 @@ class ReadoutServer:
             yield tail
 
     def _due(self) -> bool:
+        # the EFFECTIVE knobs: under deadline pressure _adapt_batch
+        # shrinks both below the config ceilings
         if not self._queue:
             return False
-        if len(self._queue) >= self.config.max_batch:
+        if len(self._queue) >= self._eff_max_batch:
             return True
         oldest = self._queue[0][4]
-        return (self._clock() - oldest) >= self.config.max_latency_s
+        return (self._clock() - oldest) >= self._eff_max_latency_s
 
     def _coalesce(self) -> List[_Event]:
-        take = min(len(self._queue), self.config.max_batch)
+        take = min(len(self._queue), self._eff_max_batch)
         return [self._queue.popleft() for _ in range(take)]
 
     def _stage(self, key: str, t0: float) -> None:
@@ -482,7 +739,10 @@ class ReadoutServer:
 
     def _dispatch(self, events: List[_Event]) -> List[ScoredEvent]:
         """Launch one micro-batch (frames and features as two passes),
-        then retire whatever finished."""
+        retire whatever finished, then run the background scrub step when
+        it is due: after the drain, so freshly folded disagreement
+        counters can steer it, while the batch just launched is still on
+        the device."""
         if not events:
             return []
         if self._t_start is None:
@@ -493,19 +753,43 @@ class ReadoutServer:
             self._inflight.append(self._launch_frames(frame_events))
         if feat_events:
             self._inflight.append(self._launch_features(feat_events))
-        return self._drain_ready()
+        done = self._drain_ready()
+        self._dispatch_idx += 1
+        si = self._effective_scrub_interval()
+        if si is not None and self._dispatch_idx % si == 0:
+            self.scrub_step()
+        return done
+
+    def _effective_scrub_interval(self) -> Optional[int]:
+        """The configured scrub interval, widened by SCRUB_RELAX_FACTOR
+        while the ladder's scrub_relax rung is active."""
+        si = self.config.scrub_interval
+        if si is not None and self._rung_active("scrub_relax"):
+            si = si * SCRUB_RELAX_FACTOR
+        return si
 
     def _group(self, events: List[_Event]):
+        """Per chip: the seqs, payloads and enqueue times of ``events``,
+        and their counts."""
         per_chip_seq: List[List[int]] = [[] for _ in self.chips]
         per_chip_payload: List[List[object]] = [[] for _ in self.chips]
-        for seq, chip, _, payload, _ in events:
+        per_chip_t: List[List[float]] = [[] for _ in self.chips]
+        for seq, chip, _, payload, t_enq in events:
             per_chip_seq[chip].append(seq)
             per_chip_payload[chip].append(payload)
+            per_chip_t[chip].append(t_enq)
         counts = [len(s) for s in per_chip_seq]
         for i, n in enumerate(counts):
             if n:
                 self._stats[i].n_dispatches += 1
-        return per_chip_seq, per_chip_payload, counts
+        return per_chip_seq, per_chip_payload, counts, per_chip_t
+
+    def _meta(self, events: List[_Event], per_chip_t) -> Dict:
+        """A batch's latency meta: per-chip enqueue times and its stage
+        trace, opened at the coalesce."""
+        return {"t_enq": per_chip_t,
+                "trace": {"t_enqueued": min(e[4] for e in events),
+                          "t_coalesced": self._clock()}}
 
     @staticmethod
     def _pad_batch(B: int) -> int:
@@ -519,9 +803,10 @@ class ReadoutServer:
                 < np.asarray(counts)[:, None])
 
     def _sparse_active(self) -> bool:
-        """Sparse egress is on when configured (the degrade ladder's
-        sparse_egress rung comes with the deadline slice)."""
-        return self.config.sparse
+        """Sparse egress is on when configured or forced by the degrade
+        ladder's sparse_egress rung (keep/drop stays exact: only the
+        scores of dropped events stop crossing the link)."""
+        return self.config.sparse or self._rung_active("sparse_egress")
 
     def _word_sparse_active(self) -> bool:
         """Sparse egress on a bit-sliced kernel stack: the keep cut, SEU
@@ -536,7 +821,8 @@ class ReadoutServer:
         Host backend: the same pipeline STAGED, each stage materialized
         and timed (``staged_featurize`` / ``staged_encode`` /
         ``staged_score``)."""
-        per_chip_seq, per_chip_fy, counts = self._group(events)
+        per_chip_seq, per_chip_fy, counts, per_chip_t = self._group(events)
+        meta = self._meta(events, per_chip_t)
         cfg = self.config
         B = max(counts) if counts else 0
         if cfg.backend == "kernel":
@@ -552,6 +838,7 @@ class ReadoutServer:
                     frames[i, : len(rows)] = np.stack([fr for fr, _ in rows])
                     y0[i, : len(rows)] = [z for _, z in rows]
             self._stage("stack_frames", t0)
+            meta["trace"]["t_encoded"] = self._clock()
             t0 = self._clock()
             fe = self._get_frontend()
             if self._word_sparse_active():
@@ -559,11 +846,11 @@ class ReadoutServer:
                     frames, y0, valid=valid)
                 self._stage("launch_fused", t0)
                 return self._finish_launch_sparse(
-                    count, idx, vals, dis, B, per_chip_seq, counts)
+                    count, idx, vals, dis, B, per_chip_seq, counts, meta)
             score, keep, dis = fe.score_frames_voted(frames, y0, valid=valid)
             self._stage("launch_fused", t0)
             return self._finish_launch(score, keep, dis, per_chip_seq,
-                                       counts)
+                                       counts, meta)
 
         from repro_torch.kernels.yprofile import ops as yp_ops
 
@@ -602,7 +889,8 @@ class ReadoutServer:
             self._stage("staged_score", t0)
         keep = (score <= self._thr_raw[:, None]) & valid
         dis = (disagree & valid[:, None, :]).sum(-1).astype(np.int64)
-        return self._finish_launch(score, keep, dis, per_chip_seq, counts)
+        return self._finish_launch(score, keep, dis, per_chip_seq, counts,
+                                   meta)
 
     def _launch_features(self, events: List[_Event]) -> _Inflight:
         """Features path: host encoding (quantize + offset-binary bits,
@@ -610,7 +898,8 @@ class ReadoutServer:
         ``launch_score``): fabric evaluation of every replica, vote, score
         decode and trigger cut on the device (``fabric_eval_multi_scored``,
         or its word-domain sparse form with kernel B6)."""
-        per_chip_seq, per_chip_X, counts = self._group(events)
+        per_chip_seq, per_chip_X, counts, per_chip_t = self._group(events)
+        meta = self._meta(events, per_chip_t)
         t0 = self._clock()
         per_chip_bits: List[np.ndarray] = []
         for i, chip in enumerate(self.chips):
@@ -620,6 +909,7 @@ class ReadoutServer:
                 bits = np.zeros((0, chip.config.n_inputs), np.uint8)
             per_chip_bits.append(bits)
         self._stage("encode_host", t0)
+        meta["trace"]["t_encoded"] = self._clock()
 
         t0 = self._clock()
         B = max(counts) if counts else 0
@@ -641,7 +931,7 @@ class ReadoutServer:
                                                                   **kw))
                 self._stage("launch_score", t0)
                 return self._finish_launch_sparse(
-                    count, idx, vals, dis, B, per_chip_seq, counts)
+                    count, idx, vals, dis, B, per_chip_seq, counts, meta)
             score, keep, dis = self._lut_ops.fabric_eval_multi_scored(*args,
                                                                       **kw)
         else:
@@ -649,7 +939,8 @@ class ReadoutServer:
             stacked = stack_event_bits(per_chip_bits, self.geometry.n_inputs)
             score, keep, dis = self._score_bits_host(stacked, valid)
         self._stage("launch_score", t0)
-        return self._finish_launch(score, keep, dis, per_chip_seq, counts)
+        return self._finish_launch(score, keep, dis, per_chip_seq, counts,
+                                   meta)
 
     def _score_bits_host(
         self, stacked: np.ndarray, valid: np.ndarray
@@ -678,15 +969,16 @@ class ReadoutServer:
         return score, keep, dis
 
     def _finish_launch(self, score, keep, dis, per_chip_seq,
-                       counts) -> _Inflight:
+                       counts, meta) -> _Inflight:
         """Output stage of a dense pass: the dense (score, keep) or, with
         sparse egress on, its packed (count, idx, vals) — on the kernel
         backend through ``compression.sparse_trigger_pack`` (kernel B6 on
         the card, still asynchronous), on the host backend with numpy
         (timed ``sparse_pack``)."""
+        meta["trace"]["t_launched"] = self._clock()
         if not self._sparse_active():
             return self._enqueue("scored", (score, keep, dis), (0, 1, 2),
-                                 per_chip_seq, counts)
+                                 per_chip_seq, counts, meta)
         t0 = self._clock()
         B = int(keep.shape[1])
         if self.config.backend == "kernel":
@@ -696,33 +988,34 @@ class ReadoutServer:
             vals = np.asarray(score).ravel()[idx].astype(np.int32)
             count = len(idx)
         self._stage("sparse_pack", t0)
-        return self._finish_launch_sparse(count, idx, vals, dis, B,
-                                          per_chip_seq, counts)
+        return self._enqueue("sparse", (count, idx, vals, dis, B), (0, 3),
+                             per_chip_seq, counts, meta)
 
     def _finish_launch_sparse(self, count, idx, vals, dis, B, per_chip_seq,
-                              counts) -> _Inflight:
-        """Output stage of a sparse pass: the count and the disagree counts
-        go to pinned memory behind the batch's event; the padded (idx,
-        vals) stay on the device until the drain copies their kept
-        prefix."""
+                              counts, meta) -> _Inflight:
+        """Output stage of a word-domain sparse pass (its pack ran in the
+        pass itself): the count and the disagree counts go to pinned
+        memory behind the batch's event; the padded (idx, vals) stay on
+        the device until the drain copies their kept prefix."""
+        meta["trace"]["t_launched"] = self._clock()
         return self._enqueue("sparse", (count, idx, vals, dis, int(B)),
-                             (0, 3), per_chip_seq, counts)
+                             (0, 3), per_chip_seq, counts, meta)
 
     def _enqueue(self, kind: str, parts: Tuple, to_host: Tuple[int, ...],
-                 per_chip_seq, counts) -> _Inflight:
+                 per_chip_seq, counts, meta) -> _Inflight:
         """Start the device->host copies of ``parts[i]`` for i in
         ``to_host`` into pinned memory and record the batch's CUDA event
         after them, so a completed event means the copies landed. Results
         already on the host (host backend, CPU tensors) need no event."""
         if not any(torch.is_tensor(p) and p.is_cuda for p in parts):
-            return kind, parts, per_chip_seq, counts, None
+            return kind, parts, per_chip_seq, counts, None, meta
         parts = tuple(
             torch.empty(p.shape, dtype=p.dtype, pin_memory=True).copy_(
                 p, non_blocking=True) if i in to_host else p
             for i, p in enumerate(parts))
         ready = torch.cuda.Event()
         ready.record()
-        return kind, parts, per_chip_seq, counts, ready
+        return kind, parts, per_chip_seq, counts, ready, meta
 
     def _get_frontend(self):
         if self._frontend is None:
@@ -773,7 +1066,8 @@ class ReadoutServer:
         pair crosses the host link: the measured wire bytes."""
         if not self._inflight:
             return []
-        kind, pending, per_chip_seq, counts, ready = self._inflight.popleft()
+        (kind, pending, per_chip_seq, counts, ready,
+         meta) = self._inflight.popleft()
         t0 = self._clock()
         if ready is not None:
             ready.synchronize()                         # blocks here
@@ -808,7 +1102,9 @@ class ReadoutServer:
         self._fold_disagreements(dis)
         self._stage("drain_wait", t0)
         self._n_scored += len(results)
-        self._t_last = self._clock()
+        t_done = self._clock()      # the host has seen the batch complete
+        self._t_last = t_done
+        self._observe_batch(meta, t_done)
         results.sort(key=lambda r: r.seq)
         return results
 
@@ -833,6 +1129,156 @@ class ReadoutServer:
         while self._inflight:
             out.extend(self._drain_one())
         return out
+
+    # ------------------------------------------- latency / deadline loop
+    def reset_latency_metrics(self) -> None:
+        """Zero the latency/deadline ledger (histograms, met/missed/shed
+        counters, the EWMA and the drain-rate window) without touching
+        trigger accounting, scrub state or the ladder level — to measure
+        a warmed-up server."""
+        self._hist_total = LatencyHistogram()
+        self._hist_queue = LatencyHistogram()
+        self._hist_service = LatencyHistogram()
+        self._hist_chip = [LatencyHistogram() for _ in self.chips]
+        self._last_batch_trace = {}
+        self._n_batches_drained = 0
+        self._deadline_met = 0
+        self._deadline_missed = 0
+        self._service_ewma_s = 0.0
+        self._drain_hist.clear()
+        self._window_missed = 0
+        self._window_drained = 0
+        self._batch_shrinks = 0
+        self._batch_grows = 0
+        self._t_start = None
+        self._t_last = None
+        for st in self._stats:
+            st.n_shed = 0
+
+    def _observe_batch(self, meta: Dict, t_done: float) -> None:
+        """Fold one drained batch into the latency ledger (every admitted
+        event, kept or not, sparse or dense), then let the deadline
+        machinery act: the EWMA service update, adaptive batch sizing and
+        the ladder evaluation."""
+        trace = meta["trace"]
+        trace["t_drained"] = t_done
+        self._last_batch_trace = trace
+        self._n_batches_drained += 1
+        t_co = trace.get("t_coalesced", t_done)
+        dl = self.config.deadline_s
+        n_batch = 0
+        for i, ts in enumerate(meta["t_enq"]):
+            if not ts:
+                continue
+            t_enq = np.asarray(ts, np.float64)
+            lat_s = np.maximum(t_done - t_enq, 0.0)
+            us = lat_s * 1e6
+            self._hist_chip[i].add_many(us)
+            self._hist_total.add_many(us)
+            self._hist_queue.add_many(np.maximum(t_co - t_enq, 0.0) * 1e6)
+            n_batch += len(ts)
+            if dl is not None:
+                missed = int((lat_s > dl).sum())
+                self._deadline_missed += missed
+                self._deadline_met += len(ts) - missed
+                self._window_missed += missed
+        self._hist_service.add(max(t_done - t_co, 0.0) * 1e6)
+        self._window_drained += n_batch
+        svc = max(t_done - t_co, 0.0)
+        self._service_ewma_s = (
+            svc if self._n_batches_drained == 1
+            else 0.7 * self._service_ewma_s + 0.3 * svc)
+        self._drain_hist.append((t_done, n_batch))
+        if dl is None or self.config.overload_policy == "observe":
+            return
+        self._adapt_batch(svc, dl)
+        if self.config.overload_policy == "degrade":
+            self._ladder_evaluate(t_done)
+
+    def _drain_rate(self) -> float:
+        """Recent drain throughput (events/s) over the window of retired
+        batches; 0.0 until two drains have landed."""
+        h = self._drain_hist
+        if len(h) < 2:
+            return 0.0
+        span = h[-1][0] - h[0][0]
+        if span <= 0.0:
+            return 0.0
+        return (sum(n for _, n in h) - h[0][1]) / span
+
+    def _adapt_batch(self, svc_s: float, dl: float) -> None:
+        """Adaptive micro-batch sizing keyed on the service time (coalesce
+        -> drained), the part of the latency the batch size controls:
+        over half the budget halves the effective max_batch and
+        max_latency_s (floors min_batch and deadline/8); under a quarter
+        grows both back toward their ceilings."""
+        if svc_s > dl / 2.0:
+            nb = max(self._min_batch, self._eff_max_batch // 2)
+            nl = max(dl / 8.0, self._eff_max_latency_s / 2.0)
+            if nb < self._eff_max_batch or nl < self._eff_max_latency_s:
+                self._batch_shrinks += 1
+            self._eff_max_batch, self._eff_max_latency_s = nb, nl
+        elif svc_s <= dl / 4.0:
+            nb = min(self.config.max_batch, self._eff_max_batch * 2)
+            nl = min(self._lat_cap_s, self._eff_max_latency_s * 2.0)
+            if nb > self._eff_max_batch or nl > self._eff_max_latency_s:
+                self._batch_grows += 1
+            self._eff_max_batch, self._eff_max_latency_s = nb, nl
+
+    def _rung_active(self, rung: str) -> bool:
+        """Ladder level k activates the FIRST k configured rungs."""
+        return rung in self.config.degrade_rungs[: self._rung_level]
+
+    def _ladder_evaluate(self, now: float) -> None:
+        """One hysteretic evaluation per degrade_window drained events: a
+        miss fraction >= enter steps DOWN one rung, <= exit steps back UP,
+        in between the ladder holds (at most one transition a window)."""
+        if self._window_drained < self.config.degrade_window:
+            return
+        miss_frac = self._window_missed / self._window_drained
+        self._window_missed = 0
+        self._window_drained = 0
+        level = self._rung_level
+        if miss_frac >= self.config.degrade_enter_frac:
+            new = min(level + 1, len(self.config.degrade_rungs))
+        elif miss_frac <= self.config.degrade_exit_frac:
+            new = max(level - 1, 0)
+        else:
+            new = level
+        if new != level:
+            self._set_rung_level(new, miss_frac, now)
+
+    def _set_rung_level(self, new: int, miss_frac: float,
+                        now: float) -> None:
+        old = self._rung_level
+        rungs = self.config.degrade_rungs
+        crc_was_active = self._rung_active("scrub_crc_only")
+        self._rung_level = new
+        self._ladder_transitions.append({
+            "t": now,
+            "from_level": old,
+            "to_level": new,
+            "rung": rungs[new - 1] if new > old else rungs[old - 1],
+            "direction": "down" if new > old else "up",
+            "miss_frac": round(miss_frac, 4),
+        })
+        if crc_was_active and not self._rung_active("scrub_crc_only"):
+            self._apply_deferred_heals()
+
+    def _apply_deferred_heals(self) -> None:
+        """Repair every frame whose heal scrub_crc_only deferred: a fresh
+        synchronous readback, re-verified (a reconfigure may have healed
+        it meanwhile), healed on mismatch; timed as ``scrub``."""
+        pending, self._deferred_heals = self._deferred_heals, []
+        if not pending:
+            return
+        t0 = self._clock()
+        for slot, replica in pending:
+            image = self.readback_frame(slot, replica)
+            if not self._golden.verify(slot, replica, image):
+                self._scrub_healed_bits += self._heal_frame(
+                    slot, replica, image)
+        self._stage("scrub", t0)
 
     # ------------------------------------------------------- reconfigure
     def reconfigure(self, slot: int, new_chip: ReadoutChip) -> List[ScoredEvent]:
@@ -873,16 +1319,260 @@ class ReadoutServer:
             self._multisim = MultiFabricSim(
                 self._replica_configs, geometry=self.geometry)
         self._frame_sims[slot] = None
+        # the slot's golden truth IS the new bitstream now; pending samples
+        # of the old one are stale, and old disagreements must not steer
+        self._register_golden(slot)
+        for r in range(self.n_replicas):
+            fi = self._frame_index(slot, r)
+            self._frame_gen[fi] += 1
+            self._scrub_last_dis[fi] = self._stats[slot].disagreements[r]
         return done
+
+    # ----------------------------------------------------- fault injection
+    def inject_seu(self, slot: int, replica: int, lut_index: int,
+                   bit: int) -> None:
+        """Flip one configuration bit of ONE served replica, addressed in
+        that replica's own (placement-rotated) bitstream. Takes effect at
+        the next dispatch; batches in flight keep the tables they were
+        launched with. Both backends; replica 0 of a plain server is the
+        unprotected case. Repeated calls accumulate flips."""
+        self._check_chip(slot)
+        R = self.n_replicas
+        if not 0 <= replica < R:
+            raise ValueError(f"replica must be in [0, {R}), got {replica!r}")
+        i = slot * R + replica
+        self._frame_gen[i] += 1     # invalidates pre-flip scrub samples
+        self._replica_configs[i] = _inject_seu_config(
+            self._replica_configs[i], lut_index, bit)
+        if self.config.backend == "kernel":
+            if R > 1:
+                self._stack = self._stack.swap_replica(
+                    slot, replica, self._replica_configs[i])
+            else:
+                self._stack = self._stack.swap_chip(
+                    slot, self._replica_configs[i])
+            self._refresh_frontend()
+        else:
+            self._multisim.swap_config(i, self._replica_configs[i])
+        self._frame_sims[slot] = None
+
+    def _refresh_frontend(self) -> None:
+        """Point the fused frames pass at the current stack."""
+        if self._frontend is not None:
+            self._frontend = dataclasses.replace(self._frontend,
+                                                 stack=self._stack)
+
+    # ----------------------------------------------------------- scrubbing
+    def _register_golden(self, slot: int) -> None:
+        """Snapshot slot's golden truth (bitstream + per-replica digests):
+        at construction and on every reconfigure."""
+        cfg = self.chips[slot].config
+        self._golden.register(slot, cfg, replica_table_images(
+            cfg, self._img_levels, self._img_m_pad, self.n_replicas))
+
+    def _frame_index(self, slot: int, replica: int) -> int:
+        return slot * self.n_replicas + replica
+
+    def readback_frame(self, slot: int, replica: int = 0) -> np.ndarray:
+        """Live (n_levels, m_pad, 16) uint8 truth-table image of one
+        served replica, any upset included: the stack's tables on the
+        kernel backend (synchronous), the MultiFabricSim twin on the host
+        backend."""
+        self._check_chip(slot)
+        R = self.n_replicas
+        if not 0 <= replica < R:
+            raise ValueError(f"replica must be in [0, {R}), got {replica!r}")
+        if self.config.backend == "kernel":
+            return self._stack.readback_replica(slot, replica)
+        return self._multisim.readback_tables(
+            self._frame_index(slot, replica),
+            self._img_levels, self._img_m_pad)
+
+    def verify_frame(self, slot: int, replica: int = 0) -> bool:
+        """CRC-check one replica's readback against its golden digest (no
+        heal)."""
+        return self._golden.verify(
+            slot, replica, self.readback_frame(slot, replica))
+
+    def scrub_step(self) -> List[Dict[str, int]]:
+        """ONE background scrub step: verify the earlier readbacks whose
+        copies have completed, then sample the next frames. In
+        ``steered`` mode the frame whose disagreement counters climbed
+        most since its last scrub is sampled first, without consuming the
+        round-robin turn, so steering never starves a frame. Returns one
+        record per healed (or, under scrub_crc_only, deferred) frame:
+        {"slot", "replica", "healed_bits", "detection_latency_dispatches"}.
+        """
+        t0 = self._clock()
+        healed: List[Dict[str, int]] = []
+        # never wait here for a copy behind the batch just launched; a
+        # sample still pending after one full frame cycle is forced
+        n_frames = self.n_chips * self.n_replicas
+        still_pending: Deque[_Readback] = collections.deque()
+        while self._scrub_pending:
+            entry = self._scrub_pending.popleft()
+            ready = entry.ready is None or entry.ready.query()
+            if ready or len(self._scrub_pending) >= n_frames:
+                rec = self._resolve_readback(entry)
+                if rec:
+                    healed.append(rec)
+            else:
+                still_pending.append(entry)
+        self._scrub_pending = still_pending
+        R = self.n_replicas
+        if self.config.scrub_mode == "steered":
+            healed.extend(self._scrub_steered_check())
+        f = self._scrub_rr
+        self._scrub_rr = (f + 1) % n_frames
+        if self._scrub_rr == 0:
+            self._scrub_cycles += 1
+        rec = self._issue_scrub(f // R, f % R)
+        if rec:
+            healed.append(rec)
+        self._scrub_steps += 1
+        self._stage("scrub", t0)
+        return healed
+
+    def scrub_flush(self) -> List[Dict[str, int]]:
+        """Resolve every readback still in flight (blocks on the copies)."""
+        healed: List[Dict[str, int]] = []
+        while self._scrub_pending:
+            rec = self._resolve_readback(self._scrub_pending.popleft())
+            if rec:
+                healed.append(rec)
+        return healed
+
+    def scrub_cycle(self) -> List[Dict[str, int]]:
+        """Force one full verified pass over every replica frame
+        (n_chips x n_replicas scrub steps, then resolve the tail)."""
+        out: List[Dict[str, int]] = []
+        for _ in range(self.n_chips * self.n_replicas):
+            out.extend(self.scrub_step())
+        out.extend(self.scrub_flush())
+        return out
+
+    def _scrub_steered_check(self) -> List[Dict[str, int]]:
+        """Sample the replica frame whose disagreement counters climbed
+        most since its last scrub (no-op when none climbed)."""
+        R = self.n_replicas
+        deltas = [
+            self._stats[f // R].disagreements[f % R]
+            - self._scrub_last_dis[f]
+            for f in range(self.n_chips * R)
+        ]
+        hot = int(np.argmax(deltas))
+        if deltas[hot] <= 0:
+            return []
+        rec = self._issue_scrub(hot // R, hot % R)
+        return [rec] if rec else []
+
+    def _issue_scrub(self, slot: int,
+                     replica: int) -> Optional[Dict[str, int]]:
+        """Sample one frame's live truth tables. Host backend: verify right
+        here. Kernel backend: queue the sample and verify it on a later
+        step; on the card the row is copied to pinned memory
+        asynchronously behind a CUDA event, so the scrub never waits for
+        the dispatch it runs behind."""
+        fi = self._frame_index(slot, replica)
+        self._scrub_per_frame[fi] += 1
+        # steering reacts to NEW disagreements only
+        self._scrub_last_dis[fi] = self._stats[slot].disagreements[replica]
+        prev_pass = self._scrub_last_pass[fi]
+        self._scrub_last_pass[fi] = self._dispatch_idx
+        if self.config.backend != "kernel":
+            return self._verify_heal(
+                slot, replica,
+                self._multisim.readback_tables(
+                    fi, self._img_levels, self._img_m_pad),
+                prev_pass)
+        row = self._stack.tables[fi]
+        image, ready = row, None
+        if row.is_cuda:
+            image = torch.empty(row.shape, dtype=row.dtype, pin_memory=True)
+            image.copy_(row, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        self._scrub_pending.append(_Readback(
+            fi, self._frame_gen[fi], image, ready, row, prev_pass,
+            self._dispatch_idx))
+        return None
+
+    def _resolve_readback(self, entry: _Readback) -> Optional[Dict[str, int]]:
+        fi = entry.fi
+        if entry.gen != self._frame_gen[fi]:
+            # re-encoded after the sample: drop it and roll back its
+            # issue-time bookkeeping (the latency reference only if no
+            # newer sample of the frame has advanced it)
+            self._scrub_per_frame[fi] -= 1
+            if self._scrub_last_pass[fi] == entry.issue_idx:
+                self._scrub_last_pass[fi] = entry.prev_pass
+            return None
+        if entry.ready is not None and not entry.ready.query():
+            entry.ready.synchronize()   # a forced or flushed sample
+        R = self.n_replicas
+        return self._verify_heal(
+            fi // R, fi % R, entry.image.numpy().astype(np.uint8),
+            entry.prev_pass)
+
+    def _verify_heal(
+        self, slot: int, replica: int, image: np.ndarray, prev_pass: int
+    ) -> Optional[Dict[str, int]]:
+        """CRC-verify one sampled image and heal on mismatch; the
+        detection latency counts dispatches since ``prev_pass``, the
+        frame's previous scrub."""
+        if self._golden.verify(slot, replica, image):
+            return None
+        latency = self._dispatch_idx - prev_pass
+        self._scrub_detections += 1
+        self._scrub_latencies.append(latency)
+        if self._rung_active("scrub_crc_only"):
+            # detection stays live; the heal waits for the rung to exit
+            # (TMR keeps masking meanwhile)
+            key = (slot, replica)
+            if key not in self._deferred_heals:
+                self._deferred_heals.append(key)
+            return {"slot": slot, "replica": replica,
+                    "healed_bits": 0, "deferred": 1,
+                    "detection_latency_dispatches": latency}
+        healed_bits = self._heal_frame(slot, replica, image)
+        self._scrub_healed_bits += healed_bits
+        return {"slot": slot, "replica": replica,
+                "healed_bits": healed_bits,
+                "detection_latency_dispatches": latency}
+
+    def _heal_frame(self, slot: int, replica: int, image: np.ndarray) -> int:
+        """Re-encode ONE corrupted replica from the golden bitstream (the
+        fault-injection swap pointed the other way); returns the number
+        of healed configuration bits."""
+        golden_cfg = self._golden.golden_config(slot)
+        rep_cfg = replicate_config(golden_cfg, replica)
+        golden_img = packed_table_image(
+            rep_cfg, self._img_levels, self._img_m_pad)
+        healed_bits = int(np.count_nonzero(image != golden_img))
+        i = self._frame_index(slot, replica)
+        self._frame_gen[i] += 1
+        self._replica_configs[i] = rep_cfg
+        if self.config.backend == "kernel":
+            self._stack = self._stack.swap_replica(slot, replica, rep_cfg)
+            self._refresh_frontend()
+        else:
+            self._multisim.swap_config(i, rep_cfg)
+        self._frame_sims[slot] = None
+        return healed_bits
 
     # ------------------------------------------------------------ report
     def report(self) -> Dict[str, object]:
         """Per-chip trigger/reduction accounting over the stream, the
         host-link bytes (on the wire, and what dense egress would have
-        shipped), the per-replica SEU disagreement counters and the
-        per-stage host timing (seconds and calls per stage; the fused
-        pass is one ``launch_fused`` entry, the staged host path itemizes
-        it)."""
+        shipped), the per-replica SEU disagreement counters, the scrub
+        accounting (steps, cycles, detections, healed bits, detection
+        latency in dispatches), the latency histograms (p50/p99/p99.9, a
+        CDF and the last drained batch's stage trace), the deadline
+        ledger with the adaptive coalescer's knobs and the degrade
+        ladder, and the per-stage host timing (seconds and calls per
+        stage; the fused pass is one ``launch_fused`` entry, the staged
+        host path itemizes it). The same keys as the JAX package's
+        report, apart from its network section."""
         cfg = self.config
         per_chip = []
         for i, st in enumerate(self._stats):
@@ -899,6 +1589,7 @@ class ReadoutServer:
                 "link_rate_out_gbps":
                     cfg.hit_rate_hz * cfg.bits_per_hit * frac / 1e9,
                 "seu_disagreements": list(st.disagreements),
+                "latency_p99_us": self._hist_chip[i].percentile(99.0),
             })
         n_in = sum(s.n_in for s in self._stats)
         n_kept = sum(s.n_kept for s in self._stats)
@@ -907,6 +1598,11 @@ class ReadoutServer:
             if (self._t_start is not None and self._t_last is not None)
             else 0.0
         )
+        t_base = self._last_batch_trace.get("t_enqueued")
+        trace_us = {
+            k: (v - t_base) * 1e6
+            for k, v in self._last_batch_trace.items()
+        } if t_base is not None else {}
         return {
             "backend": cfg.backend,
             "device": str(self.device),
@@ -923,6 +1619,22 @@ class ReadoutServer:
             "inflight_batches": len(self._inflight),
             "seu_disagreement_total": int(
                 sum(sum(s.disagreements) for s in self._stats)),
+            "scrub": {
+                "enabled": cfg.scrub_interval is not None,
+                "interval": cfg.scrub_interval,
+                "mode": cfg.scrub_mode,
+                "steps": self._scrub_steps,
+                "cycles": self._scrub_cycles,
+                "frames_scrubbed": int(sum(self._scrub_per_frame)),
+                "detections": self._scrub_detections,
+                "healed_bits": self._scrub_healed_bits,
+                "detection_latency_dispatches": {
+                    "mean": (float(np.mean(self._scrub_latencies))
+                             if self._scrub_latencies else 0.0),
+                    "max": int(max(self._scrub_latencies, default=0)),
+                },
+                "per_frame_scrubs": list(self._scrub_per_frame),
+            },
             "link_bytes": {
                 "on_wire": self._link_bytes_wire,
                 "dense_equivalent": self._link_bytes_dense,
@@ -931,6 +1643,36 @@ class ReadoutServer:
                     if self._link_bytes_wire
                     and self._link_bytes_wire != self._link_bytes_dense
                     else 1.0),
+            },
+            "latency": {
+                "total": self._hist_total.summary(),
+                "queue_wait": self._hist_queue.summary(),
+                "service": self._hist_service.summary(),
+                "cdf_us": self._hist_total.cdf(),
+                "last_batch_trace_us": trace_us,
+            },
+            "deadline": {
+                "deadline_us": cfg.deadline_us,
+                "policy": cfg.overload_policy,
+                "met": self._deadline_met,
+                "missed": self._deadline_missed,
+                "shed": sum(s.n_shed for s in self._stats),
+                "miss_fraction": (
+                    self._deadline_missed
+                    / max(self._deadline_met + self._deadline_missed, 1)),
+                "service_ewma_us": self._service_ewma_s * 1e6,
+                "drain_rate_ev_s": self._drain_rate(),
+                "effective_max_batch": self._eff_max_batch,
+                "effective_max_latency_s": self._eff_max_latency_s,
+                "batch_shrinks": self._batch_shrinks,
+                "batch_grows": self._batch_grows,
+                "ladder": {
+                    "level": self._rung_level,
+                    "active_rungs": list(
+                        cfg.degrade_rungs[: self._rung_level]),
+                    "transitions": list(self._ladder_transitions),
+                    "deferred_heals_pending": len(self._deferred_heals),
+                },
             },
             "stages": {
                 k: {"seconds": self._stage_s[k], "calls": self._stage_n[k]}

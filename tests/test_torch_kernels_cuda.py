@@ -523,3 +523,131 @@ def test_sparse_frames_on_card_equal_dense_packed(card):
                                                       y0[:, :B])
         want = cp.sparse_trigger_pack(score.cpu(), keep.cpu())
         _equal_b6([g.cpu() for g in got], [*want, dis.cpu()])
+
+
+def _effective_flip(chip, bits):
+    """(lut, bit) of ``chip``'s base encoding whose flip changes its
+    outputs on ``bits`` (the numpy FabricSim oracle)."""
+    from repro_torch.core.fabric import FabricSim
+    from repro_torch.core.tmr import inject_seu
+
+    good = np.asarray(FabricSim(chip.config).run(bits)[0])
+    for li in range(chip.config.n_luts):
+        for bi in range(16):
+            outs = np.asarray(FabricSim(
+                inject_seu(chip.config, li, bi)).run(bits)[0])
+            if (outs != good).any():
+                return li, bi, (outs != good).any(-1)
+    raise AssertionError("no effective flip")
+
+
+@pytest.mark.parametrize("layout", ["bitsliced", "matmul"])
+def test_swap_replica_then_served_dispatch_on_card(card, layout):
+    """A replica row swapped on the card is what the next scoring pass
+    evaluates (K2 + B6's dense entry, or B3 + the vote): the voted scores
+    and keeps are the oracle's, and the upset replica's disagreement
+    count is the oracle's count of events whose outputs the flip
+    changed; the same as the plain twins on the CPU."""
+    from repro_torch.core.tmr import (inject_seu, replica_lut_index,
+                                      replicate_config)
+
+    chips, _, _ = card
+    rng = np.random.default_rng(3)
+    bits = [rng.integers(0, 2, (256, c.config.n_inputs)).astype(np.uint8)
+            for c in chips]
+    li, bi, changed = _effective_flip(chips[1], bits[1])
+    bad = inject_seu(replicate_config(chips[1].config, 2),
+                     replica_lut_index(chips[1].config, 2, li), bi)
+    thr = np.array([c.score_threshold_raw for c in chips], np.int32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        stack = lut_ops.pack_fabrics([c.config for c in chips],
+                                     redundancy="tmr", layout=layout,
+                                     device=dev)
+        swapped = stack.swap_replica(1, 2, bad)
+        stacked = lut_ops.stack_input_bits(swapped, bits)
+        weight = lut_ops.decode_plan([c.config for c in chips],
+                                     swapped.n_outputs)
+        runs[dev] = [t.cpu() for t in lut_ops.fabric_eval_multi_scored(
+            swapped, stacked, weight, thr)]
+    for g, w in zip(runs["cuda"], runs["cpu"]):
+        assert torch.equal(g, w)
+    score, keep, dis = (t.numpy() for t in runs["cuda"])
+    for i, chip in enumerate(chips):
+        from repro_torch.core.fabric import FabricSim
+
+        want = chip.synth.decode_outputs(
+            np.asarray(FabricSim(chip.config).run(bits[i])[0]))
+        np.testing.assert_array_equal(score[i], want)
+        np.testing.assert_array_equal(keep[i],
+                                      want <= chip.score_threshold_raw)
+    assert dis[0].tolist() == [0, 0, 0]
+    assert dis[1].tolist() == [0, 0, int(changed.sum())]
+
+
+def test_scrub_readback_resolves_without_a_stream_synchronisation(
+        card, monkeypatch):
+    """A steady-state TMR stream on the card with a scrub step every
+    dispatch (poll only, no flush): no torch.cuda.synchronize, no
+    Stream.synchronize, and no blocking event wait inside the scrub
+    step; the readbacks still resolve, and a flush afterwards finds every
+    frame clean."""
+    from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
+
+    chips, frames, y0 = card
+    server = ReadoutServer(chips, ServerConfig(
+        max_batch=256, redundancy="tmr", scrub_interval=1), device="cuda")
+    for k in range(4):                               # warm up
+        server.submit_frames(k % 2, frames[k % 2], y0[k % 2])
+        server.poll()
+    server.flush()
+    torch.cuda.synchronize()
+
+    calls = {"synchronize": 0, "stream": 0, "event_in_scrub": 0,
+             "resolved": 0}
+    in_scrub = [False]
+    event_sync = torch.cuda.Event.synchronize
+
+    def count(key, fn=None):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw) if fn else None
+        return wrapped
+
+    def event_wait(self):
+        if in_scrub[0]:
+            calls["event_in_scrub"] += 1
+        return event_sync(self)
+
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        count("synchronize", torch.cuda.synchronize))
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize",
+                        count("stream", torch.cuda.Stream.synchronize))
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", event_wait)
+    scrub_step, resolve = server.scrub_step, server._resolve_readback
+
+    def scrub():
+        in_scrub[0] = True
+        try:
+            return scrub_step()
+        finally:
+            in_scrub[0] = False
+
+    def resolved(entry):
+        calls["resolved"] += 1
+        return resolve(entry)
+
+    server.scrub_step, server._resolve_readback = scrub, resolved
+    steps0 = server.report()["scrub"]["steps"]
+    for k in range(24):
+        server.submit_frames(k % 2, frames[k % 2], y0[k % 2])
+        server.poll()
+    rep = server.report()["scrub"]
+    assert calls["synchronize"] == 0 and calls["stream"] == 0
+    assert calls["event_in_scrub"] == 0
+    assert rep["steps"] > steps0 and calls["resolved"] > 0
+    assert len(server._scrub_pending) < 2 * server.n_replicas
+    monkeypatch.undo()
+    server.flush()
+    assert server.report()["scrub"]["detections"] == 0
+    assert all(server.verify_frame(s, r) for s in range(2) for r in range(3))

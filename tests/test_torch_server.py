@@ -8,8 +8,10 @@ chip, score, keep) and the report's trigger counters must agree; the only
 events allowed to differ are those whose quantized used-feature pattern
 differs between the two featurizers (summation-order flips, see
 test_torch_yprofile.py). The features path, fed the same host features,
-agrees exactly. Knobs the port does not carry yet raise NotPortedError;
-sparse egress is tested in test_torch_sparse.py.
+agrees exactly. The scrub and deadline knobs validate as the JAX
+package's do (their serving is tested in test_torch_scrub.py and
+test_torch_deadline.py); the one knob the port does not carry yet
+raises NotPortedError. Sparse egress is tested in test_torch_sparse.py.
 """
 import dataclasses
 
@@ -149,17 +151,56 @@ def test_config_fields_and_defaults_match_jax():
     assert port == jax
 
 
+@pytest.mark.parametrize("knob", [dict(tenant_quota_queued=4)])
+def test_unported_knob_raises_not_ported(knob):
+    with pytest.raises(NotPortedError, match="ROADMAP"):
+        ServerConfig(**knob)
+
+
+# bad values of each scrub and deadline knob (the JAX package's
+# tests/test_scrub.py and tests/test_deadline.py validation cases)
+_BAD_VALUES = {
+    "scrub_interval": [dict(scrub_interval=v)
+                       for v in (0, -1, 1.5, "4", True)],
+    "scrub_mode": [dict(scrub_mode="psychic")],
+    "deadline_us": [dict(deadline_us=v) for v in
+                    (0, -3.5, float("nan"), float("inf"), True)],
+    "overload_policy": [dict(overload_policy="panic"),
+                        dict(deadline_us=None)],
+    "degrade_rungs": [dict(degrade_rungs=()),
+                      dict(degrade_rungs=("scrub_relax", "scrub_relax")),
+                      dict(degrade_rungs=("warp_core",))],
+    "degrade_window": [dict(degrade_window=0), dict(degrade_window=True)],
+    "degrade_enter_frac": [dict(degrade_enter_frac=0.05),
+                           dict(degrade_enter_frac=1.5)],
+    "degrade_exit_frac": [dict(degrade_exit_frac=0.0),
+                          dict(degrade_exit_frac=0.7)],
+    "min_batch": [dict(min_batch=0), dict(min_batch=True),
+                  dict(min_batch=2.0)],
+}
+
+
 @pytest.mark.parametrize("knob", [
     dict(scrub_interval=4),
     dict(scrub_mode="round_robin"), dict(deadline_us=100.0),
     dict(deadline_us=100.0, overload_policy="shed"),
     dict(degrade_rungs=("scrub_relax",)), dict(degrade_window=8),
     dict(degrade_enter_frac=0.6), dict(degrade_exit_frac=0.1),
-    dict(min_batch=16), dict(tenant_quota_queued=4),
+    dict(min_batch=16),
     dict(deadline_us=100.0, overload_policy="degrade")])
-def test_unported_knob_raises_not_ported(knob):
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        ServerConfig(**knob)
+def test_scrub_and_deadline_knobs_validate_like_jax(knob):
+    """Each scrub and deadline knob is served: accepted with the value
+    given, and each bad value raises the JAX package's ValueError text."""
+    cfg = ServerConfig(**knob)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(JaxConfig(**knob))
+    name = list(knob)[-1]
+    for bad in _BAD_VALUES[name]:
+        kw = {**knob, **bad}
+        with pytest.raises(ValueError) as port_err:
+            ServerConfig(**kw)
+        with pytest.raises(ValueError) as jax_err:
+            JaxConfig(**kw)
+        assert str(port_err.value) == str(jax_err.value), kw
 
 
 def test_invalid_knob_still_raises_value_error():
