@@ -105,6 +105,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                submission None and counted, n_in + n_shed the submitted
                count a chip, a ladder transition, B6's decode-pack entry
                launched after it.
+ 11. serve   — the network front door (repro_torch/net) over the 4
+     net       served chips, ServerConfig() on cuda, plain then TMR: the
+               in-process submit_frames burst rate of 8,192 events, the
+               same paced at half of it, then one replay client a sensor
+               on loopback: TCP paced at half the burst rate, TCP
+               unpaced (32 batches of 64 events a sensor each) and UDP
+               (16 datagrams of 7 events a sensor at 100 events/s a
+               sensor). Checks: every trigger verified against
+               host_oracle on the card (K1, then numpy), each client's
+               events_in == admitted + shed + queue_dropped + bad_sensor,
+               0 TMR disagreements, K1, K2 and B6's dense entry launched.
+               Prints events/s on the wire and in-process, their ratio,
+               latency p50/p99 a client and wire bytes an event each way.
+ 12. examples — examples/torch_serve_readout.py --chips 2 --rate-batches 4
+               and examples/torch_replay_load.py --sensors 2 --batches 8 as
+               subprocesses on the card: exit 0, no mismatch printed.
 Then a `kernels` JSON line, the card's name and power limit, and the
 final line {"ok": true, "device": {...}}.
 """
@@ -1454,6 +1470,223 @@ def serve_deadline(torch, np, chips, blocks, want, counters, deadline_us,
             "events_per_s": rep["events_per_s"]}
 
 
+# 11: the network front door. TCP: 32 batches of 64 events a sensor
+# (8,192 events a run, the stream's frames); UDP: 16 datagrams of 7
+# events a sensor, paced at NET_UDP_RATE events/s a sensor, slow enough
+# that the door's loop reads each datagram before the socket's receive
+# buffer (Linux's default, 212,992 B: three 61 KB datagrams) fills; a
+# datagram past it is lost, the FLUSH behind a full buffer among them.
+# The TCP paced run goes at NET_PACE_FRAC of the in-process burst rate,
+# as benchmarks/bench_net.py does.
+NET_BATCHES = 32
+NET_EVENTS = 64
+NET_UDP_BATCHES = 16
+NET_UDP_RATE = 100.0
+NET_PACE_FRAC = 0.5
+NET_TIMEOUT_S = 20.0
+
+
+def net_sources(np, blocks):
+    """Per sensor, ``per -> replay.array_source`` over the stream's frames
+    (the 8 batches of 256 events concatenated: 2,048 events a sensor,
+    each with its own y0)."""
+    from repro_torch.net.replay import array_source
+
+    pools = [tuple(np.concatenate([blocks[t][s][k]
+                                   for t in range(SERVE_BATCHES)])
+                   for k in ("frames", "y0")) for s in range(N_CHIPS)]
+    for frames, y0 in pools:
+        if len(np.unique(y0)) != len(y0):
+            fail("serve_net", "two events of a sensor's pool share a y0")
+    return [lambda per, pool=pool: array_source(*pool, per)
+            for pool in pools]
+
+
+def net_oracles(np, chips, sources):
+    """Per sensor, host_oracle on the card (K1, then numpy) applied to
+    every batch either transport replays, before any run: the clients
+    share the door's event loop, and a client that verified its triggers
+    with the oracle as it finished would hold the loop for the oracle's
+    time while the others still send. Each returned oracle answers from
+    those results, keyed by the batch's y0 values (no two events of a
+    pool share one, net_sources)."""
+    from repro_torch.net.protocol import UDP_MAX_EVENTS
+    from repro_torch.net.replay import host_oracle
+
+    out = []
+    for s, chip in enumerate(chips):
+        oracle = host_oracle(chip, device="cuda")
+        memo = {}
+        for per, n_batches in ((NET_EVENTS, NET_BATCHES),
+                               (UDP_MAX_EVENTS, NET_UDP_BATCHES)):
+            src = sources[s](per)
+            for b in range(n_batches):
+                frames, y0 = src(b)
+                memo[y0.tobytes()] = oracle(frames, y0)
+        out.append(lambda frames, y0, memo=memo: memo[y0.tobytes()])
+    return out
+
+
+def net_server(chips, redundancy, sources):
+    """A ServerConfig() server on the card with its fused pass built and
+    run once (one 64-event batch a chip, in-process) before any timing."""
+    from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
+
+    server = ReadoutServer(list(chips), ServerConfig(redundancy=redundancy),
+                           device="cuda")
+    for s in range(N_CHIPS):
+        server.submit_frames(s, *sources[s](NET_EVENTS)(0))
+    server.flush()
+    return server
+
+
+def net_inprocess(torch, chips, redundancy, sources, rate=None):
+    """In-process submit_frames of the TCP runs' events: unpaced (the
+    burst rate), or batch b of every sensor submitted once b * 4 * 64 /
+    ``rate`` seconds have passed, polling between (bench_net.py's
+    driver). Returns events/s, first submit to the last result."""
+    server = net_server(chips, redundancy, sources)
+    srcs = [src(NET_EVENTS) for src in sources]
+    n_events = NET_BATCHES * NET_EVENTS * N_CHIPS
+    got = 0
+    t0 = time.perf_counter()
+    for b in range(NET_BATCHES):
+        while rate and b * NET_EVENTS * N_CHIPS / rate > (
+                time.perf_counter() - t0):
+            got += len(server.poll())
+        for s in range(N_CHIPS):
+            server.submit_frames(s, *srcs[s](b))
+        got += len(server.poll())
+    got += len(server.flush())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if got != n_events:
+        fail("serve_net", f"in-process {redundancy}: {got} results for "
+                          f"{n_events} events")
+    return n_events / dt
+
+
+def net_wire(torch, chips, redundancy, sources, oracles, counters,
+             transport, rate):
+    """One replay client a sensor against the port's front door over a
+    fresh server, on loopback. Checks every trigger against the oracle
+    (ReplayReport.verified), the accounting identity of every client,
+    0 TMR disagreements and the default path's kernels launched (the
+    counters zeroed just before the clients start, read just after)."""
+    import asyncio
+
+    from repro_torch.net.ingress import ReadoutFrontDoor
+    from repro_torch.net.protocol import UDP_MAX_EVENTS
+    from repro_torch.net.replay import ReplayConfig, replay
+
+    phase = "serve_net"
+    server = net_server(chips, redundancy, sources)
+    door = ReadoutFrontDoor(server)
+    udp = transport == "udp"
+    per = UDP_MAX_EVENTS if udp else NET_EVENTS
+    n_batches = NET_UDP_BATCHES if udp else NET_BATCHES
+    cfgs = [ReplayConfig(rate_hz=rate / N_CHIPS, n_batches=n_batches,
+                         events_per_batch=per, sensor=s,
+                         transport=transport, seed=s,
+                         timeout_s=NET_TIMEOUT_S, pre_encode=not rate)
+            for s in range(N_CHIPS)]
+
+    async def go():
+        await door.start()
+        port = door.udp_port if udp else door.tcp_port
+        try:
+            reset(counters)
+            return await asyncio.gather(*(
+                replay("127.0.0.1", port, sources[s](per), cfgs[s],
+                       oracles[s]) for s in range(N_CHIPS)))
+        finally:
+            await door.stop()
+
+    reps = asyncio.run(go())
+    torch.cuda.synchronize()
+    launches = read(counters)
+    rep = server.report()
+    what = f"{transport} {redundancy} at {rate:.0f} events/s"
+    for s, r in enumerate(reps):
+        if not r.verified:
+            fail(phase, f"{what}: sensor {s} not verified: "
+                        f"{r.unanswered} unanswered, mismatches "
+                        f"{r.mismatches[:3]}")
+    for key, c in rep["net"]["per_client"].items():
+        if c["events_in"] != (c["events_admitted"] + c["events_shed"]
+                              + c["events_queue_dropped"]
+                              + c["events_bad_sensor"]):
+            fail(phase, f"{what}: client {key} accounting {c}")
+    if rep["seu_disagreement_total"]:
+        fail(phase, f"{what}: {rep['seu_disagreement_total']} replica "
+                    "disagreements on a healthy stack")
+    for k in ("yprofile", "eval_words_voted", "decode_dense"):
+        if launches[k] <= 0:
+            fail(phase, f"{what}: kernel {k} never launched")
+    n = sum(r.n_events for r in reps)
+    # every client's events over the longest client's span (its first
+    # send to its last answer; an unpaced client frames its batches
+    # before its clock starts, as bench_net.py's flood does)
+    longest = max(r.n_events / r.achieved_ev_s for r in reps)
+    return {"transport": transport, "redundancy": redundancy,
+            "target_ev_s": rate, "events": n,
+            "wire_ev_s": n / longest,
+            "client_ev_s": [r.achieved_ev_s for r in reps],
+            "p50_us": [r.latency["p50_us"] for r in reps],
+            "p99_us": [r.latency["p99_us"] for r in reps],
+            "kept": sum(r.n_kept for r in reps),
+            "bytes_per_event_in": sum(r.bytes_out for r in reps) / n,
+            "bytes_per_event_out": sum(r.bytes_in for r in reps) / n,
+            "totals": rep["net"]["totals"], "launches": launches}
+
+
+def serve_net(torch, np, chips, blocks, counters, card):
+    """Phase 11, plain then TMR: the in-process burst and paced rates,
+    then TCP paced at NET_PACE_FRAC of the burst, TCP unpaced and UDP;
+    a line each. Returns the runs by (redundancy, transport, paced)."""
+    sources = net_sources(np, blocks)
+    oracles = net_oracles(np, chips, sources)
+    out = {}
+    for red in ("none", "tmr"):
+        burst = net_inprocess(torch, chips, red, sources)
+        bench = NET_PACE_FRAC * burst
+        paced = net_inprocess(torch, chips, red, sources, rate=bench)
+        emit("serve_net_inprocess", ok=True, card=card, redundancy=red,
+             events=NET_BATCHES * NET_EVENTS * N_CHIPS,
+             burst_ev_s=burst, paced_target_ev_s=bench, paced_ev_s=paced)
+        for transport, rate, base in (("tcp", bench, paced),
+                                      ("tcp", 0.0, burst),
+                                      ("udp", NET_UDP_RATE * N_CHIPS, None)):
+            run = net_wire(torch, chips, red, sources, oracles, counters,
+                           transport, rate)
+            if base is not None:
+                run["inprocess_ev_s"] = base
+                run["wire_over_inprocess"] = run["wire_ev_s"] / base
+            emit("serve_net", ok=True, card=card, **run)
+            out[red, transport, rate > 0] = run
+    return out
+
+
+def run_examples():
+    """Phase 12: the port's example drivers as subprocesses on the card;
+    a non-zero exit or a printed mismatch fails."""
+    runs = []
+    for argv in (["examples/torch_serve_readout.py", "--chips", "2",
+                  "--rate-batches", "4"],
+                 ["examples/torch_replay_load.py", "--sensors", "2",
+                  "--batches", "8"]):
+        t0 = time.monotonic()
+        proc = subprocess.run([sys.executable, *argv], cwd=HERE,
+                              capture_output=True, text=True, timeout=600)
+        tail = proc.stdout.strip().splitlines()[-4:]
+        if proc.returncode != 0 or "MISMATCH" in proc.stdout.upper():
+            fail("examples", f"{' '.join(argv)}: exit {proc.returncode}; "
+                             f"{tail} {proc.stderr[-2000:]}")
+        runs.append({"argv": argv, "seconds": time.monotonic() - t0,
+                     "tail": tail})
+    return runs
+
+
 def main():
     import torch
 
@@ -1620,6 +1853,11 @@ def main():
                                "after the sparse_egress transition")
     emit("serve_deadline", ok=True, card=card, **degrade)
 
+    # 11. the network front door over the served chips, plain and TMR
+    net = serve_net(torch, np, chips, blocks, counters, card)
+    # 12. the port's example drivers, as an operator runs them
+    emit("examples", ok=True, card=card, runs=run_examples())
+
     kernels = []
     # K2's row carries the times of its R=3 (TMR) run; K1, K2 and B6's
     # dense entry count their launches in the default served stream,
@@ -1676,6 +1914,11 @@ def main():
                           if k.startswith("dense")}
     kernels[6]["also_replaces"] = b6_dense["also_replaces"]
     kernels[6]["launches_tmr"] = runs["tmr"]["launches"]["decode_dense"]
+    # K1, K2 and B6's dense entry behind the front door (phase 11, plain,
+    # TCP unpaced)
+    for row, k in ((kernels[0], "yprofile"), (kernels[1], "eval_words_voted"),
+                   (kernels[6], "decode_dense")):
+        row["launches_serve_net"] = net["none", "tcp", False]["launches"][k]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

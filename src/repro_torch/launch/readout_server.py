@@ -63,7 +63,8 @@ import collections
 import dataclasses
 import math
 import time
-from typing import Deque, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Callable, Deque, Dict, Iterable, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -589,6 +590,14 @@ class ReadoutServer:
         # bumped whenever a frame is re-encoded (inject, heal,
         # reconfigure): an older pending sample is stale
         self._frame_gen = [0] * n_frames
+        # the network front door's stats() (net/ingress.py attaches it)
+        self._net_stats_provider: Optional[Callable[[], Dict]] = None
+
+    def attach_net_stats(self, provider: Optional[Callable[[], Dict]]
+                         ) -> None:
+        """Register the network front door's ``stats`` callable; its
+        snapshot appears under ``report()["net"]``. Pass None to detach."""
+        self._net_stats_provider = provider
 
     # ------------------------------------------------------------- intake
     @property
@@ -1571,8 +1580,9 @@ class ReadoutServer:
         ledger with the adaptive coalescer's knobs and the degrade
         ladder, and the per-stage host timing (seconds and calls per
         stage; the fused pass is one ``launch_fused`` entry, the staged
-        host path itemizes it). The same keys as the JAX package's
-        report, apart from its network section."""
+        host path itemizes it), and the network front door's accounting
+        (``net``: the attached door's ``stats()``, else ``{"attached":
+        False}``). The same keys as the JAX package's report."""
         cfg = self.config
         per_chip = []
         for i, st in enumerate(self._stats):
@@ -1678,5 +1688,8 @@ class ReadoutServer:
                 k: {"seconds": self._stage_s[k], "calls": self._stage_n[k]}
                 for k in sorted(self._stage_s)
             },
+            "net": (self._net_stats_provider()
+                    if self._net_stats_provider is not None
+                    else {"attached": False}),
             "per_chip": per_chip,
         }

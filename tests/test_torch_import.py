@@ -2,7 +2,8 @@
 
 * every ``repro_torch`` module imports in a subprocess where ``jax*`` and
   ``repro``/``repro.*`` imports are blocked, and none of them got loaded;
-* no source line of the port (or of chip_smoke.py) imports them;
+* no source line of the port (or of chip_smoke.py, the port's benches
+  and its examples) imports them;
 * without CUDA, every entry point that is not handed ``device="cpu"``
   raises the named DeviceUnavailableError instead of running on the CPU.
 """
@@ -48,12 +49,16 @@ print(" ".join(names))
 assert not bad, bad
 """
 
-# modules the blocked import must reach, the sparse-egress slice's among
-# them (a package that failed to import would drop out of the walk)
+# modules the blocked import must reach, the sparse-egress and network
+# slices' among them (a package that failed to import would drop out of
+# the walk)
 REQUIRED_MODULES = ("repro_torch.parallel.compression",
                     "repro_torch.kernels.sparse_pack.sparse_pack",
                     "repro_torch.kernels.lut_eval.ops",
-                    "repro_torch.launch.readout_server")
+                    "repro_torch.launch.readout_server",
+                    "repro_torch.net.protocol",
+                    "repro_torch.net.ingress",
+                    "repro_torch.net.replay")
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -75,7 +80,8 @@ _FORBIDDEN = re.compile(
 
 def test_no_source_line_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
-        (ROOT / "benchmarks").glob("torch_*.py"))
+        (ROOT / "benchmarks").glob("torch_*.py")) + sorted(
+        (ROOT / "examples").glob("torch_*.py"))
     hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
             for p in files for m in _FORBIDDEN.finditer(p.read_text())]
     assert len(files) > 20 and not hits, hits
@@ -90,6 +96,7 @@ def _entry_points():
         fabric_eval, fabric_eval_multi, pack_fabric, pack_fabrics)
     from repro_torch.kernels.yprofile.ops import yprofile
     from repro_torch.launch.readout_server import ReadoutServer
+    from repro_torch.net.replay import host_oracle
 
     frames = np.zeros((2, 8, 13, 21), np.float32)
     y0 = np.zeros(2, np.float32)
@@ -113,6 +120,7 @@ def _entry_points():
                                        n_features=14),
         "fabric_eval_multi": lambda: fabric_eval_multi(
             [_config()], np.zeros((1, 2, _config().n_inputs), np.uint8)),
+        "net.replay.host_oracle": lambda: host_oracle(_chip()),
     }
 
 
@@ -132,7 +140,7 @@ def _spec():
     "resolve_device", "yprofile", "pack_fabrics", "pack_frontend",
     "ReadoutServer", "KernelBackend.score_bits", "HostBackend.score_frames",
     "convert.plan_from_numpy", "pack_fabric", "fabric_eval", "pack_ensemble",
-    "bdt_infer", "fabric_eval_multi"])
+    "bdt_infer", "fabric_eval_multi", "net.replay.host_oracle"])
 def test_entry_point_without_cuda_raises_named_error(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

@@ -17,7 +17,8 @@ sparse-egress kernel B6 (its three entries, on the walk's real words and
 on chip_smoke's synthetic words, keep fractions and decode rows; each one
 kernel and no memset a call, by the profiler; its look-back state across
 graph replays and shape changes) and the fused frontend downstream of
-identical features are exact.
+identical features are exact. A TCP replay through the port's front door
+over a card server verifies every trigger against the host oracle.
 """
 import numpy as np
 import pytest
@@ -651,3 +652,41 @@ def test_scrub_readback_resolves_without_a_stream_synchronisation(
     server.flush()
     assert server.report()["scrub"]["detections"] == 0
     assert all(server.verify_frame(s, r) for s in range(2) for r in range(3))
+
+
+def test_tcp_replay_against_a_door_over_a_card_server(card):
+    """The port's front door over a ServerConfig() server on the card,
+    one TCP replay client a chip on loopback: every trigger verified
+    against host_oracle on the card (the featurizer kernel, then numpy),
+    the accounting exact, and the default served path's kernels (K1, K2,
+    B6's dense entry) launched."""
+    import asyncio
+
+    from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
+    from repro_torch.net import replay as R
+    from repro_torch.net.ingress import ReadoutFrontDoor
+
+    chips, frames, y0 = card
+    server = ReadoutServer(chips, ServerConfig(), device="cuda")
+    door = ReadoutFrontDoor(server)
+    wrappers = (yp.yprofile_traced, bs.eval_seg_voted, sp.decode_dense)
+    before = [fn.launches for fn in wrappers]
+    cfgs = [R.ReplayConfig(n_batches=8, events_per_batch=32, sensor=c)
+            for c in range(2)]
+
+    async def go():
+        await door.start()
+        try:
+            return await asyncio.gather(*(
+                R.replay("127.0.0.1", door.tcp_port,
+                         R.array_source(frames[c], y0[c], 32), cfg,
+                         R.host_oracle(chips[c]))
+                for c, cfg in enumerate(cfgs)))
+        finally:
+            await door.stop()
+
+    for rep in asyncio.run(go()):
+        assert rep.verified, rep.mismatches
+        assert rep.ack["events_in"] == 256 == rep.ack["events_admitted"]
+    assert server.report()["net"]["totals"]["events_in"] == 512
+    assert all(fn.launches > n for fn, n in zip(wrappers, before))
