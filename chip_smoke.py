@@ -121,6 +121,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
  12. examples — examples/torch_serve_readout.py --chips 2 --rate-batches 4
                and examples/torch_replay_load.py --sensors 2 --batches 8 as
                subprocesses on the card: exit 0, no mismatch printed.
+ 13. fleet   — the multi-tenant fleet (repro_torch/launch/fleet.py): the
+               4 served chips and two more (depth 3 with 5 leaves, in an
+               envelope of its own; depth 5 with 10 leaves) as six
+               tenants, two slots a bucket, 6 FrameStream batches of 256
+               events a tenant through submit_frames, in four runs:
+               ServerConfig() (bit-sliced, plain), redundancy="tmr",
+               layout="matmul" and tenant_quota_queued=128. Each bucket
+               is opened by a founding tenant that serves one block and is
+               retired. In the run: the sixth
+               tenant's first batch at step 2 (a warm admission into a
+               full bucket), LRU evictions and golden re-admissions as the
+               stream goes round, one evict(drain=False). Checks: every
+               delivered (seq, tenant, score, keep) equal to the oracle,
+               every ledger closed with nothing outstanding, only the
+               cancelled events missing, 0 disagreements, K1, K2 and B6's
+               dense entry (B3 in the matmul run) launched, no admission
+               miss (ReadoutServer.shape_misses, read to each admitted
+               tenant's first result), every bucket's stack, encode plan,
+               staging and copy stream where the founders left them. Then bench_fleet.py's numbers (cold and warm
+               admission, evict + golden re-admit, the in-place swap in
+               both layouts, events/s at 2, 16 and 64 tenants of 16
+               events), K2 and B6's dense entry at the served chips'
+               bucket envelope (16 levels, 31 outputs) against the union
+               (13, 28): exact against their twins, K2 timed at W=16; the
+               deep 4-tree ensemble's envelope (32 x 256) plain, exact,
+               and under TMR (K2's refusal recorded: ROADMAP C.3); and a
+               TCP replay through the front door with sensor_tenants in
+               front of a fleet: sensors 0-3 verified, an unmapped and a
+               retired tenant's sensor counted as events_bad_sensor.
 Then a `kernels` JSON line, the card's name and power limit, and the
 final line {"ok": true, "device": {...}}.
 """
@@ -334,16 +363,7 @@ def check_k2(torch, np, bs, lut_ops, chips):
             tile = bs.word_tile(R, in_seg, L, M, W, C, n_sms)
             scratch = bs.scratch_for(C, R, L, M, "cuda")
             args = (stack.src, stack.tables, stack.output_nets, seg, R)
-            # least work: one LOP3 per two-way select (15 per replica,
-            # word and real LUT), 16 table-to-mask selects per replica and
-            # LUT, and per (word, output) one LOP3 for the 2-of-3 vote and
-            # one per replica for the disagreement word
-            ops = (15 * R * W * n_luts + 16 * R * n_luts
-                   + (C * W * O * (1 + R) if R > 1 else 0))
-            nbytes = (seg.numel() * 4 + stack.src.numel() * 4
-                      + stack.tables.numel() * 4
-                      + stack.output_nets.numel() * 4
-                      + C * W * O * 4 + C * R * W * 4)
+            ops, nbytes = k2_cost(stack, seg, n_luts)
             t_ops, t_bytes = ops / INT_OPS_PER_S, nbytes / HBM_BYTES_PER_S
             voted = torch.empty((C, W, O), dtype=torch.int32, device="cuda")
             dis = torch.empty((C, R, W), dtype=torch.int32, device="cuda")
@@ -375,6 +395,24 @@ def check_k2(torch, np, bs, lut_ops, chips):
         "library_ms": None,
         "runs": out,
     }
+
+
+def k2_cost(stack, seg, n_luts):
+    """(operations, bytes) of the least work of one K2 call over input
+    words ``seg`` (C, W, in_seg): one LOP3 per two-way select (15 per
+    replica, word and real LUT), 16 table-to-mask selects per replica and
+    LUT, and per (word, output) one LOP3 for the 2-of-3 vote and one per
+    replica for the disagreement word; every input read once, the voted
+    and disagreement words written once. Padded levels and slots cost
+    nothing here."""
+    C, W, _ = seg.shape
+    R, O = stack.n_replicas, stack.n_outputs
+    ops = (15 * R * W * n_luts + 16 * R * n_luts
+           + (C * W * O * (1 + R) if R > 1 else 0))
+    nbytes = (seg.numel() * 4 + stack.src.numel() * 4
+              + stack.tables.numel() * 4 + stack.output_nets.numel() * 4
+              + C * W * O * 4 + C * R * W * 4)
+    return ops, nbytes
 
 
 def synthetic_sel(np, shape, seed):
@@ -1687,6 +1725,581 @@ def run_examples():
     return runs
 
 
+# 13: the multi-tenant fleet (launch/fleet.py). Six tenants: the four
+# served chips and two more (FLEET_EXTRA: one of depth 3 with 5 leaves,
+# whose inputs put it in an envelope of its own, one of depth 5 with 10
+# leaves), two chip slots a bucket, so that the stream going round the
+# five tenants of the large envelope evicts the least recently used one
+# and re-admits it from its golden image at its next batch.
+FLEET_EXTRA = ((40, 3, 5), (41, 5, 10))          # (seed, depth, leaves)
+FLEET_TENANTS = N_CHIPS + len(FLEET_EXTRA)
+FLEET_SLOTS = 2
+FLEET_STEPS = 6
+FLEET_LATE_AT = 2      # the last tenant's first batch: a warm admission
+FLEET_EVICT_AT = 3     # tenant 1 evicted with drain=False right after its
+#                        batch of this step is queued
+FLEET_QUOTA = 128
+# benchmarks/bench_fleet.py: 4 slots a bucket, 16 events a tenant
+FLEET_BENCH_SLOTS = 4
+FLEET_BENCH_TENANTS = (2, 16, 64)
+FLEET_BENCH_EVENTS = 16
+FLEET_BENCH_REPS = 3
+# the door in front of the fleet: sensors 0-3 are tenants t0-t3, sensor
+# FLEET_DOOR_UNMAPPED maps to nothing and FLEET_DOOR_RETIRED to a retired
+# tenant; each of the two sends FLEET_DOOR_BAD_BATCHES batches
+FLEET_DOOR_UNMAPPED = 4
+FLEET_DOOR_RETIRED = 5
+FLEET_DOOR_BAD_BATCHES = 4
+# the deep ensemble of benchmarks/bench_fabric.py (4 trees of depth 3 with
+# 6 leaves, efpga_28nm_xl, a 16-bit spec with 8 integer bits)
+FLEET_DEEP_SEED = 2040
+
+
+def fleet_oracle(np, chips, blocks, yp):
+    """Per (step, tenant): the numpy oracle's (score, keep) on the
+    featurizer kernel's features of the tenant's block."""
+    from repro_torch.core.fabric import FabricSim
+
+    out = []
+    for step in range(FLEET_STEPS):
+        row = []
+        for t, chip in enumerate(chips):
+            blk = blocks[step][t]
+            feats = yp.yprofile(blk["frames"], blk["y0"],
+                                device="cuda").cpu().numpy()
+            outs, _ = FabricSim(chip.config).run(chip.encode_features(feats))
+            score = chip.synth.decode_outputs(np.asarray(outs))
+            row.append((score, score <= chip.score_threshold_raw))
+        out.append(row)
+    return out
+
+
+def found_buckets(fleet, chips, blocks):
+    """Open every bucket through a founding tenant (the first chip of each
+    envelope) that serves one block, then retire the founders: the
+    buckets stay, their fused passes built, with every slot free. Returns
+    the founders' admission infos (cold)."""
+    from repro_torch.kernels.lut_eval.ops import bucket_envelope
+
+    infos, seen = [], set()
+    for t, chip in enumerate(chips):
+        env = bucket_envelope(chip.config, fleet.config.band)
+        if env in seen:
+            continue
+        seen.add(env)
+        key = f"founder{t}"
+        infos.append(fleet.admit(key, chip))
+        fleet.submit_frames(key, blocks[0][t]["frames"], blocks[0][t]["y0"])
+        fleet.flush()
+        fleet.retire(key)
+    return infos
+
+
+def bucket_state(fleet):
+    """Per bucket: the storage of its stack's and fused pass's tensors and
+    its copy stream — what a warm admission must leave as it is."""
+    out = []
+    for b in fleet._buckets:
+        srv = b.server
+        st = srv._stack
+        fe = srv._frontend
+        out.append({
+            "stack": [t.data_ptr() for t in (st.tables, st.output_nets,
+                                             st.src if st.bitsliced
+                                             else st.sel)],
+            "plan": ({k: v.data_ptr() for k, v in fe.plan.items()}
+                     if fe is not None else None),
+            "staging": ({str(k): [t.data_ptr() for t in v]
+                         for k, v in fe.staging.items()}
+                        if fe is not None else None),
+            "copy_stream": srv._copy_stream,
+        })
+    return out
+
+
+def buckets_kept(before, after):
+    """Every bucket of ``before`` with its stack, encode plan and copy
+    stream where they were, and every staging buffer it had still there
+    (a batch width first seen later adds buffers of its own)."""
+    return len(after) >= len(before) and all(
+        {k: a[k] for k in ("stack", "plan", "copy_stream")}
+        == {k: b[k] for k in ("stack", "plan", "copy_stream")}
+        and all(b["staging"].get(k) == v
+                for k, v in (a["staging"] or {}).items())
+        for a, b in zip(before, after))
+
+
+def serve_fleet(torch, np, chips, blocks, want, counters, what, **cfg_kw):
+    """One fleet run over the six tenants' stream (FLEET_STEPS batches of
+    256 events a tenant through submit_frames, polled after each), the
+    buckets opened first (found_buckets). Tenant FLEET_TENANTS-1 first
+    submits at FLEET_LATE_AT (a warm admission mid-stream, into a full
+    bucket); tenant 1 is evicted without draining right after its batch
+    of FLEET_EVICT_AT is queued. Checks: every delivered (seq, tenant,
+    score, keep) equals the oracle, no admitted event lost but the
+    cancelled ones, every tenant's ledger closes with nothing
+    outstanding, 0 TMR disagreements, the path's kernels launched (the
+    counters zeroed just before the stream and read just after), no
+    admission miss (a swap, or a launch at a batch width its bucket had
+    launched, adding a build or a launch signature, up to the admitted
+    tenant's first result), every bucket's stack, fused pass, copy stream
+    and staging buffers where the founders left them, and (without a
+    quota) evictions and
+    golden re-admissions."""
+    from repro_torch.launch.fleet import TenantFleet
+    from repro_torch.launch.readout_server import ServerConfig
+
+    phase = "serve_fleet"
+    fleet = TenantFleet(ServerConfig(**cfg_kw), bucket_slots=FLEET_SLOTS,
+                        device="cuda")
+    founders = found_buckets(fleet, chips, blocks)
+    torch.cuda.synchronize()
+    state0 = bucket_state(fleet)
+    reset(counters)
+    where, results, infos = {}, [], []
+    t0 = time.perf_counter()
+    for step in range(FLEET_STEPS):
+        for t in range(FLEET_TENANTS):
+            key = f"t{t}"
+            if t == FLEET_TENANTS - 1 and step < FLEET_LATE_AT:
+                continue
+            if not fleet.has_tenant(key):
+                infos.append((step, key, fleet.admit(key, chips[t])))
+            blk = blocks[step][t]
+            seqs = fleet.submit_frames(key, blk["frames"], blk["y0"])
+            for row, s in enumerate(seqs):
+                if s is not None:
+                    where[s] = (step, t, row)
+            if step == FLEET_EVICT_AT and t == 1:
+                fleet.evict(key, drain=False)
+            results += fleet.poll()
+    results += fleet.flush()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read(counters)
+    rep = fleet.report()
+
+    seqs = [r.seq for r in results]
+    if len(set(seqs)) != len(seqs) or not set(seqs) <= set(where):
+        fail(phase, f"{what}: duplicate or unknown seqs among "
+                    f"{len(seqs)} delivered events")
+    mism = 0
+    for r in results:
+        step, t, row = where[r.seq]
+        score, keep = want[step][t]
+        mism += (r.tenant, r.score_raw, r.keep) != (
+            f"t{t}", int(score[row]), bool(keep[row]))
+    if mism:
+        fail(phase, f"{what}: {mism} of {len(results)} delivered events "
+                    "differ from the oracle")
+    led = rep["tenants"]
+    for key, row in led.items():
+        if row["outstanding"] or row["events_in"] != (
+                row["events_out"] + row["shed"] + row["quota_shed"]
+                + row["evicted_while_queued"]):
+            fail(phase, f"{what}: tenant {key}'s ledger does not close: "
+                        f"{row}")
+        if any(row["seu_disagreements"]):
+            fail(phase, f"{what}: tenant {key}: replica disagreements "
+                        f"{row['seu_disagreements']} on healthy stacks")
+    cancelled = sum(led[f"t{t}"]["evicted_while_queued"]
+                    for t in range(FLEET_TENANTS))
+    if len(results) + cancelled != len(where):
+        fail(phase, f"{what}: {len(results)} delivered + {cancelled} "
+                    f"cancelled != {len(where)} admitted")
+    if not led["t1"]["evicted_while_queued"]:
+        fail(phase, f"{what}: evict(drain=False) cancelled nothing")
+    layouts = sorted({b.server._stack.layout for b in fleet._buckets})
+    need = ["yprofile"] + [FABRIC_KERNEL[k] for k in layouts]
+    if "bitsliced" in layouts:
+        need.append("decode_dense")
+    for k in need:
+        if launches[k] <= 0:
+            fail(phase, f"{what}: kernel {k} never launched")
+    late = [i for s, key, i in infos if key == f"t{FLEET_TENANTS - 1}"]
+    if not late or late[0]["cold"] or not late[0]["evicted"]:
+        fail(phase, f"{what}: the late tenant's admission {late} was not "
+                    "a warm one into a full bucket")
+    if rep["admission_misses"]:
+        fail(phase, f"{what}: {rep['admission_misses']} warm admissions "
+                    "added an nvcc build, a library load or a launch "
+                    "signature")
+    if not buckets_kept(state0, bucket_state(fleet)):
+        fail(phase, f"{what}: a warm admission reallocated a bucket's "
+                    "stack, fused pass or copy stream")
+    n_evict = sum(row["evictions"] for row in led.values())
+    n_readmit = sum(row["readmissions"] for row in led.values())
+    if "tenant_quota_queued" not in cfg_kw and not (n_evict and n_readmit):
+        fail(phase, f"{what}: {n_evict} evictions, {n_readmit} "
+                    "re-admissions")
+    if "tenant_quota_queued" in cfg_kw and not rep["quota_shed"]:
+        fail(phase, f"{what}: the quota shed nothing")
+    return {"config": what, "layouts": layouts,
+            "buckets": [{"envelope": b["envelope"],
+                         "slots": len(b["slots"])} for b in rep["buckets"]],
+            "founders": founders,
+            "admissions": [{"step": s, "tenant": k, **i}
+                           for s, k, i in infos],
+            "events_admitted": len(where), "delivered": len(results),
+            "cancelled": cancelled, "quota_shed": rep["quota_shed"],
+            "oracle_mismatches": mism, "evictions": n_evict,
+            "readmissions": n_readmit,
+            "warm_admissions": sum(not i["cold"] for _, _, i in infos),
+            "admission_misses": rep["admission_misses"],
+            "events_per_s": len(where) / dt, "seconds": dt,
+            "launches": launches}
+
+
+def fleet_bench(torch, np, chips, X):
+    """benchmarks/bench_fleet.py on the card (features, max_batch 512,
+    4 slots a bucket, bit-sliced): cold admission (a new bucket: its
+    server, packed stack and first one-event dispatch, then a flush) and
+    warm admission (a same-envelope tenant into that bucket, the same
+    dispatch) in microseconds, FLEET_BENCH_REPS each, and of that the
+    admit call alone; evict plus the golden re-admission of a one-event
+    request, exact against the oracle; the in-place row swap of one
+    chip into a 4-slot stack at the bucket's envelope, both layouts;
+    then events/s of FLEET_BENCH_EVENTS events a tenant at
+    FLEET_BENCH_TENANTS tenants (each cycling over the farm), first
+    submit to the flush, admissions before the clock."""
+    from repro_torch.core.fabric import FabricSim
+    from repro_torch.kernels import build
+    from repro_torch.kernels.lut_eval import ops as lut_ops
+    from repro_torch.launch.fleet import TenantFleet
+    from repro_torch.launch.readout_server import ServerConfig
+
+    phase = "fleet_bench"
+    cfg = ServerConfig(max_batch=512, max_latency_s=1e9, batch_tile=128)
+    envs = [lut_ops.bucket_envelope(c.config) for c in chips]
+    a, b = next((i, j) for i in range(len(envs))
+                for j in range(i + 1, len(envs)) if envs[i] == envs[j])
+
+    admit_us = {"cold": [], "warm": []}
+
+    def admit_and_serve(fleet, tenant, chip, kind):
+        t0 = time.perf_counter()
+        fleet.admit(tenant, chip)
+        torch.cuda.synchronize()
+        admit_us[kind].append((time.perf_counter() - t0) * 1e6)
+        fleet.submit(tenant, X[0])
+        fleet.flush()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e6
+
+    def oracle_raw(chip, row):
+        outs, _ = FabricSim(chip.config).run(chip.encode_features(row[None]))
+        return int(chip.synth.decode_outputs(np.asarray(outs))[0])
+
+    cold, warm, evict_us, readmit_us = [], [], [], []
+    misses0 = build.miss_counts()
+    for rep in range(FLEET_BENCH_REPS):
+        fleet = TenantFleet(cfg, bucket_slots=FLEET_BENCH_SLOTS,
+                            device="cuda")
+        cold.append(admit_and_serve(fleet, "t_cold", chips[a], "cold"))
+        warm.append(admit_and_serve(fleet, "t_warm", chips[b], "warm"))
+        if fleet.report()["admission_misses"]:
+            fail(phase, "a warm admission added a build or a launch "
+                        "signature")
+        t0 = time.perf_counter()
+        fleet.evict("t_warm")
+        evict_us.append((time.perf_counter() - t0) * 1e6)
+        t0 = time.perf_counter()
+        s = fleet.submit("t_warm", X[1 + rep])
+        (r,) = [e for e in fleet.flush() if e.seq == s]
+        torch.cuda.synchronize()
+        readmit_us.append((time.perf_counter() - t0) * 1e6)
+        if r.score_raw != oracle_raw(chips[b], X[1 + rep]):
+            fail(phase, "the re-admitted tenant diverged from the oracle")
+    swap_us = {}
+    for layout in ("bitsliced", "matmul"):
+        stack = lut_ops.pack_fabrics(
+            [chips[a].config] * FLEET_BENCH_SLOTS, layout=layout,
+            geometry=envs[a], device="cuda")
+        samples = []
+        for rep in range(FLEET_BENCH_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stack.swap_chip(1, chips[b if rep % 2 else a].config,
+                            in_place=True)
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e6)
+        swap_us[layout] = samples[1:]
+    rates = {}
+    for n_tenants in FLEET_BENCH_TENANTS:
+        fl = TenantFleet(cfg, bucket_slots=FLEET_BENCH_SLOTS, device="cuda")
+        for i in range(n_tenants):
+            fl.admit(f"t{i}", chips[i % len(chips)])
+        fl.flush()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = 0
+        for i in range(n_tenants):
+            got += sum(s is not None for s in fl.submit_batch(
+                f"t{i}", X[:FLEET_BENCH_EVENTS]))
+        done = fl.flush()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rep = fl.report()
+        if len(done) != got or rep["events_in"] != rep["events_out"]:
+            fail(phase, f"{n_tenants} tenants: {len(done)} delivered of "
+                        f"{got} admitted")
+        rates[n_tenants] = {
+            "events_per_s": n_tenants * FLEET_BENCH_EVENTS / dt,
+            "seconds": dt, "buckets": rep["n_buckets"],
+            "readmissions": sum(v["readmissions"]
+                                for v in rep["tenants"].values())}
+    return {"bucket_slots": FLEET_BENCH_SLOTS, "features_path": True,
+            "cold_us": cold, "warm_us": warm,
+            "cold_us_median": float(np.median(cold)),
+            "warm_us_median": float(np.median(warm)),
+            "warm_over_cold": float(np.median(cold) / np.median(warm)),
+            "admit_us": admit_us, "swap_us": swap_us,
+            "evict_us": evict_us, "readmit_us": readmit_us,
+            "evict_readmit_us_median": float(np.median(
+                np.add(evict_us, readmit_us))),
+            "build_and_signature_misses": [
+                x - y for x, y in zip(build.miss_counts(), misses0)],
+            "events_per_tenant": FLEET_BENCH_EVENTS, "rates": rates}
+
+
+def fleet_k2_depth(torch, np, bs, sp, lut_ops, chips):
+    """K2 and B6's dense entry on the four served chips packed to their
+    union (13 levels, 28 outputs) and to their bucket envelope (16
+    levels, 31 outputs), R=1 and R=3, at the served W=16: the kernels
+    exact against their twins on random bits (and the dense entry on the
+    walk's words), K2 timed at both depths by CUDA-graph replay, with
+    its tile, shared memory and bound (its operations count the real
+    LUTs, the same at both depths; its bytes the padded arrays)."""
+    configs = [c.config for c in chips]
+    env = lut_ops.bucket_envelope(configs[0])
+    if not all(env.admits(c) for c in configs):
+        fail("fleet_k2", f"the served chips do not share {env}")
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(19)
+    W = SERVED_B // 32
+    thr = torch.as_tensor([c.score_threshold_raw for c in chips],
+                          dtype=torch.int32, device="cuda")
+    out = {}
+    for red in ("none", "tmr"):
+        for name, geo in (("union", None), ("envelope", env)):
+            stack = lut_ops.pack_fabrics(configs, redundancy=red,
+                                         layout="bitsliced", geometry=geo,
+                                         device="cuda")
+            R, L, M = stack.n_replicas, stack.n_levels, stack.m_pad
+            bits = torch.as_tensor(
+                rng.integers(0, 2, (N_CHIPS, W * 32, stack.n_inputs)),
+                dtype=torch.int32, device="cuda")
+            seg = bs.input_words(bits, stack.n_inputs, stack.in_seg)
+            args = (stack.src, stack.tables, stack.output_nets, seg, R)
+            got = bs.eval_seg_voted(*args)
+            want = bs.eval_seg_voted_plain(*args)
+            torch.cuda.synchronize()
+            for x, y, k in zip(got, want, ("voted", "disagree")):
+                if not torch.equal(x, y):
+                    fail("fleet_k2", f"{name} R={R}: K2 {k} words differ")
+            weight = torch.as_tensor(
+                lut_ops.decode_plan(configs, stack.n_outputs),
+                device="cuda")
+            valid = torch.ones((N_CHIPS, W * 32), dtype=torch.bool,
+                               device="cuda")
+            dense = sp.decode_dense(got[0], got[1], weight, thr, valid)
+            plain = sp.decode_dense_plain(got[0], got[1], weight, thr, valid)
+            torch.cuda.synchronize()
+            for x, y, k in zip(dense, plain, ("score", "keep", "dis")):
+                if not torch.equal(x, y):
+                    fail("fleet_k2", f"{name} R={R}: B6 dense {k} differs")
+            C, _, in_seg = seg.shape
+            tile = bs.word_tile(R, in_seg, L, M, W, C, n_sms)
+            scratch = bs.scratch_for(C, R, L, M, "cuda")
+            voted = torch.empty_like(got[0])
+            dis = torch.empty_like(got[1])
+
+            def k2_call():
+                bs._launch(stack.src, stack.tables, stack.output_nets, seg,
+                           scratch, voted, dis, R, tile)
+            cost = k2_cost(stack, seg, sum(c.n_luts for c in configs))
+            out[f"R{R}_{name}"] = {
+                "levels": L, "m_pad": M, "outputs": stack.n_outputs,
+                "in_seg": in_seg, "words": W, "tile": tile,
+                "smem_bytes": bs.smem_bytes(R, in_seg, L, M, tile),
+                "ms": graph_ms(k2_call),
+                "plain_ms": time_ms(lambda: bs.eval_seg_voted_plain(*args),
+                                    reps=10, inner=1),
+                **bound(*cost)}
+    for R in (1, 3):
+        out[f"R{R}_envelope_over_union"] = (
+            out[f"R{R}_envelope"]["ms"] / out[f"R{R}_union"]["ms"])
+    return out
+
+
+def fleet_deep(torch, np):
+    """The deep ensemble of benchmarks/bench_fabric.py through a
+    bit-sliced fleet on the card: its bucket envelope, plain (64 events,
+    exact against the oracle) and under TMR, where K2's block must hold
+    the chip's descriptors for every padded level and replica in shared
+    memory (bitsliced.smem_bytes). A stack K2 cannot take is checked up
+    front: under TMR it is recorded with its byte count (ROADMAP C.3), the
+    plain one fails the phase."""
+    import repro_torch.core.tmr  # noqa: F401  (registers efpga_28nm_xl)
+    from repro_torch.core.bdt import GradientBoostedClassifier
+    from repro_torch.core.fabric import FabricSim
+    from repro_torch.core.quantize import FixedSpec
+    from repro_torch.core.readout import ReadoutChip
+    from repro_torch.data.smartpixel import (
+        SmartPixelConfig, generate, train_test_split)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.lut_eval import bitsliced as bs
+    from repro_torch.kernels.lut_eval.ops import bucket_envelope
+    from repro_torch.launch.fleet import TenantFleet
+    from repro_torch.launch.readout_server import ServerConfig
+
+    tr, te = train_test_split(generate(SmartPixelConfig(
+        n_events=30_000, seed=FLEET_DEEP_SEED)))
+    clf = GradientBoostedClassifier(
+        n_estimators=4, max_depth=3, max_leaf_nodes=6,
+        min_samples_leaf=300).fit(tr["features"], tr["label"])
+    chip = ReadoutChip.build(clf, fabric="efpga_28nm_xl",
+                             spec=FixedSpec(width=16, int_bits=8))
+    cfg = chip.config
+    env = bucket_envelope(cfg)
+    X = te["features"][:64]
+    outs, _ = FabricSim(cfg).run(chip.encode_features(X))
+    want = chip.synth.decode_outputs(np.asarray(outs))
+    in_seg = -(-(2 + env.n_inputs) // 128) * 128
+    out = {"levels": len(cfg.level_sizes),
+           "widest": max(cfg.level_sizes), "inputs": cfg.n_inputs,
+           "outputs": len(cfg.output_nets),
+           "envelope": {"n_levels": env.n_levels,
+                        "max_level_size": env.max_level_size,
+                        "n_inputs": env.n_inputs,
+                        "n_outputs": env.n_outputs,
+                        "fanin_reach": env.fanin_reach},
+           "smem_limit_bytes": build.SMEM_LIMIT_BYTES}
+    for red in ("none", "tmr"):
+        R = 3 if red == "tmr" else 1
+        row = {"descriptor_bytes": bs._chip_desc_bytes(
+                   R, env.n_levels, env.max_level_size),
+               "one_word_smem_bytes": bs.smem_bytes(
+                   R, in_seg, env.n_levels, env.max_level_size, 1),
+               "union_one_word_smem_bytes": bs.smem_bytes(
+                   R, in_seg, len(cfg.level_sizes),
+                   -(-max(cfg.level_sizes) // 128) * 128, 1)}
+        fleet = TenantFleet(ServerConfig(redundancy=red), bucket_slots=2,
+                            device="cuda")
+        fleet.admit("deep", chip)
+        st = fleet._buckets[0].server._stack
+        try:        # the walk's own fit check, before anything is served
+            bs.word_tile(R, st.in_seg, st.n_levels, st.m_pad, 1)
+        except ValueError as e:
+            if red != "tmr":
+                fail("fleet_deep", f"{red}: K2 refuses the bucket: {e}")
+            row["served"], row["refusal"] = False, str(e)   # ROADMAP C.3
+            out[red] = row
+            continue
+        row["served"] = True
+        seqs = fleet.submit_batch("deep", X)
+        got = {r.seq: r.score_raw for r in fleet.flush()}
+        row["oracle_mismatches"] = int(sum(
+            got.get(s) != int(w) for s, w in zip(seqs, want)))
+        if row["oracle_mismatches"]:
+            fail("fleet_deep", f"{red}: {row['oracle_mismatches']} "
+                               "events differ from the oracle")
+        torch.cuda.synchronize()
+        out[red] = row
+    return out
+
+
+def fleet_door(torch, np, chips, blocks, counters):
+    """One TCP replay client a sensor against the port's front door with
+    sensor_tenants in front of a fleet on the card (ServerConfig(), two
+    slots a bucket): sensors 0-3 are tenants t0-t3 (the served chips),
+    FLEET_DOOR_UNMAPPED maps to no tenant and FLEET_DOOR_RETIRED to a
+    retired one. Checks: every mapped sensor's triggers verified against
+    host_oracle on the card, the two others answered nothing and counted
+    as events_bad_sensor (FLEET_DOOR_BAD_BATCHES x 64 events each), each
+    client's accounting identity, the default path's kernels launched."""
+    import asyncio
+
+    from repro_torch.launch.fleet import TenantFleet
+    from repro_torch.launch.readout_server import ServerConfig
+    from repro_torch.net.ingress import FrontDoorConfig, ReadoutFrontDoor
+    from repro_torch.net.replay import ReplayConfig, replay
+
+    phase = "fleet_door"
+    sources = net_sources(np, blocks)
+    oracles = net_oracles(np, chips, sources)
+    fleet = TenantFleet(ServerConfig(), bucket_slots=FLEET_SLOTS,
+                        device="cuda")
+    for s in range(N_CHIPS):
+        fleet.admit(f"t{s}", chips[s])
+        fleet.submit_frames(f"t{s}", *sources[s](NET_EVENTS)(0))
+    fleet.admit("gone", chips[1])
+    fleet.retire("gone")
+    fleet.flush()
+    mapping = {s: f"t{s}" for s in range(N_CHIPS)}
+    mapping[FLEET_DOOR_RETIRED] = "gone"
+    door = ReadoutFrontDoor(fleet, FrontDoorConfig(sensor_tenants=mapping))
+    sensors = list(range(N_CHIPS)) + [FLEET_DOOR_UNMAPPED,
+                                      FLEET_DOOR_RETIRED]
+    cfgs = [ReplayConfig(rate_hz=0.0, n_batches=NET_BATCHES,
+                         events_per_batch=NET_EVENTS, sensor=s,
+                         transport="tcp", seed=s, timeout_s=NET_TIMEOUT_S,
+                         pre_encode=True) for s in range(N_CHIPS)]
+    cfgs += [ReplayConfig(rate_hz=0.0, n_batches=FLEET_DOOR_BAD_BATCHES,
+                          events_per_batch=NET_EVENTS, sensor=s,
+                          transport="tcp", seed=s, timeout_s=2.0,
+                          pre_encode=True) for s in sensors[N_CHIPS:]]
+
+    async def go():
+        await door.start()
+        try:
+            reset(counters)
+            return await asyncio.gather(*(
+                replay("127.0.0.1", door.tcp_port,
+                       sources[i % N_CHIPS](NET_EVENTS), cfg,
+                       oracles[i] if i < N_CHIPS else None)
+                for i, cfg in enumerate(cfgs)))
+        finally:
+            await door.stop()
+
+    t0 = time.perf_counter()
+    reps = asyncio.run(go())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read(counters)
+    rep = fleet.report()
+    for s, r in zip(sensors, reps):
+        if s < N_CHIPS and not r.verified:
+            fail(phase, f"sensor {s} not verified: {r.unanswered} "
+                        f"unanswered, mismatches {r.mismatches[:3]}")
+        if s >= N_CHIPS and r.n_triggers:
+            fail(phase, f"sensor {s} got {r.n_triggers} triggers")
+    totals = rep["net"]["totals"]
+    bad = 2 * FLEET_DOOR_BAD_BATCHES * NET_EVENTS
+    if totals["events_bad_sensor"] != bad:
+        fail(phase, f"events_bad_sensor {totals['events_bad_sensor']}, "
+                    f"the two sensors sent {bad}")
+    for key, c in rep["net"]["per_client"].items():
+        if c["events_in"] != (c["events_admitted"] + c["events_shed"]
+                              + c["events_queue_dropped"]
+                              + c["events_bad_sensor"]):
+            fail(phase, f"client {key} accounting {c}")
+    for k in ("yprofile", "eval_words_voted", "decode_dense"):
+        if launches[k] <= 0:
+            fail(phase, f"kernel {k} never launched")
+    return {"sensor_tenants": {str(k): v for k, v in mapping.items()},
+            "events": sum(r.n_events for r in reps),
+            "verified_sensors": [s for s, r in zip(sensors, reps)
+                                 if r.verified],
+            "events_bad_sensor": totals["events_bad_sensor"],
+            "events_admitted": totals["events_admitted"],
+            "kept": sum(r.n_kept for r in reps), "seconds": dt,
+            "readmissions": sum(v["readmissions"]
+                                for v in rep["tenants"].values()),
+            "admission_misses": rep["admission_misses"],
+            "launches": launches}
+
+
 def main():
     import torch
 
@@ -1858,6 +2471,36 @@ def main():
     # 12. the port's example drivers, as an operator runs them
     emit("examples", ok=True, card=card, runs=run_examples())
 
+    # 13. the multi-tenant fleet: six tenants' raw frames through
+    # TenantFleet.submit_frames in three configurations and under a
+    # quota, then bench_fleet.py's numbers, K2 at the padded depth, the
+    # deep ensemble's envelope and the front door in front of the fleet
+    fleet_chips = list(chips) + [train_chip(seed, depth=d, leaves=lv)
+                                 for seed, d, lv in FLEET_EXTRA]
+    fstream = FrameStream(FrameStreamConfig(n_sensors=FLEET_TENANTS,
+                                            batch=SERVE_EVENTS, seed=703))
+    fblocks = [[fstream.batch_at(step, t) for t in range(FLEET_TENANTS)]
+               for step in range(FLEET_STEPS)]
+    fwant = fleet_oracle(np, fleet_chips, fblocks, yp)
+    fleet_runs = {}
+    for what, kw in (("bitsliced none", {}),
+                     ("bitsliced tmr", dict(redundancy="tmr")),
+                     ("matmul none", dict(layout="matmul")),
+                     ("bitsliced none quota", dict(
+                         tenant_quota_queued=FLEET_QUOTA))):
+        fleet_runs[what] = serve_fleet(torch, np, fleet_chips, fblocks,
+                                       fwant, counters, what, **kw)
+        emit("serve_fleet", ok=True, card=card, **fleet_runs[what])
+    X = yp.yprofile(fblocks[0][0]["frames"], fblocks[0][0]["y0"],
+                    device="cuda").cpu().numpy().astype(np.float64)
+    emit("fleet_bench", ok=True, card=card,
+         **fleet_bench(torch, np, fleet_chips, X))
+    k2_depth = fleet_k2_depth(torch, np, bs, sp, lut_ops, chips)
+    emit("fleet_k2", ok=True, card=card, runs=k2_depth)
+    emit("fleet_deep", ok=True, card=card, **fleet_deep(torch, np))
+    emit("fleet_door", ok=True, card=card,
+         **fleet_door(torch, np, chips, blocks, counters))
+
     kernels = []
     # K2's row carries the times of its R=3 (TMR) run; K1, K2 and B6's
     # dense entry count their launches in the default served stream,
@@ -1919,6 +2562,19 @@ def main():
     for row, k in ((kernels[0], "yprofile"), (kernels[1], "eval_words_voted"),
                    (kernels[6], "decode_dense")):
         row["launches_serve_net"] = net["none", "tcp", False]["launches"][k]
+    # the fleet phase (13): K1, K2 and B6's dense entry in the bit-sliced
+    # plain run, B2/B3 in the matmul one; K2 at the served chips' union
+    # and bucket-envelope depths
+    for row, k in ((kernels[0], "yprofile"), (kernels[1], "eval_words_voted"),
+                   (kernels[6], "decode_dense")):
+        row["launches_fleet"] = fleet_runs["bitsliced none"]["launches"][k]
+    for row, k in ((kernels[2], "lut_eval"), (kernels[3], "lut_eval_banded")):
+        row["launches_fleet"] = fleet_runs["matmul none"]["launches"][k]
+    kernels[1]["fleet_depth"] = {
+        key: ({k: r[k] for k in ("levels", "tile", "smem_bytes", "ms",
+                                 "plain_ms", "bound_ms", "bound_by")}
+              if isinstance(r, dict) else r)
+        for key, r in k2_depth.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

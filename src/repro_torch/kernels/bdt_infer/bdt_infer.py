@@ -127,7 +127,8 @@ def bdt_traverse(x, featsel, thr, root, left, right, value_hi, value_lo,
                  *, depth: int) -> torch.Tensor:
     """(B, F) int32 raw features -> (B, 128) int32 (column 0: the sum of
     leaf values, no f0). CUDA tensors launch the kernel; CPU tensors run
-    ``bdt_traverse_plain``."""
+    ``bdt_traverse_plain``. The launch signature (B, F, P, depth) is
+    recorded first, on either."""
     B, F = x.shape
     P = featsel.shape[1]
     shapes = {"featsel": (featsel, (F, P)), "thr": (thr, (1, P)),
@@ -138,6 +139,7 @@ def bdt_traverse(x, featsel, thr, root, left, right, value_hi, value_lo,
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} {tuple(t.shape)} != {shape}")
+    build.note_signature("bdt_infer", (B, F, P, depth))
     if x.device.type == "cpu":
         return bdt_traverse_plain(x, featsel, thr, root, left, right,
                                   value_hi, value_lo, depth=depth)

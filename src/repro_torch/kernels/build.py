@@ -11,6 +11,12 @@ library. ``build()`` starts one nvcc per source, all at once.
 There is no fallback. A missing nvcc or a failed compile raises
 ``KernelBuildError``; a refused or failed launch raises
 ``KernelLaunchError`` with the CUDA error string.
+
+``miss_counts`` reads what a warm fleet admission must not add to: the
+nvcc builds and library loads of this process, and the distinct launch
+signatures (the shape arguments a kernel is launched with) every kernel
+wrapper has recorded through ``note_signature``. A wrapper records its
+signature before it dispatches, so the CPU twins count too.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Set, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -48,6 +54,10 @@ KERNELS = tuple(PROTOTYPES)
 SMEM_LIMIT_BYTES = 232448
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# kernel name -> the distinct launch signatures its wrapper has recorded
+_SIGNATURES: Dict[str, Set[Tuple]] = {}
+# nvcc compiles and library loads of this process
+_EVENTS = {"compiles": 0, "loads": 0}
 
 
 class KernelBuildError(RuntimeError):
@@ -106,6 +116,7 @@ def build(*names: str) -> Dict[str, Dict[str, object]]:
                 f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n"
                 f"{log[-4000:]}")
         os.replace(tmp, dst)        # atomic: concurrent builders agree
+        _EVENTS["compiles"] += 1
         out[name] = {"seconds": time.monotonic() - t0, "cached": False,
                      "ptxas": log.strip()}
     return out
@@ -127,7 +138,22 @@ def load(name: str) -> ctypes.CDLL:
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
         _LIBS[name] = lib
+        _EVENTS["loads"] += 1
     return lib
+
+
+def note_signature(kernel: str, signature: Tuple) -> None:
+    """Record one launch signature of ``kernel`` (its wrapper calls this
+    before it dispatches, to the kernel or to its CPU twin)."""
+    _SIGNATURES.setdefault(kernel, set()).add(signature)
+
+
+def miss_counts() -> Tuple[int, int]:
+    """(nvcc compiles + library loads, distinct launch signatures over
+    every kernel wrapper) so far in this process: both stay put across a
+    warm fleet admission."""
+    return (_EVENTS["compiles"] + _EVENTS["loads"],
+            sum(len(v) for v in _SIGNATURES.values()))
 
 
 def aligned(x):

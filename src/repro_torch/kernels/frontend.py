@@ -42,7 +42,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.fabric import FabricConfig, FrontendSpec
+from repro_torch.core.fabric import FabricConfig, FrontendSpec, StackGeometry
 from repro_torch.core.quantize import (
     FixedSpec,
     quantize_pattern_device,
@@ -298,18 +298,19 @@ class FusedFrontend:
         stack: Optional[lut_ops.PackedFabricStack] = None,
     ) -> "FusedFrontend":
         """Hot-swap one chip's whole frontend: fabric rows via
-        PackedFabricStack.swap_chip plus this chip's encode-plan row. A
-        caller that already swapped its own shared stack passes it via
-        ``stack``."""
+        PackedFabricStack.swap_chip plus this chip's encode-plan row,
+        written in place into this frontend's plan (and stack) tensors, so
+        call it once no dispatch of this frontend is in flight. A caller
+        that already swapped its own shared stack passes it via
+        ``stack``. The staging buffers are shared."""
         validate_chip_frontend(config, chip_spec, self.spec.n_features)
         if stack is None:
-            stack = self.stack.swap_chip(slot, config)
+            stack = self.stack.swap_chip(slot, config, in_place=True)
         row = _plan_row(config, chip_spec, stack.n_inputs, stack.n_outputs)
-        plan = {}
         for k in _PLAN_KEYS:
-            t = self.plan[k].clone()
-            t[slot] = torch.as_tensor(row[k], dtype=t.dtype)
-            plan[k] = t
+            self.plan[k][slot] = torch.as_tensor(row[k],
+                                                 dtype=self.plan[k].dtype)
+        plan = dict(self.plan)
         specs = list(self.chip_specs)
         specs[slot] = chip_spec
         return dataclasses.replace(
@@ -336,13 +337,16 @@ def pack_frontend(
     batch_tile: int = 128,
     threshold_electrons: float = 800.0,
     stack: Optional[lut_ops.PackedFabricStack] = None,
+    geometry: Optional[StackGeometry] = None,
     device=None,
 ) -> FusedFrontend:
     """Pack N (config, frontend-spec) pairs into one fused dispatch on
     ``device`` (default: CUDA).
 
-    ``band``/``layout``/``redundancy`` feed the fabric stage as in
-    ``pack_fabrics``.
+    ``band``/``layout``/``redundancy``/``geometry`` feed the fabric stage
+    as in ``pack_fabrics``: a pinned ``geometry`` sizes the stack and the
+    encode plan by that envelope, so a chip swapped in later
+    (``swap_chip``) changes no shape.
     ``batch_tile`` pads each dispatch's batch to a multiple of it. A caller
     that already packed the configs shares them via ``stack``.
     """
@@ -354,13 +358,18 @@ def pack_frontend(
     if stack is None:
         stack = lut_ops.pack_fabrics(
             list(configs), band=band, redundancy=redundancy, layout=layout,
-            device=device)
+            geometry=geometry, device=device)
     elif redundancy != "none" and stack.n_replicas == 1:
         raise ValueError(
             f"redundancy={redundancy!r} but the shared stack is not "
             "redundant — pack it with pack_fabrics(redundancy=...)")
     else:
         lut_ops._check_layout(layout)
+    if geometry is not None and (
+            stack.n_levels, stack.m_pad, stack.n_inputs, stack.n_outputs) != (
+            geometry.n_levels, -(-geometry.max_level_size // 128) * 128,
+            geometry.n_inputs, geometry.n_outputs):
+        raise ValueError(f"the shared stack is not packed to {geometry}")
     if device is not None and resolve_device(device).type != stack.device.type:
         raise ValueError(f"stack lives on {stack.device}, not {device}")
     assert stack.n_chips == len(configs), (stack.n_chips, len(configs))

@@ -218,7 +218,9 @@ def eval_seg_voted(
     """Level walk + vote + disagreement words over input-segment words:
     (voted (C, W, O) int32, dis (C, R, W) int32; zeros for R=1). CUDA
     tensors launch the kernel (counted in ``eval_seg_voted.launches``);
-    CPU tensors run ``eval_seg_voted_plain``."""
+    CPU tensors run ``eval_seg_voted_plain``. Either way the launch
+    signature (C, R, W, in_seg, L, M, O) is recorded first (the word tile
+    is a function of it)."""
     C, W, in_seg = seg.shape
     R = n_replicas
     if R not in (1, N_REPLICAS):
@@ -228,6 +230,8 @@ def eval_seg_voted(
         raise ValueError(
             f"stack rows {src.shape[0]}/{tables.shape[0]}/"
             f"{output_nets.shape[0]} != n_replicas*chips = {R * C}")
+    L, M, O = src.shape[1], src.shape[2], output_nets.shape[1]
+    build.note_signature("eval_words_voted", (C, R, W, in_seg, L, M, O))
     if seg.device.type == "cpu":
         return eval_seg_voted_plain(src, tables, output_nets, seg, R)
     if any(t.device != seg.device for t in (src, tables, output_nets)):
@@ -235,7 +239,6 @@ def eval_seg_voted(
     if (src.dtype, tables.dtype, output_nets.dtype, seg.dtype) != (
             torch.int32, torch.float32, torch.int32, torch.int32):
         raise ValueError("expected int32 src/output_nets/words, f32 tables")
-    L, M, O = src.shape[1], src.shape[2], output_nets.shape[1]
     n_sms = torch.cuda.get_device_properties(seg.device).multi_processor_count
     tile = word_tile(R, in_seg, L, M, W, C, n_sms)
     src, tables = build.aligned(src), build.aligned(tables)

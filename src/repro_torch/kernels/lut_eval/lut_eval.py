@@ -164,7 +164,14 @@ def _check(bits_ext, sel, tables, level_base, win_base, n_nets_pad) -> None:
 
 
 def _run(bits_ext, sel, tables, level_base, win_base, n_nets_pad):
+    """Check, record the launch signature (C, B, in_seg, L, rows, M,
+    n_nets_pad) under the dense or banded kernel's name, and evaluate:
+    the kernel on CUDA tensors, the plain twin on CPU ones."""
     _check(bits_ext, sel, tables, level_base, win_base, n_nets_pad)
+    kernel = "lut_eval" if win_base is None else "lut_eval_banded"
+    C, B, in_seg = bits_ext.shape
+    L, rows, M = sel.shape[1], sel.shape[2], sel.shape[3] // 4
+    build.note_signature(kernel, (C, B, in_seg, L, rows, M, n_nets_pad))
     if bits_ext.device.type == "cpu":
         return lut_eval_plain(bits_ext, sel, tables, level_base, win_base,
                               n_nets_pad=n_nets_pad)
@@ -177,8 +184,6 @@ def _run(bits_ext, sel, tables, level_base, win_base, n_nets_pad):
     if any(t.dtype != d for t, d in zip(arrays, want)):
         raise ValueError("expected f32 bits_ext/tables, bf16 sel, int32 "
                          "level_base/win_base")
-    C, B = bits_ext.shape[0], bits_ext.shape[1]
-    M = sel.shape[3] // 4
     if M % 2 or n_nets_pad % 4:
         raise ValueError(f"the kernel reads sel rows and writes buffer "
                          f"rows in 16-byte units: M must be even and "

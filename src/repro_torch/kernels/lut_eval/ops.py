@@ -13,7 +13,11 @@ The JAX package's kernels/lut_eval/ops.py, both device layouts:
 ``ReadoutChip.verify_vs_golden`` through ``KernelBackend``).
 ``pack_fabrics`` stacks N bitstreams into one ``PackedFabricStack``
 sharing a padded geometry (the chip axis is the leading tensor dimension
-on one device), ``swap_chip`` hot-swaps one chip's rows, ``swap_replica``
+on one device) — the union of the configs, or a given envelope:
+``bucket_envelope`` snaps a config onto a coarse grid of envelopes and
+``pack_fabric_pool`` packs one stack a bucket, the geometry pool of the
+multi-tenant fleet (launch/fleet.py) —, ``swap_chip`` hot-swaps one
+chip's rows, ``swap_replica``
 one replica row and ``readback_replica`` reads a replica's truth tables
 back (the scrub loop's ports), and
 ``_eval_stack_scored`` is the fabric and decode stage of the fused
@@ -36,7 +40,7 @@ votes inside the launch.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -188,10 +192,15 @@ class PackedFabricStack:
                 f" ffs={config.n_ffs}, fanin_reach={config.fanin_reach()})"
             )
 
-    def swap_chip(self, slot: int, config: FabricConfig) -> "PackedFabricStack":
+    def swap_chip(self, slot: int, config: FabricConfig, *,
+                  in_place: bool = False) -> "PackedFabricStack":
         """Hot-swap one chip's bitstream: a row update of fresh tensors
-        (the old stack stays valid for batches already in flight). On a
-        redundant stack all replica rows are re-encoded."""
+        (the old stack stays valid for batches already in flight), or with
+        ``in_place`` a write into this stack's own tensors, which the
+        returned stack shares (the readout server's hot swap: it has
+        drained every batch first, and a CUDA write is ordered behind the
+        launches before it on the stream). On a redundant stack all
+        replica rows are re-encoded."""
         self._check_admits(config)
         R = self.n_replicas
         pack_one = _pack_arrays_bitsliced if self.bitsliced else _pack_arrays
@@ -204,7 +213,7 @@ class PackedFabricStack:
         lo = slot * R
 
         def rows(old: torch.Tensor, k: int) -> torch.Tensor:
-            new = old.clone()
+            new = old if in_place else old.clone()
             new[lo : lo + R] = torch.as_tensor(
                 np.stack([p[k] for p in packed])).to(old.device, old.dtype)
             return new
@@ -460,6 +469,7 @@ def pack_fabrics(
     band: bool | None = None,
     redundancy: str = "none",
     layout: str = "matmul",
+    geometry: StackGeometry | None = None,
     *,
     device=None,
 ) -> PackedFabricStack:
@@ -472,6 +482,14 @@ def pack_fabrics(
     three replica encodings of every chip as contiguous rows.
     ``layout="bitsliced"`` packs the word layout's gather indices instead
     of the selection tensor.
+
+    ``geometry`` replaces the union envelope: every config must fit it
+    (``StackGeometry.admits``, its fan-in-reach budget included), the
+    stack pads to it, and its ``fanin_reach`` IS the band (dense when
+    None; ``band`` is then not consulted). Stacks packed against one
+    envelope (``bucket_envelope``) share every shape their kernels are
+    launched with, so a config never seen before swaps into a warm stack
+    (``swap_chip``) without a new launch signature.
     """
     if redundancy not in ("none", "tmr"):
         raise ValueError(
@@ -480,10 +498,24 @@ def pack_fabrics(
     dev = resolve_device(device)
     n_replicas = N_REPLICAS if redundancy == "tmr" else 1
     geo = check_stackable(configs)
+    if geometry is not None:
+        for i, c in enumerate(configs):
+            if not geometry.admits(c):
+                raise ValueError(
+                    f"config {i} does not fit the requested envelope "
+                    f"{geometry} (levels={len(c.level_sizes)}, "
+                    f"widest={max(c.level_sizes, default=1)}, "
+                    f"inputs={c.n_inputs}, outputs={len(c.output_nets)}, "
+                    f"fanin_reach={c.fanin_reach()})")
+        geo = geometry
     L = geo.n_levels
     m_pad = _round_up(geo.max_level_size, 128)
     in_seg = _round_up(2 + geo.n_inputs, 128)
-    band_k = _band_choice(geo.fanin_reach or L, L, band)
+    if geometry is not None:
+        band_k = (min(geometry.fanin_reach, L)
+                  if geometry.fanin_reach is not None else L)
+    else:
+        band_k = _band_choice(geo.fanin_reach or L, L, band)
     bitsliced = layout == "bitsliced"
     pack_one = _pack_arrays_bitsliced if bitsliced else _pack_arrays
 
@@ -524,6 +556,88 @@ def pack_fabrics(
         n_replicas=n_replicas,
         **routing,
     )
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def bucket_envelope(
+    config: FabricConfig,
+    band: bool | None = None,
+    width_quant: int = 128,
+) -> StackGeometry:
+    """Snap one config's shape onto a coarse grid: the bucket key of the
+    geometry pool (``pack_fabric_pool``, launch/fleet.py). Every axis is
+    a ceiling, so the envelope always ``admits`` its config:
+
+    * ``n_levels``       -> the next power of two;
+    * ``max_level_size`` -> the next multiple of ``width_quant``;
+    * ``n_inputs``       -> the whole 128-aligned input segment
+      (``in_seg - 2``);
+    * ``n_outputs``      -> the next power of two, at most 31 (the int32
+      score decode of ``decode_plan``);
+    * ``fanin_reach``    -> the next power of two, at most the snapped
+      depth; None (dense) when it reaches every level or ``band=False``
+      (``band=True`` keeps a reach equal to the depth).
+
+    The returned ``StackGeometry`` is hashable: the bucket key itself."""
+    c = config
+    L = _next_pow2(max(len(c.level_sizes), 1))
+    width = _round_up(max(c.level_sizes, default=1), width_quant)
+    n_inputs = _round_up(2 + c.n_inputs, 128) - 2
+    n_outputs = min(_next_pow2(max(len(c.output_nets), 1)), 31)
+    reach: int | None = min(_next_pow2(max(c.fanin_reach(), 1)), L)
+    if band is False or (band is None and reach >= L):
+        reach = None
+    return StackGeometry(
+        n_levels=L,
+        max_level_size=width,
+        n_inputs=n_inputs,
+        n_outputs=n_outputs,
+        fanin_reach=reach,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricBucket:
+    """One geometry bucket of a fabric pool: ``stack`` is packed against
+    ``envelope`` (not the union of its members), and ``members[j]`` is
+    the index, into the configs given to ``pack_fabric_pool``, of the
+    config in stack slot ``j``."""
+
+    envelope: StackGeometry
+    stack: PackedFabricStack
+    members: Tuple[int, ...]
+
+
+def pack_fabric_pool(
+    configs: Sequence[FabricConfig],
+    band: bool | None = None,
+    redundancy: str = "none",
+    layout: str = "matmul",
+    width_quant: int = 128,
+    *,
+    device=None,
+) -> List[FabricBucket]:
+    """Bin configs by ``bucket_envelope`` and pack each bin against its
+    envelope on ``device`` (default: CUDA): one stack, and one set of
+    launch signatures, a bucket. Buckets come in the first-seen order of
+    their envelopes; ``redundancy`` and ``layout`` apply to all."""
+    bins: dict = {}
+    for i, c in enumerate(configs):
+        bins.setdefault(bucket_envelope(c, band, width_quant), []).append(i)
+    return [
+        FabricBucket(
+            envelope=env,
+            stack=pack_fabrics(
+                [configs[i] for i in idxs], band=band,
+                redundancy=redundancy, layout=layout, geometry=env,
+                device=device),
+            members=tuple(idxs),
+        )
+        for env, idxs in bins.items()
+    ]
 
 
 def _bits_ext(bits: torch.Tensor, n_inputs: int, in_seg: int) -> torch.Tensor:

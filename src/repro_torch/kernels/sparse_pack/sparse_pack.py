@@ -236,6 +236,7 @@ def decode_pack(
     tensors launch B6; CPU tensors run ``decode_pack_plain``."""
     C, W, O, R, B = _decode_inputs(voted_w, dis_w, out_weight,
                                    threshold_raw, valid, "decode_pack")
+    build.note_signature("sparse_pack_decode", (C, W, O, R, B))
     if voted_w.device.type == "cpu":
         return decode_pack_plain(voted_w, dis_w, out_weight, threshold_raw,
                                  valid)
@@ -260,6 +261,7 @@ def pack_keep_words(keep_w: torch.Tensor, scores: torch.Tensor) -> Packed:
     if tuple(scores.shape) != (C, W, WORD):
         raise ValueError(f"scores {tuple(scores.shape)} != (C, W, 32) = "
                          f"{(C, W, WORD)}")
+    build.note_signature("sparse_pack_keep_words", (C, W))
     if keep_w.device.type == "cpu":
         return pack_words_plain(keep_w, scores)
     _check_cuda((keep_w, scores), (torch.int32, torch.int32),
@@ -291,6 +293,7 @@ def decode_dense(
     entry; CPU tensors run ``decode_dense_plain``."""
     C, W, O, R, B = _decode_inputs(voted_w, dis_w, out_weight,
                                    threshold_raw, valid, "decode_dense")
+    build.note_signature("decode_dense", (C, W, O, R, B))
     if voted_w.device.type == "cpu":
         return decode_dense_plain(voted_w, dis_w, out_weight, threshold_raw,
                                   valid)

@@ -59,13 +59,15 @@ def yprofile_traced(frames: torch.Tensor, y0: torch.Tensor, *,
     (C, B, T, Y, X) f32 + (C, B) f32 -> (C, B, 128) f32 with the profile
     in columns [0, N_Y), y0 in column N_Y and zeros elsewhere. CUDA
     tensors launch the kernel (counted in ``yprofile_traced.launches``);
-    CPU tensors run the plain twin."""
+    CPU tensors run the plain twin. The launch signature (C, B) is
+    recorded first, on either."""
     if frames.ndim != 5 or tuple(frames.shape[2:]) != (N_T, N_Y, N_X):
         raise ValueError(f"frames must be (C, B, {N_T}, {N_Y}, {N_X}), "
                          f"got {tuple(frames.shape)}")
     if tuple(y0.shape) != tuple(frames.shape[:2]):
         raise ValueError(f"y0 {tuple(y0.shape)} != frames (C, B) "
                          f"{tuple(frames.shape[:2])}")
+    build.note_signature("yprofile", tuple(frames.shape[:2]))
     if frames.device.type == "cpu":
         return yprofile_plain(frames, y0, threshold)
     if frames.device.type != "cuda" or y0.device != frames.device:

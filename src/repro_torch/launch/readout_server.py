@@ -54,8 +54,14 @@ step, once the event has completed.
 
 Every time comes from the one injected ``clock``.
 
-Not ported yet: per-tenant quotas (``tenant_quota_queued`` raises
-NotPortedError). See ROADMAP queue A.
+The multi-tenant fleet (launch/fleet.py) drives one server a geometry
+bucket through three hooks: ``envelope=`` pins the server's geometry to
+the bucket's (kernels.lut_eval.ops.bucket_envelope), ``cancel_queued``
+drops an evicted tenant's queued events, and ``rebind_mesh`` binds the
+server to the plan the fleet re-makes after a grow or shrink (one
+device: a flush). The fleet, not the server, reads
+``ServerConfig.tenant_quota_queued``; its admission misses read the
+server's ``shape_misses``.
 """
 from __future__ import annotations
 
@@ -90,6 +96,7 @@ from repro_torch.core.tmr import (
 from repro_torch.data.smartpixel import N_FEATURES as _N_FEATURES
 from repro_torch.data.smartpixel import N_T, N_X, N_Y
 from repro_torch.device import NotPortedError, resolve_device
+from repro_torch.kernels import build
 from repro_torch.parallel.compression import (
     DENSE_BYTES_PER_EVENT,
     SPARSE_BYTES_PER_EVENT,
@@ -213,11 +220,9 @@ class LatencyHistogram:
 class ServerConfig:
     """Micro-batching knobs; the same fields, defaults and validation
     errors as the JAX package's ServerConfig (its docstring documents
-    each knob).
-
-    Every knob is served except ``tenant_quota_queued``: a non-default
-    value raises NotPortedError naming the ROADMAP item.
-    """
+    each knob). ``tenant_quota_queued`` caps each tenant's outstanding
+    events in a fleet (launch/fleet.py reads it; a lone server does
+    not)."""
 
     max_batch: int = 2048
     max_latency_s: float = 5e-3
@@ -349,16 +354,6 @@ class ServerConfig:
                 f"tenant_quota_queued must be a positive int (max "
                 f"outstanding events per tenant) or None to disable, got "
                 f"{self.tenant_quota_queued!r}")
-        self._check_ported()
-
-    def _check_ported(self) -> None:
-        """A non-default value of a knob this port does not carry yet is
-        refused here, by name — never silently ignored."""
-        if self.tenant_quota_queued is not None:
-            raise NotPortedError(
-                f"ServerConfig.tenant_quota_queued="
-                f"{self.tenant_quota_queued!r} is not ported yet: ROADMAP "
-                "queue A, tenant quotas (fleet slice, A.8)")
 
     @property
     def n_replicas(self) -> int:
@@ -437,12 +432,22 @@ class ReadoutServer:
         chips: Sequence[ReadoutChip],
         config: ServerConfig = ServerConfig(),
         clock=time.monotonic,
+        envelope: Optional[StackGeometry] = None,
         *,
         device=None,
     ):
         """``device`` is where the fused pass (kernel backend) or the
         featurizer (host backend) runs: None means CUDA, and without CUDA
-        only an explicit ``device="cpu"`` is accepted."""
+        only an explicit ``device="cpu"`` is accepted.
+
+        ``envelope`` pins the server's fixed geometry to a given
+        StackGeometry in place of the chips' union (the fleet's bucket,
+        kernels.lut_eval.ops.bucket_envelope): every chip must fit it,
+        the stack and the fused pass's encode plan pad to it, and its
+        fan-in-reach budget decides banded or dense (``config.band`` is
+        not consulted). Servers that share an envelope launch their
+        kernels with the same shapes, so a chip that fits admits through
+        ``reconfigure`` without a new launch signature."""
         if not chips:
             raise ValueError("need at least one chip")
         self.device = resolve_device(device)
@@ -457,10 +462,24 @@ class ReadoutServer:
         # the server's FIXED envelope, validated on every hot-swap by
         # both backends (see the JAX package's server for the rationale)
         geo = check_stackable([c.config for c in self.chips])
-        banded = (
-            config.band is not False
-            and (geo.fanin_reach or geo.n_levels) < geo.n_levels
-        )
+        if envelope is not None:
+            for i, c in enumerate(self.chips):
+                if not envelope.admits(c.config):
+                    raise ValueError(
+                        f"chip {i} does not fit the pinned envelope "
+                        f"{envelope} (levels={len(c.config.level_sizes)}, "
+                        f"widest={max(c.config.level_sizes, default=1)}, "
+                        f"inputs={c.config.n_inputs}, "
+                        f"outputs={len(c.config.output_nets)}, "
+                        f"fanin_reach={c.config.fanin_reach()})")
+            geo = envelope
+            banded = (envelope.fanin_reach is not None
+                      and envelope.fanin_reach < envelope.n_levels)
+        else:
+            banded = (
+                config.band is not False
+                and (geo.fanin_reach or geo.n_levels) < geo.n_levels
+            )
         self.layout = config.effective_layout
         self.geometry: StackGeometry = dataclasses.replace(
             geo if banded else dataclasses.replace(geo, fanin_reach=None),
@@ -483,15 +502,21 @@ class ReadoutServer:
         self._frontend = None  # fused frames pass, built on first use
         # side stream of the drain's kept-prefix copies (CUDA only)
         self._copy_stream = None
+        # the pinned envelope as the stack and the encode plan take it
+        self._pinned = (None if envelope is None else
+                        dataclasses.replace(self.geometry, frontend=None))
+        self._mesh = None
         if config.backend == "kernel":
             from repro_torch.kernels.lut_eval import ops as lut_ops
+            from repro_torch.launch.mesh import make_readout_mesh
 
             self._lut_ops = lut_ops
             self._stack = lut_ops.pack_fabrics(
                 [c.config for c in self.chips], band=config.band,
                 redundancy=config.redundancy, layout=self.layout,
-                device=self.device,
+                geometry=self._pinned, device=self.device,
             )
+            self._mesh = make_readout_mesh(self.n_chips, device=self.device)
             self._out_weight = lut_ops.decode_plan(
                 [c.config for c in self.chips], self._stack.n_outputs)
             if self.device.type == "cuda":
@@ -592,6 +617,11 @@ class ReadoutServer:
         self._frame_gen = [0] * n_frames
         # the network front door's stats() (net/ingress.py attaches it)
         self._net_stats_provider: Optional[Callable[[], Dict]] = None
+        # hot swaps, and launches at a (path, egress, batch width) launched
+        # before, that added a build or a launch signature: 0 expected
+        # (_launch_counted; the fleet's admission misses read it)
+        self.shape_misses = 0
+        self._launch_keys: set = set()
 
     def attach_net_stats(self, provider: Optional[Callable[[], Dict]]
                          ) -> None:
@@ -650,6 +680,19 @@ class ReadoutServer:
         """Enqueue a block of pre-featurized events (rows of X); shed rows
         yield None."""
         return [self.submit(chip, row) for row in np.asarray(X)]
+
+    def cancel_queued(self, chip: int) -> int:
+        """Drop every QUEUED (admitted, not yet coalesced) event of one
+        chip slot; returns how many. The fleet's eviction port: a tenant
+        evicted without draining loses its queued events here, counted as
+        ``evicted_while_queued``. Events already in an in-flight batch
+        are not cancelled; they drain as usual. Other chips' events are
+        untouched."""
+        self._check_chip(chip)
+        n0 = len(self._queue)
+        self._queue = collections.deque(
+            e for e in self._queue if e[1] != chip)
+        return n0 - len(self._queue)
 
     def submit_frames(
         self, chip: int, frames: np.ndarray, y0: np.ndarray
@@ -759,15 +802,37 @@ class ReadoutServer:
         frame_events = [e for e in events if e[2] == "frames"]
         feat_events = [e for e in events if e[2] == "features"]
         if frame_events:
-            self._inflight.append(self._launch_frames(frame_events))
+            self._inflight.append(self._launch_counted(
+                "frames", self._launch_frames, frame_events))
         if feat_events:
-            self._inflight.append(self._launch_features(feat_events))
+            self._inflight.append(self._launch_counted(
+                "features", self._launch_features, feat_events))
         done = self._drain_ready()
         self._dispatch_idx += 1
         si = self._effective_scrub_interval()
         if si is not None and self._dispatch_idx % si == 0:
             self.scrub_step()
         return done
+
+    def _launch_counted(self, kind: str, launch, events: List[_Event]
+                        ) -> _Inflight:
+        """``launch(events)``, counted in ``shape_misses`` if it added an
+        nvcc build, a library load or a launch signature
+        (kernels/build.py miss_counts) at a (path, egress, batch width)
+        this server had launched before: every shape is a function of the
+        fixed geometry and the batch width alone, so only a new width may
+        add one (the host backend featurizes each chip at its own count)."""
+        counts = collections.Counter(e[1] for e in events).values()
+        widths = ((self._pad_batch(max(counts)),)
+                  if self.config.backend == "kernel"
+                  else tuple(sorted(set(counts))))
+        key = (kind, self._sparse_active(), widths)
+        before = build.miss_counts()
+        inflight = launch(events)
+        if key in self._launch_keys and build.miss_counts() != before:
+            self.shape_misses += 1
+        self._launch_keys.add(key)
+        return inflight
 
     def _effective_scrub_interval(self) -> Optional[int]:
         """The configured scrub interval, widened by SCRUB_RELAX_FACTOR
@@ -1039,6 +1104,7 @@ class ReadoutServer:
                 batch_tile=self.config.batch_tile,
                 threshold_electrons=self.config.threshold_electrons,
                 stack=self._stack,  # share the server's packed tensors
+                geometry=self._pinned,
             )
         return self._frontend
 
@@ -1292,9 +1358,10 @@ class ReadoutServer:
     # ------------------------------------------------------- reconfigure
     def reconfigure(self, slot: int, new_chip: ReadoutChip) -> List[ScoredEvent]:
         """Hot-swap slot's bitstream: a row update of the stack and the
-        encode plan, no rebuild. Pending events are flushed first (they
-        were submitted against the old configuration); returns their
-        results. The new config must fit the server's fixed envelope."""
+        encode plan, written in place (nothing is rebuilt or reallocated).
+        Pending events are flushed first (they were submitted against the
+        old configuration); returns their results. The new config must
+        fit the server's fixed envelope."""
         assert 0 <= slot < self.n_chips, slot
         cfg = new_chip.config
         if cfg.n_ffs or not self.geometry.admits(cfg):
@@ -1310,6 +1377,7 @@ class ReadoutServer:
         validate_chip_frontend(cfg, new_chip.frontend_spec(),
                                self.geometry.frontend.n_features)
         done = self.flush()
+        before = build.miss_counts()
         R = self.n_replicas
         self._replica_configs[slot * R : (slot + 1) * R] = [
             replicate_config(cfg, r) for r in range(R)
@@ -1318,7 +1386,7 @@ class ReadoutServer:
         self._thr_raw = np.array(
             [c.score_threshold_raw for c in self.chips], np.int32)
         if self.config.backend == "kernel":
-            self._stack = self._stack.swap_chip(slot, cfg)
+            self._stack = self._stack.swap_chip(slot, cfg, in_place=True)
             self._out_weight = self._lut_ops.decode_plan(
                 [c.config for c in self.chips], self._stack.n_outputs)
             if self._frontend is not None:
@@ -1327,6 +1395,8 @@ class ReadoutServer:
         else:
             self._multisim = MultiFabricSim(
                 self._replica_configs, geometry=self.geometry)
+        if build.miss_counts() != before:
+            self.shape_misses += 1
         self._frame_sims[slot] = None
         # the slot's golden truth IS the new bitstream now; pending samples
         # of the old one are stale, and old disagreements must not steer
@@ -1335,6 +1405,26 @@ class ReadoutServer:
             fi = self._frame_index(slot, r)
             self._frame_gen[fi] += 1
             self._scrub_last_dis[fi] = self._stats[slot].disagreements[r]
+        return done
+
+    def rebind_mesh(self, mesh) -> List[ScoredEvent]:
+        """Bind the server to a device plan (launch.mesh.ReadoutMesh),
+        the fleet's grow/shrink port. Pending work is flushed first and
+        returned, as ``reconfigure`` does. The port serves a whole chip
+        axis on one device, the one its stack lives on: a plan of that
+        device binds without copying anything, and a plan of another
+        device raises NotPortedError (moving a live server to another
+        card is not ported). A no-op on the host backend."""
+        if self.config.backend != "kernel":
+            return []
+        if mesh.device != self._stack.device:
+            raise NotPortedError(
+                f"the server's stack lives on {self._stack.device}; "
+                f"rebinding it to {mesh.device} (a multi-card plan) is not "
+                "ported (ROADMAP A.15): plan every bucket on the server's "
+                "device")
+        done = self.flush()
+        self._mesh = mesh
         return done
 
     # ----------------------------------------------------- fault injection

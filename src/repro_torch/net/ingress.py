@@ -46,18 +46,23 @@ import asyncio
 import collections
 import dataclasses
 import queue
+import socket
 import threading
 from typing import Callable, Deque, Dict, Hashable, List, Mapping, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.device import NotPortedError
 from repro_torch.net import protocol as P
 
 # a client that falls further than this many messages behind its own
 # max-seen seq stops being tracked hole-by-hole (the hole set is
 # bounded; older holes become permanent seq_gaps)
 _MAX_TRACKED_HOLES = 4096
+# the UDP endpoint's receive buffer: a datagram that arrives at a full
+# one is lost, and the usual 212,992-byte default holds three of the
+# 61 KB datagrams a 7-event frames batch takes (the kernel caps the ask
+# at net.core.rmem_max)
+UDP_RCVBUF_BYTES = 4 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,11 +80,13 @@ class FrontDoorConfig:
         decoded messages are handed back to the loop thread, so ALL
         accounting still happens single-threaded and stays exact.
     sensor_tenants: wire sensor_id -> serving-target key. ``None``
-        (default) is the single-server identity routing: sensor_id IS
-        the chip slot, bounds-checked against ``server.n_chips``. A
-        mapping fronts a multi-tenant fleet, which is not ported yet:
-        it is validated as in the JAX package, then refused with
-        NotPortedError.
+        (default) keeps the single-server identity routing: sensor_id
+        IS the chip slot, bounds-checked against ``server.n_chips``.
+        Set it to front a multi-tenant fleet (launch/fleet.py): each
+        sensor maps onto a fleet tenant key, unmapped sensors (and
+        sensors whose tenant is retired — ``has_tenant`` is consulted
+        when the target offers it) count as ``events_bad_sensor``
+        instead of crashing the pump.
     """
 
     queue_events: int = 8192
@@ -100,10 +107,6 @@ class FrontDoorConfig:
             raise ValueError(
                 f"sensor_tenants must be a mapping (sensor_id -> tenant) "
                 f"or None, got {self.sensor_tenants!r}")
-        if self.sensor_tenants is not None:
-            raise NotPortedError(
-                "FrontDoorConfig.sensor_tenants fronts a TenantFleet, which "
-                "is not ported yet: ROADMAP queue A, fleet slice (A.8)")
 
 
 class _Client:
@@ -283,12 +286,28 @@ class ReadoutFrontDoor:
             # a client sending server-role messages is malformed traffic
             st.udp_errors += 1
 
+    def _submit_key(self, sensor_id: int) -> Optional[Hashable]:
+        """Resolve a wire sensor_id to the serving target's submit key:
+        identity (bounds-checked chip slot) against a single server, or
+        the configured tenant key against a fleet. None = bad sensor."""
+        m = self.config.sensor_tenants
+        if m is None:
+            return sensor_id if sensor_id < self.server.n_chips else None
+        tenant = m.get(sensor_id)
+        if tenant is None:
+            return None
+        has = getattr(self.server, "has_tenant", None)
+        if has is not None and not has(tenant):
+            return None
+        return tenant
+
     def _submit(self, st: _Client, msg: P.Message) -> None:
-        if msg.sensor_id >= self.server.n_chips:
+        key = self._submit_key(msg.sensor_id)
+        if key is None:
             st.counters["events_bad_sensor"] += msg.n_events
             return
         pb = _PendingBatch(msg.sensor_id, msg.n_events)
-        seqs = self.server.submit_frames(msg.sensor_id, msg.frames, msg.y0)
+        seqs = self.server.submit_frames(key, msg.frames, msg.y0)
         for pos, s in enumerate(seqs):
             if s is None:
                 st.counters["events_shed"] += 1
@@ -419,6 +438,8 @@ class ReadoutFrontDoor:
             self._udp_transport, _ = \
                 await self._loop.create_datagram_endpoint(
                     lambda: _UdpEndpoint(self), local_addr=(host, udp_port))
+            self._udp_transport.get_extra_info("socket").setsockopt(
+                socket.SOL_SOCKET, socket.SO_RCVBUF, UDP_RCVBUF_BYTES)
         if self.config.offload_decode:
             self._decode_q = queue.Queue()
             self._decode_thread = threading.Thread(

@@ -158,12 +158,18 @@ def test_swap_chip_and_threshold_update_plan_rows(farm):
     pairs, fr, y0, _, _ = farm
     pf = _port_frontend(pairs, "tmr")
     new = chip_pair("efpga_130nm", seed=6)[1]
+    before = {k: v.clone() for k, v in pf.plan.items()}
     sw = pf.swap_chip(0, new.config, new.frontend_spec())
     score, _, _ = sw.score_frames_voted(fr[:, :64], y0[:, :64])
     feats = port_yp.yprofile(fr[0, :64], y0[0, :64], device="cpu").numpy()
     np.testing.assert_array_equal(score[0].numpy(), _oracle(new, feats))
-    for k, v in pf.plan.items():
+    row = port_fe._plan_row(new.config, new.frontend_spec(),
+                            sw.stack.n_inputs, sw.stack.n_outputs)
+    for k, v in before.items():
         assert torch.equal(v[1:], sw.plan[k][1:]), k
+        assert sw.plan[k] is pf.plan[k], k      # written in place
+        assert torch.equal(sw.plan[k][0],
+                           torch.as_tensor(row[k], dtype=v.dtype)), k
     st = sw.set_threshold(2, -7)
     assert int(st.plan["threshold_raw"][2]) == -7
     assert st.chip_specs[2].threshold_raw == -7

@@ -49,16 +49,19 @@ print(" ".join(names))
 assert not bad, bad
 """
 
-# modules the blocked import must reach, the sparse-egress and network
-# slices' among them (a package that failed to import would drop out of
-# the walk)
+# modules the blocked import must reach, the sparse-egress, network and
+# fleet slices' among them (a package that failed to import would drop
+# out of the walk)
 REQUIRED_MODULES = ("repro_torch.parallel.compression",
                     "repro_torch.kernels.sparse_pack.sparse_pack",
                     "repro_torch.kernels.lut_eval.ops",
                     "repro_torch.launch.readout_server",
                     "repro_torch.net.protocol",
                     "repro_torch.net.ingress",
-                    "repro_torch.net.replay")
+                    "repro_torch.net.replay",
+                    "repro_torch.launch.fleet",
+                    "repro_torch.launch.mesh",
+                    "repro_torch.train.elastic")
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -93,8 +96,11 @@ def _entry_points():
     from repro_torch.kernels.bdt_infer.ops import bdt_infer, pack_ensemble
     from repro_torch.kernels.frontend import pack_frontend
     from repro_torch.kernels.lut_eval.ops import (
-        fabric_eval, fabric_eval_multi, pack_fabric, pack_fabrics)
+        fabric_eval, fabric_eval_multi, pack_fabric, pack_fabric_pool,
+        pack_fabrics)
     from repro_torch.kernels.yprofile.ops import yprofile
+    from repro_torch.launch.fleet import TenantFleet
+    from repro_torch.launch.mesh import make_fleet_meshes, make_readout_mesh
     from repro_torch.launch.readout_server import ReadoutServer
     from repro_torch.net.replay import host_oracle
 
@@ -121,6 +127,10 @@ def _entry_points():
         "fabric_eval_multi": lambda: fabric_eval_multi(
             [_config()], np.zeros((1, 2, _config().n_inputs), np.uint8)),
         "net.replay.host_oracle": lambda: host_oracle(_chip()),
+        "TenantFleet": lambda: TenantFleet(),
+        "pack_fabric_pool": lambda: pack_fabric_pool([_config()]),
+        "make_readout_mesh": lambda: make_readout_mesh(1),
+        "make_fleet_meshes": lambda: make_fleet_meshes([1]),
     }
 
 
@@ -140,7 +150,9 @@ def _spec():
     "resolve_device", "yprofile", "pack_fabrics", "pack_frontend",
     "ReadoutServer", "KernelBackend.score_bits", "HostBackend.score_frames",
     "convert.plan_from_numpy", "pack_fabric", "fabric_eval", "pack_ensemble",
-    "bdt_infer", "fabric_eval_multi", "net.replay.host_oracle"])
+    "bdt_infer", "fabric_eval_multi", "net.replay.host_oracle",
+    "TenantFleet", "pack_fabric_pool", "make_readout_mesh",
+    "make_fleet_meshes"])
 def test_entry_point_without_cuda_raises_named_error(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

@@ -8,7 +8,10 @@ client sending server-role messages, a queue at capacity, a sensor id
 past the server's chips, a client gone before its answer, and deadline
 sheds under an injected FakeClock. Stated tolerance: exact. After every
 step both doors must have sent the same bytes to every client, and at
-the end their ``stats()`` and ``report()["net"]`` must be equal.
+the end their ``stats()`` and ``report()["net"]`` must be equal. A door
+with ``sensor_tenants`` in front of a fleet (launch/fleet.py) is held
+the same way against the JAX door in front of the JAX fleet, an unmapped
+and a retired tenant's sensor among its feeds.
 
 Both servers run on frozen clocks, so a micro-batch forms only at
 ``max_batch`` or a flush, at the same points in both. The JAX servers use
@@ -28,7 +31,8 @@ from repro.launch.readout_server import ServerConfig as JaxConfig  # noqa: E402
 from repro.net.ingress import FrontDoorConfig as JaxDoorConfig  # noqa: E402
 from repro.net.ingress import ReadoutFrontDoor as JaxDoor  # noqa: E402
 from repro_torch.data.pipeline import FrameStream, FrameStreamConfig  # noqa: E402
-from repro_torch.device import NotPortedError  # noqa: E402
+from repro.launch.fleet import TenantFleet as JaxFleet  # noqa: E402
+from repro_torch.launch.fleet import TenantFleet  # noqa: E402
 from repro_torch.launch.readout_server import ReadoutServer, ServerConfig  # noqa: E402
 from repro_torch.net import protocol as P  # noqa: E402
 from repro_torch.net.ingress import FrontDoorConfig, ReadoutFrontDoor  # noqa: E402
@@ -262,6 +266,37 @@ def test_net_report_is_detached_until_a_door_attaches(farm):
     assert server.report()["net"] == {"attached": False}
 
 
+def test_udp_endpoint_asks_for_a_wide_receive_buffer(farm):
+    """The door's UDP socket gets the receive buffer UDP_RCVBUF_BYTES
+    asks for (as far as the kernel grants it to any socket), in place of
+    the default that holds three 7-event datagrams."""
+    import asyncio
+    import socket
+
+    from repro_torch.net import ingress
+
+    _, port_chips, _ = farm
+    door = ReadoutFrontDoor(ReadoutServer(port_chips, ServerConfig(),
+                                          device="cpu"))
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    default = probe.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+    probe.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
+                     ingress.UDP_RCVBUF_BYTES)
+    granted = probe.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+    probe.close()
+
+    async def go():
+        await door.start()
+        try:
+            return door._udp_transport.get_extra_info("socket").getsockopt(
+                socket.SOL_SOCKET, socket.SO_RCVBUF)
+        finally:
+            await door.stop()
+
+    got = asyncio.run(go())
+    assert got == granted and ingress.UDP_RCVBUF_BYTES > default
+
+
 def test_front_door_refuses_a_sparse_server(farm):
     _, port_chips, _ = farm
     server = ReadoutServer(port_chips, ServerConfig(sparse=True),
@@ -270,11 +305,69 @@ def test_front_door_refuses_a_sparse_server(farm):
         ReadoutFrontDoor(server)
 
 
-def test_sensor_tenants_validates_then_is_not_ported():
-    with pytest.raises(ValueError, match="sensor_tenants"):
+def test_sensor_tenants_validates_like_jax():
+    with pytest.raises(ValueError, match="sensor_tenants") as e:
         FrontDoorConfig(sensor_tenants=[("a", 1)])
-    with pytest.raises(NotPortedError, match="A.8"):
-        FrontDoorConfig(sensor_tenants={0: "pix"})
+    with pytest.raises(ValueError) as je:
+        JaxDoorConfig(sensor_tenants=[("a", 1)])
+    assert str(e.value) == str(je.value)
+    cfg = FrontDoorConfig(sensor_tenants={0: "pix"})
+    assert cfg.sensor_tenants == JaxDoorConfig(
+        sensor_tenants={0: "pix"}).sensor_tenants
+
+
+class FleetTwin(Twin):
+    """The JAX door over a JAX fleet (host backend) and the port's door
+    over the port's fleet (its default served path on the CPU), each
+    fleet holding tenants "pix" and "neu" and the retired "old"."""
+
+    def __init__(self, farm, sensor_tenants):
+        jax_chips, port_chips, self.blocks = farm
+        kw = dict(max_batch=32, max_latency_s=1e9, batch_tile=128)
+        self.clocks = (FakeClock(), FakeClock())
+        self.servers = (
+            JaxFleet(JaxConfig(backend="host", **kw), clock=self.clocks[0],
+                     bucket_slots=2),
+            TenantFleet(ServerConfig(**kw), clock=self.clocks[1],
+                        bucket_slots=2, device="cpu"))
+        for fleet, chips in zip(self.servers, (jax_chips, port_chips)):
+            for tenant, chip in (("pix", chips[0]), ("neu", chips[1]),
+                                 ("old", chips[1])):
+                fleet.admit(tenant, chip)
+            fleet.retire("old")
+        door = dict(sensor_tenants=sensor_tenants)
+        self.doors = (JaxDoor(self.servers[0], JaxDoorConfig(**door)),
+                      ReadoutFrontDoor(self.servers[1],
+                                       FrontDoorConfig(**door)))
+        self.sent = ({}, {})
+
+
+def test_port_door_over_fleet_sends_the_jax_doors_bytes(farm):
+    """Sensors 0 and 1 map onto tenants, sensor 2 onto nothing and
+    sensor 3 onto a retired tenant: both doors send the same bytes after
+    every step and end with the same stats(); the last two sensors'
+    events count as events_bad_sensor and reach no fleet."""
+    twin = FleetTwin(farm, {0: "pix", 1: "neu", 3: "old"})
+    twin.connect("udp", stream=False)
+    twin.connect("tcp", stream=True)
+    for b in range(4):
+        twin.call("feed_datagram", "udp", twin.wire(b, b % 2))
+        twin.call("feed", "tcp", twin.wire(b + 4, 1 - b % 2, seq=2 * b))
+        twin.call("feed", "tcp", twin.wire(b + 8, 0, seq=2 * b + 1,
+                                           wire_sensor=2 + b % 2))
+        twin.call("pump")
+    twin.call("feed_datagram", "udp", P.encode_flush(0, 4))
+    twin.call("feed", "tcp", P.encode_flush(1, 8))
+    net, msgs = twin.finish()
+    totals = net["totals"]
+    assert totals["events_bad_sensor"] == 4 * EVENTS
+    assert totals["events_admitted"] == 8 * EVENTS
+    ledgers = [f.report()["tenants"] for f in twin.servers]
+    assert ledgers[1] == ledgers[0]
+    assert ledgers[1]["old"]["events_in"] == 0
+    assert (ledgers[1]["pix"]["events_out"] + ledgers[1]["neu"]["events_out"]
+            == 8 * EVENTS)
+    assert sum(m.msg_type == P.MSG_FLUSH_ACK for m in msgs) == 2
 
 
 def test_door_config_fields_and_validation_match_jax():

@@ -690,3 +690,134 @@ def test_tcp_replay_against_a_door_over_a_card_server(card):
         assert rep.ack["events_in"] == 256 == rep.ack["events_admitted"]
     assert server.report()["net"]["totals"]["events_in"] == 512
     assert all(fn.launches > n for fn, n in zip(wrappers, before))
+
+
+def _card_oracle(chip, frames, y0):
+    """(score, keep) of the numpy oracle on the featurizer kernel's
+    features of the frames."""
+    from repro_torch.core.fabric import FabricSim
+
+    feats = yp.yprofile(frames, y0, device="cuda").cpu().numpy()
+    outs, _ = FabricSim(chip.config).run(chip.encode_features(feats))
+    score = chip.synth.decode_outputs(np.asarray(outs))
+    return score, score <= chip.score_threshold_raw
+
+
+@pytest.mark.parametrize("redundancy", ["none", "tmr"])
+@pytest.mark.parametrize("layout", ["bitsliced", "matmul"])
+def test_fleet_on_card_equals_the_oracle(card, layout, redundancy):
+    """Raw frames of three tenants through a fleet on the card, one slot
+    a bucket, so that the third tenant evicts the second and the second
+    comes back from its golden image: every delivered event equals its
+    tenant's oracle, every ledger closes, the bucket kernels launched."""
+    from repro_torch.launch.fleet import TenantFleet
+    from repro_torch.launch.readout_server import ServerConfig
+
+    chips, frames, y0 = card
+    fleet = TenantFleet(ServerConfig(layout=layout, redundancy=redundancy),
+                        bucket_slots=1, device="cuda")
+    plan = (("a", 0, 0), ("b", 1, 1), ("c", 1, 0), ("b", 1, 1))
+    want, n0 = {}, bs.eval_seg_voted.launches + sum(
+        f.launches for f in (le.lut_eval_stacked, le.lut_eval_banded_stacked))
+    for k, (tenant, chip, src) in enumerate(plan):
+        if not fleet.has_tenant(tenant):
+            fleet.admit(tenant, chips[chip])
+        lo = 64 * k
+        fr, z = frames[src][lo:lo + 64], y0[src][lo:lo + 64]
+        score, keep = _card_oracle(chips[chip], fr, z)
+        for s, sc, kp in zip(fleet.submit_frames(tenant, fr, z), score, keep):
+            want[s] = (tenant, int(sc), bool(kp))
+    got = {r.seq: (r.tenant, r.score_raw, r.keep) for r in fleet.flush()}
+    torch.cuda.synchronize()
+    assert got == want
+    rep = fleet.report()
+    assert rep["tenants"]["b"]["readmissions"] == 1
+    for led in rep["tenants"].values():
+        assert led["events_in"] == led["events_out"] and not any(
+            led["seu_disagreements"])
+    assert bs.eval_seg_voted.launches + sum(
+        f.launches for f in (le.lut_eval_stacked,
+                             le.lut_eval_banded_stacked)) > n0
+
+
+def test_warm_fleet_admission_on_card_adds_no_build_or_signature(card):
+    """A second tenant admits into a warm bucket on the card with the
+    first one's frames pending: no nvcc build, no library load, no new
+    launch signature, the stack, encode plan and copy stream kept, and
+    both tenants' events exact."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.fleet import TenantFleet
+    from repro_torch.launch.readout_server import ServerConfig
+
+    chips, frames, y0 = card
+    fleet = TenantFleet(ServerConfig(), bucket_slots=2, device="cuda")
+    fleet.admit("a", chips[1])
+    fleet.submit_frames("a", frames[1][:128], y0[1][:128])
+    fleet.flush()
+    torch.cuda.synchronize()
+    srv = fleet._buckets[0].server
+    keep = (srv._stack.src.data_ptr(), srv._stack.tables.data_ptr(),
+            srv._frontend.plan["feat_idx"].data_ptr(), srv._copy_stream)
+    misses = build.miss_counts()
+    sa = fleet.submit_frames("a", frames[1][:128], y0[1][:128])
+    assert fleet.admit("b", chips[1])["cold"] is False
+    sb = fleet.submit_frames("b", frames[1][128:], y0[1][128:])
+    got = {r.seq: (r.score_raw, r.keep) for r in fleet.flush()}
+    torch.cuda.synchronize()
+    assert build.miss_counts() == misses
+    assert fleet.report()["admission_misses"] == 0
+    assert keep == (srv._stack.src.data_ptr(), srv._stack.tables.data_ptr(),
+                    srv._frontend.plan["feat_idx"].data_ptr(),
+                    srv._copy_stream)
+    for seqs, lo in ((sa, 0), (sb, 128)):
+        score, kp = _card_oracle(chips[1], frames[1][lo:lo + 128],
+                                 y0[1][lo:lo + 128])
+        assert [got[s] for s in seqs] == [
+            (int(a), bool(b)) for a, b in zip(score, kp)]
+
+
+@pytest.mark.parametrize("redundancy", ["none", "tmr"])
+def test_k2_and_b6_dense_at_the_fleet_envelope(card, redundancy):
+    """K2 and B6's dense entry on a stack packed to a 16-level, 31-output
+    envelope (the served chips' bucket shape), W=16: both equal their
+    plain twins on the same words, and on the CPU's."""
+    from repro_torch.core.fabric import StackGeometry
+
+    chips, _, _ = card
+    configs = [c.config for c in chips]
+    envs = [lut_ops.bucket_envelope(c) for c in configs]
+    env = StackGeometry(n_levels=16, max_level_size=max(
+        e.max_level_size for e in envs), n_inputs=max(
+        e.n_inputs for e in envs), n_outputs=31)
+    rng = np.random.default_rng(31)
+    bits = rng.integers(0, 2, (2, 512, env.n_inputs))
+    thr = torch.as_tensor([c.score_threshold_raw for c in chips],
+                          dtype=torch.int32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        stack = lut_ops.pack_fabrics(configs, redundancy=redundancy,
+                                     layout="bitsliced", geometry=env,
+                                     device=dev)
+        assert (stack.n_levels, stack.n_outputs) == (16, 31)
+        b = torch.as_tensor(bits, dtype=torch.int32, device=dev)
+        voted, dis = bs.eval_words_voted(
+            stack.src, stack.tables, stack.output_nets, b,
+            n_replicas=stack.n_replicas, n_inputs=stack.n_inputs,
+            in_seg=stack.in_seg)
+        weight = torch.as_tensor(lut_ops.decode_plan(configs, 31),
+                                 device=dev)
+        valid = torch.ones((2, 512), dtype=torch.bool, device=dev)
+        dense = sp.decode_dense(voted, dis, weight, thr.to(dev), valid)
+        if dev == "cuda":
+            seg = bs.input_words(b, stack.n_inputs, stack.in_seg)
+            plain = bs.eval_seg_voted_plain(stack.src, stack.tables,
+                                            stack.output_nets, seg,
+                                            stack.n_replicas)
+            for x, y in zip((voted, dis), plain):
+                assert torch.equal(x, y)
+            for x, y in zip(dense, sp.decode_dense_plain(
+                    voted, dis, weight, thr.cuda(), valid)):
+                assert torch.equal(x, y)
+        runs[dev] = [t.cpu() for t in (voted, dis, *dense)]
+    for x, y in zip(runs["cuda"], runs["cpu"]):
+        assert torch.equal(x, y)

@@ -8,10 +8,10 @@ chip, score, keep) and the report's trigger counters must agree; the only
 events allowed to differ are those whose quantized used-feature pattern
 differs between the two featurizers (summation-order flips, see
 test_torch_yprofile.py). The features path, fed the same host features,
-agrees exactly. The scrub and deadline knobs validate as the JAX
-package's do (their serving is tested in test_torch_scrub.py and
-test_torch_deadline.py); the one knob the port does not carry yet
-raises NotPortedError. Sparse egress is tested in test_torch_sparse.py.
+agrees exactly. The scrub, deadline and tenant-quota knobs validate as
+the JAX package's do (their serving is tested in test_torch_scrub.py,
+test_torch_deadline.py and test_torch_fleet.py). Sparse egress is tested
+in test_torch_sparse.py.
 """
 import dataclasses
 
@@ -23,7 +23,6 @@ import numpy as np  # noqa: E402
 
 from repro.launch.readout_server import ReadoutServer as JaxServer  # noqa: E402
 from repro.launch.readout_server import ServerConfig as JaxConfig  # noqa: E402
-from repro_torch.device import NotPortedError  # noqa: E402
 from repro_torch.launch.readout_server import ReadoutServer, ServerConfig  # noqa: E402
 from tests._torch_helpers import N_BATCHES, N_EVENTS, served_features  # noqa: E402
 from tests._torch_helpers import drive as _drive  # noqa: E402
@@ -151,12 +150,6 @@ def test_config_fields_and_defaults_match_jax():
     assert port == jax
 
 
-@pytest.mark.parametrize("knob", [dict(tenant_quota_queued=4)])
-def test_unported_knob_raises_not_ported(knob):
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        ServerConfig(**knob)
-
-
 # bad values of each scrub and deadline knob (the JAX package's
 # tests/test_scrub.py and tests/test_deadline.py validation cases)
 _BAD_VALUES = {
@@ -177,6 +170,8 @@ _BAD_VALUES = {
                           dict(degrade_exit_frac=0.7)],
     "min_batch": [dict(min_batch=0), dict(min_batch=True),
                   dict(min_batch=2.0)],
+    "tenant_quota_queued": [dict(tenant_quota_queued=v)
+                            for v in (0, -1, 1.5, "4", True)],
 }
 
 
@@ -187,10 +182,12 @@ _BAD_VALUES = {
     dict(degrade_rungs=("scrub_relax",)), dict(degrade_window=8),
     dict(degrade_enter_frac=0.6), dict(degrade_exit_frac=0.1),
     dict(min_batch=16),
-    dict(deadline_us=100.0, overload_policy="degrade")])
+    dict(deadline_us=100.0, overload_policy="degrade"),
+    dict(tenant_quota_queued=4)])
 def test_scrub_and_deadline_knobs_validate_like_jax(knob):
-    """Each scrub and deadline knob is served: accepted with the value
-    given, and each bad value raises the JAX package's ValueError text."""
+    """Each scrub and deadline knob, and the fleet's tenant quota, is
+    served: accepted with the value given, and each bad value raises the
+    JAX package's ValueError text."""
     cfg = ServerConfig(**knob)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(JaxConfig(**knob))
     name = list(knob)[-1]
