@@ -145,11 +145,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
                events), K2 and B6's dense entry at the served chips'
                bucket envelope (16 levels, 31 outputs) against the union
                (13, 28): exact against their twins, K2 timed at W=16; the
-               deep 4-tree ensemble's envelope (32 x 256) plain, exact,
-               and under TMR (K2's refusal recorded: ROADMAP C.3); and a
+               deep 4-tree ensemble's envelope (32 x 256) plain and under
+               TMR, every event exact against the oracle, K2 launched (under
+               TMR its split walk: a block a replica, then the vote pass),
+               then K2 alone on each bucket's stack at W=16 exact against
+               its twin (an upset replica under TMR) and timed; and a
                TCP replay through the front door with sensor_tenants in
                front of a fleet: sensors 0-3 verified, an unmapped and a
                retired tenant's sensor counted as events_bad_sensor.
+ 14. lm      — the dense LM serving path (repro_torch/models,
+               launch/serve.py), plain PyTorch on the card: TINY and the
+               smoke config of every dense arch and the VLM backbone, f32
+               with TF32 off, the same weights on the card and the CPU: 8
+               teacher-forced decode steps, logits within 1e-4 with f32 KV
+               caches; with int8 caches within 1e-2, the int8 entries that
+               differ (a float32 K at a rounding boundary) counted, each at
+               most one step off, under 0.1% of those written; gemma-7b
+               (bf16, int8 KV cache) and starcoder2-7b
+               (bf16 cache) at full width and depth, batch 8, prompt 32
+               (prefilled token by token), 64 greedy tokens through
+               serve.build / serve.generate: prefill s, tokens/s, ms a
+               step against its HBM bound, peak memory; gemma-7b at full
+               width with 2 layers: decode against forward (rtol = atol =
+               2e-2) in f32, as tests/test_models.py holds its f32 smoke
+               configs (bf16 recorded), and the int8 cache against the bf16
+               one on bf16 weights (max |dp| < 0.05, top-1 equal). Then the
+               paper's NN baseline
+               (core/nn_baseline.py) trained on the card on the §5
+               training split, with its LUT cost.
 Then a `kernels` JSON line, the card's name and power limit, and the
 final line {"ok": true, "device": {...}}.
 """
@@ -2132,14 +2155,86 @@ def fleet_k2_depth(torch, np, bs, sp, lut_ops, chips):
     return out
 
 
-def fleet_deep(torch, np):
+def synthetic_walk_stack(torch, np, C, R, L, M, in_seg, n_inputs, O, seed,
+                         device="cuda"):
+    """Bit-sliced stack arrays of the kernel's contract that no packing
+    makes: (src (R*C, L, M, 4), tables (R*C, L, M, 16) 0/1, output_nets
+    (R*C, O)). Level l's LUTs read any net below its slots (const0/1, the
+    inputs and every earlier level's slots), the outputs any level slot;
+    the replicas of a chip differ."""
+    rng = np.random.default_rng(seed)
+    n_in = 2 + n_inputs
+    n_valid = n_in + np.arange(L) * M                 # nets below level l
+    u = (rng.random((R * C, L, M, 4)) * n_valid[None, :, None, None])
+    u = u.astype(np.int64)
+    src = np.where(u < n_in, u, in_seg + u - n_in).astype(np.int32)
+    tables = rng.integers(0, 2, (R * C, L, M, 16)).astype(np.float32)
+    outs = rng.integers(in_seg, in_seg + L * M, (R * C, O)).astype(np.int32)
+    return (torch.as_tensor(src, device=device),
+            torch.as_tensor(tables, device=device),
+            torch.as_tensor(outs, device=device))
+
+
+def deep_case(torch, np, bs, st, words, n_luts, seed):
+    """K2 on the deep bucket's stack ``st`` at ``words`` words a chip:
+    exact against its twin on random bits, also with replica 1's tables
+    upset under TMR (which must give disagreement words); the walk's path,
+    tile and shared memory, its time by CUDA-graph replay, its twin's time
+    and its bound."""
+    R, L, M = st.n_replicas, st.n_levels, st.m_pad
+    C = st.src.shape[0] // R
+    rng = np.random.default_rng(seed)
+    bits = torch.as_tensor(rng.integers(0, 2, (C, words * 32, st.n_inputs)),
+                           dtype=torch.int32, device="cuda")
+    seg = bs.input_words(bits, st.n_inputs, st.in_seg)
+    upset = st.tables.clone()
+    if R > 1:
+        upset[1, :, :16, ::3] = 1.0 - upset[1, :, :16, ::3]
+    for tb in (st.tables, upset):
+        a = (st.src, tb, st.output_nets, seg, R)
+        got = bs.eval_seg_voted(*a)
+        want = bs.eval_seg_voted_plain(*a)
+        torch.cuda.synchronize()
+        for x, y, what in zip(got, want, ("voted", "disagree")):
+            if x.shape != y.shape or not torch.equal(x, y):
+                fail("fleet_deep", f"K2 R={R} W={words}: {what} words "
+                                   f"differ in {int((x != y).sum())} places")
+    if R > 1 and not bool((got[1] != 0).any()):
+        fail("fleet_deep", f"K2 R={R}: an upset replica gave no "
+                           "disagreement words")
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    in_seg, O = st.in_seg, st.n_outputs
+    tile = bs.word_tile(R, in_seg, L, M, words, C, n_sms)
+    scratch = bs.scratch_for(C, R, L, M, "cuda")
+    path = bs.walk_path(R, in_seg, L, M)
+    rep = (bs.split_buffers(C, R, words, O, "cuda") if path == "split"
+           else None)
+    voted = torch.empty((C, words, O), dtype=torch.int32, device="cuda")
+    dis = torch.empty((C, R, words), dtype=torch.int32, device="cuda")
+    args = (st.src, st.tables, st.output_nets, seg, R)
+
+    def k2_call():
+        bs._launch(st.src, st.tables, st.output_nets, seg, scratch, voted,
+                   dis, R, tile, rep)
+    return {"path": path, "words": words, "tile": tile,
+            "smem_bytes": bs.smem_bytes(R, in_seg, L, M, tile),
+            "levels": L, "m_pad": M, "in_seg": in_seg,
+            "ms": graph_ms(k2_call),
+            "plain_ms": time_ms(lambda: bs.eval_seg_voted_plain(*args),
+                                reps=5, inner=1),
+            **bound(*k2_cost(st, seg, n_luts))}
+
+
+def fleet_deep(torch, np, counters):
     """The deep ensemble of benchmarks/bench_fabric.py through a
-    bit-sliced fleet on the card: its bucket envelope, plain (64 events,
-    exact against the oracle) and under TMR, where K2's block must hold
-    the chip's descriptors for every padded level and replica in shared
-    memory (bitsliced.smem_bytes). A stack K2 cannot take is checked up
-    front: under TMR it is recorded with its byte count (ROADMAP C.3), the
-    plain one fails the phase."""
+    bit-sliced fleet on the card: its bucket envelope (32 levels x 256),
+    plain and under TMR, 64 events each exact against the oracle. Under
+    TMR one word's block of every replica (bitsliced.smem_bytes of the
+    staged walk) exceeds shared memory, so K2 takes its split walk (a
+    block a replica, then a vote pass: ROADMAP C.3, repaired); K2 must
+    have launched in each run. Then K2 alone on each bucket's stack at
+    W=16: exact against its twin (an upset replica under TMR), with its
+    path, shared memory, time and bound."""
     import repro_torch.core.tmr  # noqa: F401  (registers efpga_28nm_xl)
     from repro_torch.core.bdt import GradientBoostedClassifier
     from repro_torch.core.fabric import FabricSim
@@ -2177,35 +2272,36 @@ def fleet_deep(torch, np):
            "smem_limit_bytes": build.SMEM_LIMIT_BYTES}
     for red in ("none", "tmr"):
         R = 3 if red == "tmr" else 1
-        row = {"descriptor_bytes": bs._chip_desc_bytes(
-                   R, env.n_levels, env.max_level_size),
-               "one_word_smem_bytes": bs.smem_bytes(
-                   R, in_seg, env.n_levels, env.max_level_size, 1),
-               "union_one_word_smem_bytes": bs.smem_bytes(
-                   R, in_seg, len(cfg.level_sizes),
-                   -(-max(cfg.level_sizes) // 128) * 128, 1)}
+        L, M = env.n_levels, env.max_level_size
+        row = {"descriptor_bytes": bs._chip_desc_bytes(R, L, M),
+               "staged_one_word_smem_bytes": bs._block_bytes(
+                   R, in_seg, L, M, 1),
+               "path": bs.walk_path(R, in_seg, L, M),
+               "one_word_smem_bytes": bs.smem_bytes(R, in_seg, L, M, 1)}
         fleet = TenantFleet(ServerConfig(redundancy=red), bucket_slots=2,
                             device="cuda")
         fleet.admit("deep", chip)
         st = fleet._buckets[0].server._stack
-        try:        # the walk's own fit check, before anything is served
-            bs.word_tile(R, st.in_seg, st.n_levels, st.m_pad, 1)
-        except ValueError as e:
-            if red != "tmr":
-                fail("fleet_deep", f"{red}: K2 refuses the bucket: {e}")
-            row["served"], row["refusal"] = False, str(e)   # ROADMAP C.3
-            out[red] = row
-            continue
-        row["served"] = True
+        reset(counters)
         seqs = fleet.submit_batch("deep", X)
         got = {r.seq: r.score_raw for r in fleet.flush()}
+        torch.cuda.synchronize()
+        row["launches"] = read(counters)
         row["oracle_mismatches"] = int(sum(
             got.get(s) != int(w) for s, w in zip(seqs, want)))
-        if row["oracle_mismatches"]:
+        if len(got) != len(seqs) or row["oracle_mismatches"]:
             fail("fleet_deep", f"{red}: {row['oracle_mismatches']} "
-                               "events differ from the oracle")
-        torch.cuda.synchronize()
+                               f"events differ from the oracle, "
+                               f"{len(seqs) - len(got)} missing")
+        if row["launches"]["eval_words_voted"] <= 0:
+            fail("fleet_deep", f"{red}: K2 never launched")
+        row["served"] = True
+        row["kernel"] = deep_case(torch, np, bs, st, SERVED_B // 32,
+                                  cfg.n_luts, seed=41 + R)
         out[red] = row
+    if out["tmr"]["path"] != "split":
+        fail("fleet_deep", f"TMR took K2's {out['tmr']['path']} walk, "
+                           "expected the split walk")
     return out
 
 
@@ -2298,6 +2394,285 @@ def fleet_door(torch, np, chips, blocks, counters):
                                 for v in rep["tenants"].values()),
             "admission_misses": rep["admission_misses"],
             "launches": launches}
+
+
+# the LM serving phase: the full-width models, their serve shape, the
+# card-vs-CPU decode steps and the decode-vs-forward / int8-vs-bf16 checks
+LM_FULL = ("gemma-7b", "starcoder2-7b")
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 32, 64
+LM_CPU_STEPS = 8
+LM_CPU_TOL = 1e-4
+# int8 KV caches, card against CPU: the two sides' float32 K/V differ in
+# the last bits (summation order), so an entry at a rounding boundary can
+# land one int8 step apart, and the logits then differ by about 5e-4 (an
+# H100 run of TINY). Such entries are counted; each may be one step off,
+# and they must be under LM_INT8_FLIP_SHARE of the written entries
+LM_INT8_TOL = 1e-2
+LM_INT8_FLIP_SHARE = 1e-3
+LM_CHECK_LAYERS = 2
+LM_CHECK_T = 12
+
+
+def lm_smoke_cases():
+    """(name, config) of TINY and the smoke config of every dense arch and
+    the VLM backbone, as the CPU tests hold them against JAX."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.launch.train import TINY
+
+    return [("tiny", TINY)] + [
+        (n, smoke_config(n)) for n in sorted(ARCHS)
+        if ARCHS[n].family in ("dense", "vlm")]
+
+
+def lm_inputs(torch, cfg, B, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    if cfg.embeds_in:
+        return torch.randn((B, n, cfg.d_model), generator=g) * 0.02
+    return torch.randint(0, cfg.vocab, (B, n), generator=g,
+                         dtype=torch.int32)
+
+
+def lm_card_vs_cpu(torch, np, serve, registry):
+    """(i) each smoke config and TINY in f32 (TF32 off), the same weights
+    on the card and on the CPU: 8 teacher-forced decode steps, logits
+    within LM_CPU_TOL with f32 KV caches; with int8 caches within
+    LM_INT8_TOL, the int8 entries that differ counted (at most one step
+    each, under LM_INT8_FLIP_SHARE of those written)."""
+    import dataclasses
+
+    out = {}
+    for name, base in lm_smoke_cases():
+        for kv in ("float32", "int8"):
+            cfg = dataclasses.replace(base, kv_cache_dtype=kv)
+            cpu = serve.build(cfg, 0, "cpu")
+            card = _tree_to(cpu, "cuda")
+            x = lm_inputs(torch, cfg, 2, LM_CPU_STEPS, seed=5)
+            caches = {"cpu": registry.init_cache(cfg, 2, LM_CPU_STEPS,
+                                                 device="cpu"),
+                      "cuda": registry.init_cache(cfg, 2, LM_CPU_STEPS,
+                                                  device="cuda")}
+            worst = 0.0
+            with torch.no_grad():
+                for t in range(LM_CPU_STEPS):
+                    lc, caches["cpu"] = registry.decode_step(
+                        cfg, cpu, caches["cpu"], x[:, t:t + 1])
+                    lg, caches["cuda"] = registry.decode_step(
+                        cfg, card, caches["cuda"], x[:, t:t + 1].cuda())
+                    d = (lg.float().cpu() - lc.float()).abs()
+                    tol = LM_CPU_TOL if kv == "float32" else LM_INT8_TOL
+                    lim = tol + tol * lc.float().abs()
+                    worst = max(worst, float((d / lim).max()))
+                    if not bool(torch.isfinite(lg).all()) or \
+                            bool((d > lim).any()):
+                        fail("lm_serve", f"{name} kv={kv} step {t}: card "
+                                         f"logits differ from the CPU's by "
+                                         f"{float(d.max()):.3g}")
+            row = {"max_err_over_tol": worst, "vocab": cfg.vocab}
+            if kv == "int8":
+                cc, cg = caches["cpu"], caches["cuda"]
+                steps = [(cg[k].cpu().int() - cc[k].int()).abs()
+                         for k in ("k", "v")]
+                row["int8_entries_differing"] = sum(
+                    int((x != 0).sum()) for x in steps)
+                row["int8_entries_written"] = sum(
+                    x.numel() for x in steps)
+                row["int8_max_step"] = max(int(x.max()) for x in steps)
+                if row["int8_max_step"] > 1 or row[
+                        "int8_entries_differing"] > LM_INT8_FLIP_SHARE * \
+                        row["int8_entries_written"]:
+                    fail("lm_serve", f"{name} int8: "
+                                     f"{row['int8_entries_differing']} "
+                                     f"cache entries differ, up to "
+                                     f"{row['int8_max_step']} steps")
+            out[f"{name}/{kv}"] = row
+    return out
+
+
+def lm_bound_ms(params, cfg, B, pos):
+    """The least time of one decode step at position ``pos``: every
+    parameter byte and the cache entries (and int8 scales) up to ``pos``
+    read once, over the HBM rate."""
+    import torch
+
+    p_bytes = sum(t.numel() * t.element_size()
+                  for t in _leaves(params))
+    hd = cfg.resolved_head_dim()
+    from repro_torch.models.layers import dtype_of
+
+    entry = 1 if cfg.kv_cache_dtype == "int8" else \
+        torch.empty((), dtype=dtype_of(cfg)).element_size()
+    c_bytes = 2 * cfg.n_layers * B * pos * cfg.n_kv_heads * hd * entry
+    if cfg.kv_cache_dtype == "int8":
+        c_bytes += 2 * cfg.n_layers * B * pos * 2
+    return (p_bytes + c_bytes) / HBM_BYTES_PER_S * 1e3, p_bytes, c_bytes
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def lm_full(torch, np, serve, name):
+    """(ii) ``name`` at full width and depth on the card, bf16 (gemma-7b
+    with its int8 KV cache): batch 8, prompt 32, generation 64 through
+    launch/serve.py's build and generate, greedy."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(name)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = serve.build(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    t_init = time.monotonic() - t0
+    r = serve.generate(cfg, params, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                       gen=LM_GEN, seed=0, temperature=0.0, device="cuda")
+    toks = r["tokens"]
+    if tuple(toks.shape) != (LM_BATCH, LM_GEN) or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab or \
+            not bool(torch.isfinite(r["logits"]).all()):
+        fail("lm_serve", f"{name}: generation gave {tuple(toks.shape)} "
+                         "tokens out of range or non-finite logits")
+    # the generation steps read the cache up to positions 32..95
+    mid = LM_PROMPT + LM_GEN // 2
+    bound, p_bytes, c_bytes = lm_bound_ms(params, cfg, LM_BATCH, mid)
+    row = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "param_dtype": cfg.param_dtype,
+           "kv_cache_dtype": cfg.kv_cache_dtype,
+           "params": sum(t.numel() for t in _leaves(params)),
+           "param_bytes": p_bytes, "batch": LM_BATCH,
+           "prompt": LM_PROMPT, "gen": LM_GEN,
+           "init_s": t_init, "prefill_s": r["prefill_s"],
+           "gen_s": r["gen_s"], "gen_tok_s": r["tok_s"],
+           "step_ms": r["step_ms"],
+           "step_bound_ms": bound, "bound_cache_bytes_at": mid,
+           "step_bound_cache_bytes": c_bytes,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "first_tokens": toks[0, :8].tolist()}
+    del params, r
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_decode_vs_forward(torch, serve, registry, dense, cfg, seed):
+    """Token-by-token decode of ``cfg`` on the card against its forward on
+    the same tokens: (decode logits (2, T, V) f32, forward's, the largest
+    |difference| over rtol = atol = 2e-2)."""
+    params = serve.build(cfg, seed, "cuda")
+    toks = lm_inputs(torch, cfg, 2, LM_CHECK_T, seed=2).cuda()
+    with torch.no_grad():
+        full = dense.forward(cfg, params, toks).float()
+        cache = registry.init_cache(cfg, 2, LM_CHECK_T, device="cuda")
+        steps = []
+        for t in range(LM_CHECK_T):
+            logits, cache = registry.decode_step(cfg, params, cache,
+                                                 toks[:, t:t + 1])
+            steps.append(logits[:, 0].float())
+    got = torch.stack(steps, 1)
+    d = (got - full).abs()
+    del params
+    torch.cuda.empty_cache()
+    return got, full, float((d / (2e-2 + 2e-2 * full.abs())).max()), \
+        float(d.max()), int((d > 2e-2 + 2e-2 * full.abs()).sum())
+
+
+def lm_checks(torch, np, serve, registry, dense):
+    """(iii) gemma-7b at full width with LM_CHECK_LAYERS layers on the
+    card. Token-by-token decode against forward within rtol = atol = 2e-2
+    in f32 (TF32 off), as tests/test_models.py holds it (its smoke
+    configs are f32); the same in bf16, recorded (the logits are bf16 and
+    the two paths round in other places). The int8 KV cache against the
+    bf16 one on the same bf16 weights and tokens: max |dp| < 0.05 and
+    top-1 equal at the last step."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    base = dataclasses.replace(get_arch("gemma-7b"), n_layers=LM_CHECK_LAYERS,
+                               kv_cache_dtype="bfloat16")
+    out = {}
+    cfg32 = dataclasses.replace(base, param_dtype="float32")
+    _, _, over, worst, n_over = lm_decode_vs_forward(
+        torch, serve, registry, dense, cfg32, seed=1)
+    out["f32_decode_vs_forward"] = {"max_abs": worst, "max_over_tol": over,
+                                    "entries_over_tol": n_over}
+    if n_over:
+        fail("lm_serve", f"gemma-7b x{LM_CHECK_LAYERS} f32: decode differs "
+                         f"from forward by {worst:.3g} ({n_over} entries "
+                         "over 2e-2)")
+    got_bf, _, over, worst, n_over = lm_decode_vs_forward(
+        torch, serve, registry, dense, base, seed=1)
+    out["bf16_decode_vs_forward"] = {"max_abs": worst, "max_over_tol": over,
+                                     "entries_over_tol": n_over,
+                                     "entries": got_bf.numel()}
+    got_q, _, _, _, _ = lm_decode_vs_forward(
+        torch, serve, registry, dense,
+        dataclasses.replace(base, kv_cache_dtype="int8"), seed=1)
+    pq = torch.softmax(got_q[:, -1], -1)
+    pf = torch.softmax(got_bf[:, -1], -1)
+    out["int8_vs_bf16_max_dp"] = float((pq - pf).abs().max())
+    out["int8_vs_bf16_top1_equal"] = bool(
+        (pq.argmax(-1) == pf.argmax(-1)).all())
+    out["int8_vs_bf16_max_abs_logit"] = float((got_q - got_bf).abs().max())
+    if out["int8_vs_bf16_max_dp"] >= 0.05 or \
+            not out["int8_vs_bf16_top1_equal"]:
+        fail("lm_serve", f"gemma-7b x{LM_CHECK_LAYERS}: int8 cache against "
+                         f"bf16: max |dp| {out['int8_vs_bf16_max_dp']:.3g}, "
+                         f"top-1 equal {out['int8_vs_bf16_top1_equal']}")
+    return out
+
+
+def lm_serve(torch, np):
+    """The dense LM serving path (repro_torch/models, launch/serve.py) on
+    the card: (i) card against CPU, (ii) gemma-7b and starcoder2-7b at
+    full width and depth, (iii) decode against forward and int8 against
+    bf16 at gemma-7b's full width."""
+    from repro_torch.launch import serve
+    from repro_torch.models import dense, registry
+
+    out = {"card_vs_cpu": lm_card_vs_cpu(torch, np, serve, registry)}
+    emit("lm_card_vs_cpu", ok=True, **out["card_vs_cpu"])
+    out["full"] = {}
+    for n in LM_FULL:
+        out["full"][n] = lm_full(torch, np, serve, n)
+        emit("lm_full", ok=True, name=n, **out["full"][n])
+    out["checks"] = lm_checks(torch, np, serve, registry, dense)
+    return out
+
+
+def nn_baseline(torch, np, tr, te):
+    """The paper's NN baseline on the card, as
+    examples/smartpixel_readout.py runs it: train_mlp on the first 100,000
+    events of the §5 training split (150 steps), its background rejection
+    at 0.978 signal efficiency on 50,000 test events, and its LUT cost."""
+    from repro_torch.core.bdt import operating_point_at_signal_eff
+    from repro_torch.core.nn_baseline import (
+        MLPSpec, dsp_schedule, lut_cost, mlp_proba, train_mlp)
+
+    t0 = time.monotonic()
+    model, norm, loss = train_mlp(tr["features"][:100_000],
+                                  tr["label"][:100_000].astype(np.float32),
+                                  steps=150, device="cuda")
+    torch.cuda.synchronize()
+    t_train = time.monotonic() - t0
+    p = mlp_proba(model, norm, te["features"][:50_000])
+    _, se, br = operating_point_at_signal_eff(p, te["label"][:50_000], 0.978)
+    if not np.isfinite(loss) or not np.isfinite(p).all():
+        fail("nn_baseline", f"loss {loss}, non-finite probabilities")
+    cost = lut_cost(MLPSpec())
+    return {"device": str(model.w[0].device), "loss": loss,
+            "train_s": t_train, "sig_eff": float(se), "bkg_rej": float(br),
+            "lut_total": cost["lut_total"], "fits_448": cost["lut_total"] <= 448,
+            "dsp_schedule": dsp_schedule(MLPSpec())}
 
 
 def main():
@@ -2497,9 +2872,17 @@ def main():
          **fleet_bench(torch, np, fleet_chips, X))
     k2_depth = fleet_k2_depth(torch, np, bs, sp, lut_ops, chips)
     emit("fleet_k2", ok=True, card=card, runs=k2_depth)
-    emit("fleet_deep", ok=True, card=card, **fleet_deep(torch, np))
+    deep = fleet_deep(torch, np, counters)
+    emit("fleet_deep", ok=True, card=card, **deep)
     emit("fleet_door", ok=True, card=card,
          **fleet_door(torch, np, chips, blocks, counters))
+
+    # 14. the dense LM serving path and the paper's NN baseline (no kernel
+    # of the port: plain PyTorch on the card)
+    t0 = time.monotonic()
+    lm = lm_serve(torch, np)
+    emit("lm_serve", ok=True, card=card, seconds=time.monotonic() - t0, **lm)
+    emit("nn_baseline", ok=True, card=card, **nn_baseline(torch, np, tr, te))
 
     kernels = []
     # K2's row carries the times of its R=3 (TMR) run; K1, K2 and B6's
@@ -2570,6 +2953,12 @@ def main():
         row["launches_fleet"] = fleet_runs["bitsliced none"]["launches"][k]
     for row, k in ((kernels[2], "lut_eval"), (kernels[3], "lut_eval_banded")):
         row["launches_fleet"] = fleet_runs["matmul none"]["launches"][k]
+    kernels[1]["fleet_deep"] = {
+        red: {"launches": deep[red]["launches"]["eval_words_voted"],
+              **{k: deep[red]["kernel"][k] for k in (
+                  "path", "tile", "smem_bytes", "ms", "plain_ms",
+                  "bound_ms", "bound_by")}}
+        for red in ("none", "tmr")}
     kernels[1]["fleet_depth"] = {
         key: ({k: r[k] for k in ("levels", "tile", "smem_bytes", "ms",
                                  "plain_ms", "bound_ms", "bound_by")}

@@ -10,6 +10,11 @@ A matmul stack carries ``sel`` and a bit-sliced one ``src``; the other is
 None. ``np.asarray`` of a JAX bf16 array is an ``ml_dtypes`` bfloat16
 array, which torch does not take, so ``sel`` goes through float32 (exact
 for its 0/1 entries) to torch.bfloat16.
+
+The LM scaffold's parameters carry the same way: ``lm_params_from_numpy``
+takes the JAX param pytree with every leaf as numpy (nested dicts) and
+returns the port's, leaf for leaf; bf16 leaves go through float32 (exact)
+to torch.bfloat16.
 """
 from __future__ import annotations
 
@@ -51,6 +56,35 @@ def stack_from_numpy(fields: Mapping[str, object], device=None
         n_inputs_each=tuple(int(v) for v in fields["n_inputs_each"]),
         n_outputs_each=tuple(int(v) for v in fields["n_outputs_each"]),
     )
+
+
+def _leaf(a: np.ndarray, device) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":          # ml_dtypes: exact via float32
+        return torch.as_tensor(np.asarray(a, np.float32)).to(
+            device, torch.bfloat16)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def lm_params_from_numpy(cfg, tree: Mapping[str, object], device=None
+                         ) -> Dict[str, object]:
+    """{name: np.ndarray | subtree} (a JAX LM param pytree, leaves through
+    ``np.asarray``) -> the same tree of tensors on ``device`` (default:
+    CUDA), dtypes kept. Every floating leaf must be in ``cfg``'s
+    param_dtype, as the models make them."""
+    from repro_torch.models.layers import dtype_of
+
+    dev = resolve_device(device)
+    want = dtype_of(cfg)
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+        t = _leaf(np.asarray(node), dev)
+        if t.is_floating_point() and t.dtype != want:
+            raise ValueError(f"leaf {path} is {t.dtype}, the config's "
+                             f"param_dtype is {want}")
+        return t
+    return walk(tree, "")
 
 
 def plan_from_numpy(plan: Mapping[str, np.ndarray], device=None

@@ -219,3 +219,52 @@ def quantize_pattern_device(x, *, scale, rnd_off, wrap_mask, sign_bit,
     raw = raw.to(torch.int32)
     raw = torch.minimum(torch.maximum(raw, sat_lo), sat_hi)
     return (raw & wrap_mask) ^ sign_bit
+
+
+def _spec_tensors(spec: FixedSpec, device):
+    """``spec_device_params`` as 0-d tensors on ``device``."""
+    import torch
+
+    return {k: torch.as_tensor(v, device=device)
+            for k, v in spec_device_params(spec).items()}
+
+
+def quantize_raw_device(x, spec: FixedSpec):
+    """float tensor -> raw int32 tensor, the device twin of
+    ``quantize_raw`` (reference: repro/core/quantize.py:232
+    ``quantize_raw_jax``): the offset-binary pattern of
+    ``quantize_pattern_device``, its sign bit flipped back, and patterns
+    at or above the sign bit mapped to their negative values."""
+    import torch
+
+    p = _spec_tensors(spec, x.device)
+    u = quantize_pattern_device(x, **p)
+    pattern = u ^ p["sign_bit"]
+    span = 1 << spec.width          # W <= 31: the difference fits int32
+    return torch.where(pattern >= p["sign_bit"], pattern - span, pattern)
+
+
+def to_unsigned_bits_device(raw, spec: FixedSpec):
+    """raw int32 tensor -> offset-binary pattern, the device twin of
+    ``to_unsigned_bits`` (reference: repro/core/quantize.py:247
+    ``to_unsigned_bits_jax``): the low W bits of the int32 (its
+    two's-complement pattern), the sign bit flipped."""
+    import torch
+
+    p = _spec_tensors(spec, raw.device)
+    return (raw.to(torch.int32) & p["wrap_mask"]) ^ p["sign_bit"]
+
+
+def encode_offset_binary_device(x, spec: FixedSpec):
+    """float tensor (..., n) -> 0/1 int32 bits (..., n, W), LSB first: the
+    device twin of the host packer (quantize_raw -> to_unsigned_bits ->
+    unpack; reference: repro/core/quantize.py:257
+    ``encode_offset_binary_jax``). The pattern is below 2**31, so the
+    arithmetic right shift of int32 is the logical one; the mask after
+    it keeps one bit either way."""
+    import torch
+
+    u = quantize_pattern_device(x, **_spec_tensors(spec, x.device))
+    shifts = torch.arange(spec.width, dtype=torch.int32, device=x.device)
+    return (u[..., None] >> shifts) & 1
+

@@ -53,6 +53,20 @@
 //     voted words go out coalesced; the disagreement words gather by
 //     shared-memory atomicOr.
 //
+// Envelopes too deep for one block (fault C.3 of the fleet: 32 levels x
+// 256 LUTs under TMR needs 344,588 B for one word) take the split path,
+// which the wrapper picks from the sizes: a block per (chip, replica,
+// tile) runs the same walk with one replica (the descriptor pass sees the
+// R*C replica rows as chips of one replica each, and a block reads its
+// logical chip's input words, `split` rows sharing them), writing each
+// replica's output words to a scratch; a third pass, vote_kernel, takes
+// the 2-of-3 vote and the disagreement words from them. The block then
+// holds one replica's levels (115,204 B for that envelope's word). A
+// window of levels (the net buffer as a ring of fanin-reach slots) would
+// keep R replicas in one block, but the output nets may read any level,
+// and the descriptors would stream a level ahead, which stalled every
+// level in the staged design's first form (above).
+//
 // Padded LUT slots read net 0 (const0) with an all-zero table, so they
 // write 0. Const1 is all ones in every lane, tail lanes included; the
 // caller's valid mask drops those lanes later, as in the reference.
@@ -163,18 +177,21 @@ __device__ __forceinline__ void walk_words(uint32_t* vals, int n_tot, uint2 d,
   }
 }
 
-// Pass 2: the level walk of one chip and one tile of words.
+// Pass 2: the level walk of one chip and one tile of words. Block row c
+// reads the input words of chip c / split (split > 1: the rows are one
+// logical chip's replicas, each walked alone).
 __global__ void __launch_bounds__(kThreads)
-eval_words_voted_kernel(const uint32_t* __restrict__ in_words,  // (C, W, in_seg)
+eval_words_voted_kernel(const uint32_t* __restrict__ in_words,  // (C/split, W, in_seg)
                         const uint2* __restrict__ desc,         // (C, desc_stride)
                         const uint16_t* __restrict__ masks,     // (C, mask_stride)
                         const int* __restrict__ output_nets,    // (R*C, O)
                         uint32_t* __restrict__ voted,           // (C, W, O)
                         uint32_t* __restrict__ dis,             // (C, R, W)
                         int R, int W, int in_seg, int L, int M, int O,
-                        int tile) {
+                        int tile, int split) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int c = blockIdx.y;
+  const int c_in = c / split;
   const int T = tile;
   const int w0 = blockIdx.x * T;
   const int nT = min(T, W - w0);
@@ -193,7 +210,7 @@ eval_words_voted_kernel(const uint32_t* __restrict__ in_words,  // (C, W, in_seg
   for (int idx = tid; idx < nT * in_seg; idx += bd) {
     const int t = idx / in_seg, net = idx - t * in_seg;
     vals[(size_t)t * n_tot + net] =
-        in_words[((size_t)c * W + w0 + t) * in_seg + net];
+        in_words[((size_t)c_in * W + w0 + t) * in_seg + net];
   }
   for (int i = tid; i < R * T; i += bd) dis_s[i] = 0u;
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -272,6 +289,95 @@ eval_words_voted_kernel(const uint32_t* __restrict__ in_words,  // (C, W, in_seg
   }
 }
 
+// Pass 3 of the split path: a thread per (chip, word) votes its outputs
+// over the three replicas' words and ORs each replica's differences into
+// its disagreement word.
+__global__ void __launch_bounds__(kDescThreads)
+vote_kernel(const uint32_t* __restrict__ rep,  // (C*3, W, O)
+            uint32_t* __restrict__ voted,      // (C, W, O)
+            uint32_t* __restrict__ dis,        // (C, 3, W)
+            int C, int W, int O) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= (long long)C * W) return;
+  const int c = (int)(k / W), t = (int)(k - (long long)c * W);
+  const size_t plane = (size_t)W * O;
+  const uint32_t* g0 = rep + (size_t)3 * c * plane + (size_t)t * O;
+  const uint32_t* g1 = g0 + plane;
+  const uint32_t* g2 = g1 + plane;
+  uint32_t* v_out = voted + ((size_t)c * W + t) * O;
+  uint32_t d0 = 0u, d1 = 0u, d2 = 0u;
+  for (int o = 0; o < O; ++o) {
+    const uint32_t a = g0[o], b = g1[o], e = g2[o];
+    const uint32_t v = (a & b) | (a & e) | (b & e);
+    v_out[o] = v;
+    d0 |= a ^ v;
+    d1 |= b ^ v;
+    d2 |= e ^ v;
+  }
+  dis[((size_t)c * 3 + 0) * W + t] = d0;
+  dis[((size_t)c * 3 + 1) * W + t] = d1;
+  dis[((size_t)c * 3 + 2) * W + t] = d2;
+}
+
+// Shared-memory bytes of a walk block for `tile` words: the row's
+// descriptors and masks, the net buffer [tile][in_seg + R*L*M] and the
+// dis words.
+long long block_smem(int R, int in_seg, int L, int M, int tile) {
+  return desc_stride(R, L, M) * 8 + mask_stride(R, L, M) * 2 +
+         (long long)tile * (in_seg + (long long)R * L * M) * 4 +
+         (long long)R * tile * 4;
+}
+
+// The descriptor pass over `rows` rows of R replicas each, then the walk
+// as its programmatic dependent, `split` block rows to an input chip.
+cudaError_t launch_walk(const void* in_words, const void* src,
+                        const void* tables, const void* output_nets,
+                        void* scratch, void* voted, void* dis, int rows,
+                        int R, int W, int in_seg, int L, int M, int O,
+                        int tile, int split, cudaStream_t s) {
+  uint2* desc = (uint2*)scratch;
+  uint16_t* masks =
+      (uint16_t*)(desc + (long long)rows * desc_stride(R, L, M));
+  const long long n = (long long)rows * R * L * M;
+  desc_kernel<<<(unsigned)((n + kDescThreads - 1) / kDescThreads),
+                kDescThreads, 0, s>>>((const int4*)src,
+                                      (const float4*)tables, desc, masks,
+                                      rows, R, in_seg, L, M);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long smem = block_smem(R, in_seg, L, M, tile);
+  err = cudaFuncSetAttribute(eval_words_voted_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const int RM = R * M;
+  int groups = kThreads / RM;
+  groups = groups < 1 ? 1 : (groups > tile ? tile : groups);
+  long long threads = (long long)RM * groups;
+  threads = (threads + 31) / 32 * 32;
+  if (threads > kThreads) threads = kThreads;
+  // programmatic dependent launch: the walk's blocks start (and copy
+  // their input words) while the descriptor pass runs
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((W + tile - 1) / tile, rows);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, eval_words_voted_kernel,
+                           (const uint32_t*)in_words, (const uint2*)desc,
+                           (const uint16_t*)masks, (const int*)output_nets,
+                           (uint32_t*)voted, (uint32_t*)dis, R, W, in_seg, L,
+                           M, O, tile, split);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -287,9 +393,7 @@ long long eval_words_voted_scratch_bytes(int C, int R, int L, int M) {
 // masks, the net buffer [tile][in_seg + R*L*M] and the dis words.
 long long eval_words_voted_smem_bytes(int R, int in_seg, int L, int M,
                                       int tile) {
-  return desc_stride(R, L, M) * 8 + mask_stride(R, L, M) * 2 +
-         (long long)tile * (in_seg + (long long)R * L * M) * 4 +
-         (long long)R * tile * 4;
+  return block_smem(R, in_seg, L, M, tile);
 }
 
 // in_words (C, W, in_seg) i32; src (R*C, L, M, 4) i32; tables
@@ -308,44 +412,44 @@ int eval_words_voted_launch(const void* in_words, const void* src,
   if (tile <= 0 || L <= 0 || M <= 0 ||
       in_seg + (long long)R * L * M >= 65536)
     return (int)cudaErrorInvalidValue;
+  return (int)launch_walk(in_words, src, tables, output_nets, scratch, voted,
+                          dis, C, R, W, in_seg, L, M, O, tile, 1,
+                          (cudaStream_t)stream);
+}
+
+// The split path for R = 3: the walk over the 3*C replica rows, one
+// replica a block (shared memory of eval_words_voted_smem_bytes with
+// R = 1), each row's output words into rep (3*C, W, O) and zero words
+// into rep_dis (3*C, 1, W); then vote_kernel into voted (C, W, O) and
+// dis (C, 3, W). scratch holds eval_words_voted_scratch_bytes(3*C, 1, L,
+// M). Same contract otherwise as eval_words_voted_launch.
+int eval_words_split_launch(const void* in_words, const void* src,
+                            const void* tables, const void* output_nets,
+                            void* scratch, void* rep, void* rep_dis,
+                            void* voted, void* dis, int C, int R, int W,
+                            int in_seg, int L, int M, int O, int tile,
+                            void* stream) {
+  if (C <= 0 || W <= 0) return 0;
+  if (R != 3 || tile <= 0 || L <= 0 || M <= 0 ||
+      in_seg + (long long)L * M >= 65536)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  uint2* desc = (uint2*)scratch;
-  uint16_t* masks = (uint16_t*)(desc + (long long)C * desc_stride(R, L, M));
-  const long long n = (long long)C * R * L * M;
-  desc_kernel<<<(unsigned)((n + kDescThreads - 1) / kDescThreads),
-                kDescThreads, 0, s>>>((const int4*)src,
-                                      (const float4*)tables, desc, masks, C,
-                                      R, in_seg, L, M);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      launch_walk(in_words, src, tables, output_nets, scratch, rep, rep_dis,
+                  C * R, 1, W, in_seg, L, M, O, tile, R, s);
   if (err != cudaSuccess) return (int)err;
-  const long long smem = eval_words_voted_smem_bytes(R, in_seg, L, M, tile);
-  err = cudaFuncSetAttribute(eval_words_voted_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int RM = R * M;
-  int groups = kThreads / RM;
-  groups = groups < 1 ? 1 : (groups > tile ? tile : groups);
-  long long threads = (long long)RM * groups;
-  threads = (threads + 31) / 32 * 32;
-  if (threads > kThreads) threads = kThreads;
-  // programmatic dependent launch: the walk's blocks start (and copy
-  // their input words) while the descriptor pass runs
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((W + tile - 1) / tile, C);
-  cfg.blockDim = dim3((unsigned)threads);
-  cfg.dynamicSmemBytes = (size_t)smem;
+  const long long n = (long long)C * W;
+  cfg.gridDim = dim3((unsigned)((n + kDescThreads - 1) / kDescThreads));
+  cfg.blockDim = dim3(kDescThreads);
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, eval_words_voted_kernel,
-                           (const uint32_t*)in_words, (const uint2*)desc,
-                           (const uint16_t*)masks, (const int*)output_nets,
-                           (uint32_t*)voted, (uint32_t*)dis, R, W, in_seg, L,
-                           M, O, tile);
+  err = cudaLaunchKernelEx(&cfg, vote_kernel, (const uint32_t*)rep,
+                           (uint32_t*)voted, (uint32_t*)dis, C, W, O);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

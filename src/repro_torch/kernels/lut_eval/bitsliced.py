@@ -19,8 +19,9 @@ keeps.
 
 ``eval_seg_voted`` is the kernel wrapper: the level walk, vote and
 disagreement words in one kernel call (csrc/bitsliced.cu: a descriptor
-pass, then the walk) on CUDA tensors, the plain twin
-``eval_seg_voted_plain`` on CPU tensors.
+pass, then the walk; on an envelope too deep for one block under TMR a
+walk a replica and a vote pass, ``walk_path``) on CUDA tensors, the plain
+twin ``eval_seg_voted_plain`` on CPU tensors.
 
 Array contract (the ``layout="bitsliced"`` packing, ops.py):
   src         (R*C, L, M, 4)  int32 — per-LUT source nets in the padded
@@ -150,53 +151,109 @@ def _chip_desc_bytes(n_replicas: int, n_levels: int, m_pad: int) -> int:
     return -(-n // 2) * 2 * 8 + -(-n // 8) * 8 * 2
 
 
+def _block_bytes(block_replicas: int, in_seg: int, n_levels: int,
+                 m_pad: int, tile: int) -> int:
+    """Dynamic shared memory of a walk block that holds ``block_replicas``
+    replicas (csrc/bitsliced.cu block_smem): their descriptors for every
+    level, the net buffer of ``tile`` words (the input segment once, then
+    each replica's level slots) and the disagreement words."""
+    n_tot = in_seg + block_replicas * n_levels * m_pad
+    return (_chip_desc_bytes(block_replicas, n_levels, m_pad)
+            + tile * n_tot * 4 + block_replicas * tile * 4)
+
+
+def walk_path(n_replicas: int, in_seg: int, n_levels: int,
+              m_pad: int) -> str:
+    """Which form of the walk takes this envelope: ``"staged"`` (a block
+    holds every replica of a chip) where one word's block fits in shared
+    memory, else ``"split"`` (under TMR, a block per replica and a vote
+    pass) where one replica's fits. Raises ValueError when neither does."""
+    if _block_bytes(n_replicas, in_seg, n_levels, m_pad, 1) \
+            <= build.SMEM_LIMIT_BYTES:
+        return "staged"
+    if n_replicas > 1 and _block_bytes(1, in_seg, n_levels, m_pad, 1) \
+            <= build.SMEM_LIMIT_BYTES:
+        return "split"
+    raise ValueError(
+        f"one word's block ({n_levels} levels x {m_pad} LUTs, in_seg "
+        f"{in_seg}, one of {n_replicas} replicas a block: "
+        f"{_block_bytes(1, in_seg, n_levels, m_pad, 1)} B) exceeds "
+        f"{build.SMEM_LIMIT_BYTES} B of shared memory")
+
+
+def _replicas_a_block(n_replicas: int, in_seg: int, n_levels: int,
+                      m_pad: int) -> int:
+    return (n_replicas if walk_path(n_replicas, in_seg, n_levels, m_pad)
+            == "staged" else 1)
+
+
 def scratch_bytes(n_chips: int, n_replicas: int, n_levels: int,
                   m_pad: int) -> int:
     """The descriptor scratch one launch rebuilds (csrc/bitsliced.cu
-    eval_words_voted_scratch_bytes)."""
-    return n_chips * _chip_desc_bytes(n_replicas, n_levels, m_pad)
+    eval_words_voted_scratch_bytes): of ``n_chips`` chips of every replica
+    (the staged walk) or of their replica rows one by one (the split
+    walk), whichever is larger."""
+    return max(n_chips * _chip_desc_bytes(n_replicas, n_levels, m_pad),
+               n_chips * n_replicas * _chip_desc_bytes(1, n_levels, m_pad))
 
 
 def smem_bytes(n_replicas: int, in_seg: int, n_levels: int, m_pad: int,
                tile: int) -> int:
-    """Dynamic shared memory of a block (csrc/bitsliced.cu
-    eval_words_voted_smem_bytes): the chip's descriptors for every level
-    and replica, the net buffer of ``tile`` words (the input segment once,
-    then every replica's level slots) and the disagreement words."""
-    n_tot = in_seg + n_replicas * n_levels * m_pad
-    return (_chip_desc_bytes(n_replicas, n_levels, m_pad)
-            + tile * n_tot * 4 + n_replicas * tile * 4)
+    """Dynamic shared memory of a block of the walk that ``walk_path``
+    picks for this envelope, at ``tile`` words."""
+    return _block_bytes(_replicas_a_block(n_replicas, in_seg, n_levels,
+                                          m_pad),
+                        in_seg, n_levels, m_pad, tile)
 
 
 def word_tile(n_replicas: int, in_seg: int, n_levels: int, m_pad: int,
               n_words: int, n_chips: int = 1, n_sms: int = 1) -> int:
-    """Words per block: as many as ``smem_bytes`` fit in shared memory,
-    at most MAX_TILE, and no more than leaves every one of ``n_sms`` SMs
-    a block of the ``n_chips`` x ``n_words`` grid."""
-    fit = 0
-    while fit < MAX_TILE and smem_bytes(n_replicas, in_seg, n_levels, m_pad,
-                                        fit + 1) <= build.SMEM_LIMIT_BYTES:
+    """Words per block of the walk that ``walk_path`` picks: as many as
+    ``smem_bytes`` fit in shared memory, at most MAX_TILE, and no more
+    than leaves every one of ``n_sms`` SMs a block of the grid (``n_chips``
+    rows, or ``n_chips`` x ``n_replicas`` on the split walk, of
+    ``n_words`` words)."""
+    rb = _replicas_a_block(n_replicas, in_seg, n_levels, m_pad)
+    fit = 1
+    while fit < MAX_TILE and _block_bytes(rb, in_seg, n_levels, m_pad,
+                                          fit + 1) <= build.SMEM_LIMIT_BYTES:
         fit += 1
-    if fit < 1:
-        raise ValueError(
-            f"one word's block ({n_replicas} replicas, {n_levels} levels x "
-            f"{m_pad} LUTs, in_seg {in_seg}: "
-            f"{smem_bytes(n_replicas, in_seg, n_levels, m_pad, 1)} B) "
-            f"exceeds {build.SMEM_LIMIT_BYTES} B of shared memory")
-    spread = -(-n_chips * n_words // n_sms)
+    rows = n_chips * (n_replicas // rb)
+    spread = -(-rows * n_words // n_sms)
     return max(1, min(fit, n_words, spread))
 
 
+def split_buffers(n_chips: int, n_replicas: int, n_words: int,
+                  n_outputs: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split walk's per-replica output words (R*C, W, O) and the
+    walk's (zero) disagreement words (R*C, 1, W), int32."""
+    rows = n_chips * n_replicas
+    return (torch.empty((rows, n_words, n_outputs), dtype=torch.int32,
+                        device=device),
+            torch.empty((rows, 1, n_words), dtype=torch.int32,
+                        device=device))
+
+
 def _launch(src, tables, output_nets, seg, scratch, voted, dis, R,
-            tile) -> None:
+            tile, rep=None) -> None:
+    """Both (staged) or all three (split) passes on the current stream.
+    ``rep`` is ``split_buffers``' pair, needed on the split walk (made
+    here when not given)."""
     lib = build.load("bitsliced")
     C, W, in_seg = seg.shape
     L, M, O = src.shape[1], src.shape[2], output_nets.shape[1]
     stream = torch.cuda.current_stream(seg.device).cuda_stream
-    code = lib.eval_words_voted_launch(
-        seg.data_ptr(), src.data_ptr(), tables.data_ptr(),
-        output_nets.data_ptr(), scratch.data_ptr(), voted.data_ptr(),
-        dis.data_ptr(), C, R, W, in_seg, L, M, O, tile, stream)
+    ptrs = (seg.data_ptr(), src.data_ptr(), tables.data_ptr(),
+            output_nets.data_ptr(), scratch.data_ptr())
+    if walk_path(R, in_seg, L, M) == "staged":
+        code = lib.eval_words_voted_launch(
+            *ptrs, voted.data_ptr(), dis.data_ptr(), C, R, W, in_seg, L, M,
+            O, tile, stream)
+    else:
+        rep = rep or split_buffers(C, R, W, O, seg.device)
+        code = lib.eval_words_split_launch(
+            *ptrs, rep[0].data_ptr(), rep[1].data_ptr(), voted.data_ptr(),
+            dis.data_ptr(), C, R, W, in_seg, L, M, O, tile, stream)
     build.check(lib, code, "bitsliced eval_words_voted kernel")
 
 
@@ -217,7 +274,8 @@ def eval_seg_voted(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Level walk + vote + disagreement words over input-segment words:
     (voted (C, W, O) int32, dis (C, R, W) int32; zeros for R=1). CUDA
-    tensors launch the kernel (counted in ``eval_seg_voted.launches``);
+    tensors launch the kernel (counted in ``eval_seg_voted.launches``),
+    in the form ``walk_path`` picks from the envelope;
     CPU tensors run ``eval_seg_voted_plain``. Either way the launch
     signature (C, R, W, in_seg, L, M, O) is recorded first (the word tile
     is a function of it)."""

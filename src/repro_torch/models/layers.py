@@ -1,0 +1,326 @@
+"""Shared model-layer primitives of the LM scaffold (PyTorch, dict params).
+
+The inference half of the JAX package's models/layers.py:
+  * params are nested dicts of tensors; per-layer weights are STACKED on a
+    leading L axis under the reference's names, and the model loops over
+    them in Python (``index_layer``);
+  * activations flow as (batch, seq, d_model) in the config's param_dtype
+    (bf16 by default), norm statistics and softmax in f32, in the
+    reference's order of casts (below);
+  * attention supports GQA (n_kv_heads <= n_heads), RoPE, causal masking,
+    query-chunked attention, and a one-token decode path that updates a
+    static-shape KV cache in place (bf16 or int8 with bf16 scales); the
+    initialisers make the stacked leaves directly.
+
+The matrix products are plain ``@``/``einsum``: none of them is a Pallas
+kernel in the reference. ``scaled_dot_product_attention`` is not used: it
+does not follow the reference's casts (f32 scores, -1e30 masking,
+probabilities cast to v's dtype before the second product).
+The sharding constraints of the reference (``act_constraint``,
+``act_entry``) are the identity without a mesh and are not carried; the
+losses (``softmax_xent``, ``chunked_xent``) come with the training slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# masked attention scores, as the reference's (not -inf)
+MASKED = -1e30
+
+
+def dtype_of(cfg: ArchConfig) -> torch.dtype:
+    return _DTYPES[cfg.param_dtype]
+
+
+def _normal(generator: torch.Generator, shape, scale: float,
+            dtype: torch.dtype) -> torch.Tensor:
+    """N(0, 1) * scale drawn in f32 on the generator's device, then cast."""
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (x * scale).to(dtype)
+
+
+# ----------------------------------------------------------------- norms
+# Statistics in f32; rsqrt is cast to x's dtype BEFORE it multiplies x and
+# w (reference layers.py:33-44): in bf16 that order shows.
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    var = torch.mean(torch.square(x).float(), dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * w
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    mu = torch.mean(x.float(), dim=-1, keepdim=True)
+    xc = x - mu.to(x.dtype)
+    var = torch.mean(torch.square(xc).float(), dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return xc * inv * w + b
+
+
+def apply_norm(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "rmsnorm":
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p["bias"])
+
+
+def init_norm(cfg: ArchConfig, d: int, device, n_layers: Optional[int] = None
+              ) -> Dict:
+    """Unit scale (and zero bias for layernorm), stacked on a leading axis
+    of ``n_layers`` when given."""
+    lead = () if n_layers is None else (n_layers,)
+    p = {"scale": torch.ones(lead + (d,), dtype=dtype_of(cfg), device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(lead + (d,), dtype=dtype_of(cfg),
+                                device=device)
+    return p
+
+
+# ------------------------------------------------------------------ rope
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions: (...,) int -> (cos, sin) of shape (..., head_dim//2), f32."""
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    # a Python base: a 0-d device tensor here would be a blocking copy
+    # from the host at every call
+    freq = torch.pow(float(theta), exps)
+    ang = positions.to(torch.float32)[..., None] * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (..., S, n, head_dim); cos/sin: (..., S, half) broadcast over n.
+    The two halves rotate (concatenated, not interleaved) in f32; the
+    result is cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# ------------------------------------------------------------- attention
+def init_attention(cfg: ArchConfig, generator: torch.Generator,
+                   n_layers: int) -> Dict:
+    D = cfg.d_model
+    hd = cfg.resolved_head_dim()
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    dt = dtype_of(cfg)
+    return {
+        "wq": _normal(generator, (n_layers, D, H * hd), 1 / math.sqrt(D), dt),
+        "wk": _normal(generator, (n_layers, D, KV * hd), 1 / math.sqrt(D), dt),
+        "wv": _normal(generator, (n_layers, D, KV * hd), 1 / math.sqrt(D), dt),
+        "wo": _normal(generator, (n_layers, H * hd, D),
+                      1 / math.sqrt(H * hd), dt),
+    }
+
+
+def _scale(hd: int) -> float:
+    """1 / sqrt(float32(hd)) rounded to float32, as the reference computes
+    it (a float32 tensor times this Python float stays float32)."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+
+def _gqa_scores_softmax_v(q, k, v, mask, scale):
+    """q: (B,S,KV,G,hd)  k/v: (B,T,KV,hd)  mask: None (attend to every
+    entry) or broadcastable (B,1,1,S,T).
+
+    Returns (B,S,KV,G,hd). Scores and softmax in f32, masked entries at
+    -1e30, probabilities cast to v's dtype before the second product."""
+    scores = torch.einsum("bskgd,btkd->bkgst", q, k).float() * scale
+    if mask is not None:
+        scores = scores.masked_fill(~mask, MASKED)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+
+
+def _attn_chunked(cfg: ArchConfig, q, k, v, positions, scale):
+    """Query-chunked causal attention: the live score block is (B, H,
+    chunk, T) instead of (B, H, S, T)."""
+    B, S, KV, G, hd = q.shape
+    T = k.shape[1]
+    chunk = cfg.attn_chunk
+    t_idx = torch.arange(T, dtype=torch.int32, device=q.device)
+    outs = []
+    for lo in range(0, S, chunk):
+        qc = q[:, lo:lo + chunk]
+        pc = positions[:, lo:lo + chunk]
+        mask = pc[:, None, None, :, None] >= t_idx[None, None, None, None, :]
+        outs.append(_gqa_scores_softmax_v(qc, k, v, mask, scale))
+    return torch.cat(outs, dim=1)
+
+
+def attention(
+    cfg: ArchConfig,
+    p: Dict,
+    x: torch.Tensor,                    # (B, S, D)
+    positions: torch.Tensor,            # (B, S) int
+) -> torch.Tensor:
+    """Causal self-attention with RoPE over the whole sequence, query-
+    chunked when ``cfg.attn_chunk`` divides S and is smaller. (The
+    reference's cross-attention and cache arguments serve the encdec
+    family: ROADMAP A.16.)"""
+    B, S, D = x.shape
+    hd = cfg.resolved_head_dim()
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    G = H // KV
+
+    q = (x @ p["wq"]).reshape(B, S, KV, G, hd)
+    k = (x @ p["wk"]).reshape(B, S, KV, hd)
+    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    q = apply_rope(q.reshape(B, S, KV * G, hd), cos, sin).reshape(
+        B, S, KV, G, hd)
+    k = apply_rope(k, cos, sin)
+
+    scale = _scale(hd)
+    if cfg.attn_chunk and S > cfg.attn_chunk and S % cfg.attn_chunk == 0:
+        out = _attn_chunked(cfg, q, k, v, positions, scale)
+    else:
+        t_idx = torch.arange(S, dtype=torch.int32, device=x.device)
+        mask = (positions[:, None, None, :, None]
+                >= t_idx[None, None, None, None, :])
+        out = _gqa_scores_softmax_v(q, k, v, mask, scale)
+    return out.reshape(B, S, H * hd) @ p["wo"]
+
+
+def quantize_kv_entry(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token's K or V (B, S, KV, hd) -> (int8 entries, f32 scale (B, S)):
+    absmax over (KV, hd) / 127 + 1e-30, round half to even, clip to
+    +-127 (reference layers.py:236-246)."""
+    tf = t.to(torch.float32)
+    sc = torch.amax(torch.abs(tf), dim=(2, 3)) / 127.0 + 1e-30
+    q = torch.clamp(torch.round(tf / sc[..., None, None]), -127, 127)
+    return q.to(torch.int8), sc
+
+
+def attention_decode_inplace(
+    cfg: ArchConfig,
+    p: Dict,                 # per-layer attention params (already indexed)
+    x: torch.Tensor,         # (B, 1, D)
+    pos: int,
+    k_all: torch.Tensor,     # (L, B, T, KV, hd) — full stacked cache
+    v_all: torch.Tensor,
+    layer: int,
+    scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # int8 cache
+) -> Tuple[torch.Tensor, ...]:
+    """One-token decode that writes this token's K/V into the stacked cache
+    at ``pos`` in place and attends over [prefix ; current].
+
+    The prefix is the cache's first ``pos`` entries (the reference reads
+    all T and masks t >= pos at -1e30, whose probabilities are exactly 0).
+    The current token enters attention as computed: unquantized in the
+    int8 mode, where the prefix is dequantized (entries times their bf16
+    scale, through f32) — writing the token and reading it back would
+    quantize it and change the logits. Returns (out, k_all, v_all[,
+    ks_all, vs_all]), the cache tensors themselves."""
+    B, S, D = x.shape
+    hd = cfg.resolved_head_dim()
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    G = H // KV
+
+    q = (x @ p["wq"]).reshape(B, S, KV, G, hd)
+    k = (x @ p["wk"]).reshape(B, S, KV, hd)
+    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    positions = torch.full((B, S), pos, dtype=torch.int32, device=x.device)
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    q = apply_rope(q.reshape(B, S, KV * G, hd), cos, sin).reshape(
+        B, S, KV, G, hd)
+    k = apply_rope(k, cos, sin)
+
+    k_l, v_l = k_all[layer, :, :pos], v_all[layer, :, :pos]
+    if scales is not None:
+        ks_all, vs_all = scales
+        dt = x.dtype
+        k_cat = torch.cat([(k_l.float() * ks_all[layer, :, :pos, None, None]
+                            .float()).to(dt), k.to(dt)], dim=1)
+        v_cat = torch.cat([(v_l.float() * vs_all[layer, :, :pos, None, None]
+                            .float()).to(dt), v.to(dt)], dim=1)
+        k_q, k_sc = quantize_kv_entry(k)
+        v_q, v_sc = quantize_kv_entry(v)
+        k_all[layer, :, pos:pos + S] = k_q
+        v_all[layer, :, pos:pos + S] = v_q
+        ks_all[layer, :, pos:pos + S] = k_sc.to(ks_all.dtype)
+        vs_all[layer, :, pos:pos + S] = v_sc.to(vs_all.dtype)
+    else:
+        k_cat = torch.cat([k_l, k.to(k_l.dtype)], dim=1)
+        v_cat = torch.cat([v_l, v.to(v_l.dtype)], dim=1)
+        k_all[layer, :, pos:pos + S] = k.to(k_all.dtype)
+        v_all[layer, :, pos:pos + S] = v.to(v_all.dtype)
+    out = _gqa_scores_softmax_v(q, k_cat, v_cat, None, _scale(hd))
+    out = out.reshape(B, S, H * hd) @ p["wo"]
+    if scales is not None:
+        return out, k_all, v_all, ks_all, vs_all
+    return out, k_all, v_all
+
+
+def index_layer(tree, layer: int):
+    """Layer ``layer`` of a stacked param pytree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: index_layer(v, layer) for k, v in tree.items()}
+    return tree[layer]
+
+
+# ------------------------------------------------------------------- mlp
+def init_mlp(cfg: ArchConfig, generator: torch.Generator, n_layers: int
+             ) -> Dict:
+    D, Fd = cfg.d_model, cfg.d_ff
+    dt = dtype_of(cfg)
+    p = {
+        "w_up": _normal(generator, (n_layers, D, Fd), 1 / math.sqrt(D), dt),
+        "w_down": _normal(generator, (n_layers, Fd, D), 1 / math.sqrt(Fd),
+                          dt),
+    }
+    if cfg.mlp in ("swiglu", "geglu"):
+        p["w_gate"] = _normal(generator, (n_layers, D, Fd), 1 / math.sqrt(D),
+                              dt)
+    return p
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh approximation, not erf
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    elif cfg.mlp == "geglu":
+        h = _gelu(x @ p["w_gate"]) * (x @ p["w_up"])
+    elif cfg.mlp == "relu2":
+        h = torch.square(torch.relu(x @ p["w_up"]))
+    else:  # gelu
+        h = _gelu(x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+# ------------------------------------------------------------- embedding
+def init_embed(cfg: ArchConfig, generator: torch.Generator) -> Dict:
+    dt = dtype_of(cfg)
+    p = {"tok": _normal(generator, (cfg.vocab, cfg.d_model), 0.02, dt)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = _normal(generator, (cfg.d_model, cfg.vocab),
+                               1 / math.sqrt(cfg.d_model), dt)
+    return p
+
+
+def embed_tokens(p: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens.long()]
+
+
+def lm_logits(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ p["tok"].T
+    return x @ p["lm_head"]

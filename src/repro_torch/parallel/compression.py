@@ -1,7 +1,10 @@
 """Sparse trigger readout: the at-source reduction on the server's host link.
 
-The trigger half of the JAX package's parallel/compression.py (its int8
-gradient and KV-cache half is not ported yet). The keep/drop cut runs on
+The trigger half of the JAX package's parallel/compression.py, and the
+int8 quantizers of its other half (``quantize_int8`` / ``dequantize_int8``,
+``quantize_kv`` / ``dequantize_kv``); its collectives
+(``quantized_psum``, ``make_compressed_value_and_grad``) come with the
+training slice (ROADMAP A.17). The keep/drop cut runs on
 the device; instead of shipping the dense (chips, events) score + keep
 tensors across the host link, only keep-flagged events cross it, as a
 packed (flat index, score) pair, so the bytes on the wire scale with the
@@ -113,3 +116,35 @@ def sparse_trigger_unpack(
     score[kidx] = vals[kept]
     keep[kidx] = True
     return score.reshape(shape), keep.reshape(shape)
+
+
+# ------------------------------------------------------------ int8 (absmax)
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """absmax-scaled symmetric int8 over the whole tensor: (q int8, scale
+    f32 0-d) with scale = max|x| / 127 + 1e-30, round half to even
+    (reference: repro/parallel/compression.py:55)."""
+    xf = x.to(torch.float32)
+    scale = torch.max(torch.abs(xf)) / 127.0 + 1e-30
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
+                    dtype=torch.float32) -> torch.Tensor:
+    return (q.to(torch.float32) * scale).to(dtype)
+
+
+def quantize_kv(kv: torch.Tensor, axis: int = -1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-vector absmax int8 along ``axis`` (head_dim by default): (q
+    int8, scale f32 with ``axis`` kept as 1) (reference:
+    repro/parallel/compression.py:297)."""
+    xf = kv.to(torch.float32)
+    scale = torch.amax(torch.abs(xf), dim=axis, keepdim=True) / 127.0 + 1e-30
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    return (q.to(torch.float32) * scale).to(dtype)

@@ -61,7 +61,20 @@ REQUIRED_MODULES = ("repro_torch.parallel.compression",
                     "repro_torch.net.replay",
                     "repro_torch.launch.fleet",
                     "repro_torch.launch.mesh",
-                    "repro_torch.train.elastic")
+                    "repro_torch.train.elastic",
+                    "repro_torch.core.verilog",
+                    "repro_torch.core.power",
+                    "repro_torch.core.nn_baseline",
+                    "repro_torch.configs",
+                    "repro_torch.configs.base",
+                    "repro_torch.configs.gemma_7b",
+                    "repro_torch.configs.starcoder2_7b",
+                    "repro_torch.configs.internvl2_76b",
+                    "repro_torch.models.layers",
+                    "repro_torch.models.dense",
+                    "repro_torch.models.registry",
+                    "repro_torch.launch.serve",
+                    "repro_torch.launch.train")
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -103,6 +116,11 @@ def _entry_points():
     from repro_torch.launch.mesh import make_fleet_meshes, make_readout_mesh
     from repro_torch.launch.readout_server import ReadoutServer
     from repro_torch.net.replay import host_oracle
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.core.nn_baseline import MLPSpec, init_mlp, train_mlp
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import TINY
+    from repro_torch.models import dense
 
     frames = np.zeros((2, 8, 13, 21), np.float32)
     y0 = np.zeros(2, np.float32)
@@ -131,7 +149,32 @@ def _entry_points():
         "pack_fabric_pool": lambda: pack_fabric_pool([_config()]),
         "make_readout_mesh": lambda: make_readout_mesh(1),
         "make_fleet_meshes": lambda: make_fleet_meshes([1]),
+        "nn_baseline.train_mlp": lambda: train_mlp(
+            np.zeros((4, 14)), np.zeros(4), steps=1, batch=2),
+        "nn_baseline.init_mlp": lambda: init_mlp(torch.Generator(),
+                                                 MLPSpec()),
+        "example.torch_smartpixel_readout": lambda: _smartpixel_example(
+            ["--events", "100"]),
+        "launch.serve.main": lambda: serve.main(
+            ["--batch", "1", "--prompt-len", "1", "--gen", "1"]),
+        "launch.serve.build": lambda: serve.build(TINY, 0, None),
+        "launch.serve.generate": lambda: serve.generate(
+            TINY, {}, batch=1, prompt_len=1, gen=1),
+        "models.dense.init_cache": lambda: dense.init_cache(TINY, 1, 2),
+        "convert.lm_params_from_numpy": lambda: lm_params_from_numpy(
+            TINY, {}),
     }
+
+
+def _smartpixel_example(argv):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_smartpixel_readout",
+        ROOT / "examples" / "torch_smartpixel_readout.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main(argv)
 
 
 def _chip():
@@ -152,7 +195,10 @@ def _spec():
     "convert.plan_from_numpy", "pack_fabric", "fabric_eval", "pack_ensemble",
     "bdt_infer", "fabric_eval_multi", "net.replay.host_oracle",
     "TenantFleet", "pack_fabric_pool", "make_readout_mesh",
-    "make_fleet_meshes"])
+    "make_fleet_meshes", "nn_baseline.train_mlp", "nn_baseline.init_mlp",
+    "example.torch_smartpixel_readout", "launch.serve.main",
+    "launch.serve.build", "launch.serve.generate",
+    "models.dense.init_cache", "convert.lm_params_from_numpy"])
 def test_entry_point_without_cuda_raises_named_error(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

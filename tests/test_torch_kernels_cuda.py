@@ -821,3 +821,32 @@ def test_k2_and_b6_dense_at_the_fleet_envelope(card, redundancy):
         runs[dev] = [t.cpu() for t in (voted, dis, *dense)]
     for x, y in zip(runs["cuda"], runs["cpu"]):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("upset", [False, True])
+@pytest.mark.parametrize("redundancy", ["none", "tmr"])
+def test_k2_at_the_deep_padded_envelope(card, redundancy, upset):
+    """K2 at the deep 4-tree ensemble's fleet bucket, 32 levels x 256 LUTs
+    with a 128-word input segment (fault C.3): under TMR the split walk (a
+    block a replica, then the vote pass), plain the staged walk; voted and
+    disagreement words bit-exact against the plain twin on synthetic stack
+    arrays, with one replica's tables upset."""
+    R = 3 if redundancy == "tmr" else 1
+    C, L, M, in_seg, n_in, O, W = 2, 32, 256, 128, 126, 16, 16
+    src, tables, outs = chip_smoke.synthetic_walk_stack(
+        torch, np, C, R, L, M, in_seg, n_in, O, seed=20 + R)
+    if upset and R > 1:
+        tables[1, :, :16, ::3] = 1.0 - tables[1, :, :16, ::3]
+    assert bs.walk_path(R, in_seg, L, M) == ("split" if R > 1 else "staged")
+    rng = np.random.default_rng(R)
+    bits = torch.as_tensor(rng.integers(0, 2, (C, W * 32 - 5, n_in)),
+                           dtype=torch.int32, device="cuda")
+    seg = bs.input_words(bits, n_in, in_seg)
+    n0 = bs.eval_seg_voted.launches
+    got = bs.eval_seg_voted(src, tables, outs, seg, R)
+    want = bs.eval_seg_voted_plain(src, tables, outs, seg, R)
+    assert bs.eval_seg_voted.launches == n0 + 1
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and torch.equal(x, y)
+    if upset and R > 1:
+        assert bool((got[1] != 0).any())
