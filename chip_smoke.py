@@ -173,6 +173,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
                paper's NN baseline
                (core/nn_baseline.py) trained on the card on the §5
                training split, with its LUT cost.
+ 15. lm      — the MoE, SSM, hybrid and encoder-decoder families
+     families  (repro_torch/models/{moe,ssm,hybrid,encdec}.py), plain
+               PyTorch on the card, after phase 14's models are freed:
+               the smoke configs of deepseek-moe-16b, grok-1-314b,
+               mamba2-130m, zamba2-1.2b and whisper-tiny, f32 with TF32
+               off, the same weights on the card and the CPU, 8
+               teacher-forced decode steps within 1e-4 (the MoE's also
+               with int8 caches, under phase 14's int8 rule); decode
+               against forward over 16 tokens (MoE at capacity factor 16
+               within 2e-2, SSM 3e-2, hybrid and encdec 2e-2) at the smoke
+               configs and at full width with 2 layers, f32 weights and
+               cache;
+               deepseek-moe-16b, mamba2-130m, zamba2-1.2b and whisper-tiny
+               (random encoder input at enc_len 1,500) at full width and
+               depth in bf16 through serve.build / serve.generate, batch
+               8, prompt 32, 64 greedy tokens: finite logits, tokens in
+               the vocabulary, prefill s, tokens/s, ms a step against its
+               HBM bound, peak memory. grok-1-314b (427 GB in bf16) runs
+               only at its smoke width.
 Then a `kernels` JSON line, the card's name and power limit, and the
 final line {"ok": true, "device": {...}}.
 """
@@ -2432,25 +2451,42 @@ def lm_inputs(torch, cfg, B, n, seed):
                          dtype=torch.int32)
 
 
-def lm_card_vs_cpu(torch, np, serve, registry):
-    """(i) each smoke config and TINY in f32 (TF32 off), the same weights
-    on the card and on the CPU: 8 teacher-forced decode steps, logits
-    within LM_CPU_TOL with f32 KV caches; with int8 caches within
-    LM_INT8_TOL, the int8 entries that differ counted (at most one step
-    each, under LM_INT8_FLIP_SHARE of those written)."""
+def lm_enc_embeds(torch, cfg, B, seed):
+    """An encdec model's encoder input (B, enc_len, d_model), on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((B, cfg.enc_len, cfg.d_model), generator=g) * 0.02
+
+
+def lm_cache(registry, cfg, B, T, device, params, enc):
+    """``registry.init_cache`` on ``device``; an encdec model's runs its
+    encoder on ``enc``."""
+    kw = {}
+    if cfg.family == "encdec":
+        kw = {"params": params, "enc_embeds": enc.to(device)}
+    return registry.init_cache(cfg, B, T, device=device, **kw)
+
+
+def lm_card_vs_cpu(torch, np, serve, registry, cases, phase):
+    """(i) each (name, config, KV cache dtypes) of ``cases`` in f32 (TF32
+    off), the same weights on the card and on the CPU: 8 teacher-forced
+    decode steps, logits within LM_CPU_TOL with f32 KV caches; with int8
+    caches within LM_INT8_TOL, the int8 entries that differ counted (at
+    most one step each, under LM_INT8_FLIP_SHARE of those written)."""
     import dataclasses
 
     out = {}
-    for name, base in lm_smoke_cases():
-        for kv in ("float32", "int8"):
+    for name, base, kvs in cases:
+        for kv in kvs:
             cfg = dataclasses.replace(base, kv_cache_dtype=kv)
             cpu = serve.build(cfg, 0, "cpu")
             card = _tree_to(cpu, "cuda")
             x = lm_inputs(torch, cfg, 2, LM_CPU_STEPS, seed=5)
-            caches = {"cpu": registry.init_cache(cfg, 2, LM_CPU_STEPS,
-                                                 device="cpu"),
-                      "cuda": registry.init_cache(cfg, 2, LM_CPU_STEPS,
-                                                  device="cuda")}
+            enc = lm_enc_embeds(torch, cfg, 2, seed=6)
+            with torch.no_grad():
+                caches = {"cpu": lm_cache(registry, cfg, 2, LM_CPU_STEPS,
+                                          "cpu", cpu, enc),
+                          "cuda": lm_cache(registry, cfg, 2, LM_CPU_STEPS,
+                                           "cuda", card, enc)}
             worst = 0.0
             with torch.no_grad():
                 for t in range(LM_CPU_STEPS):
@@ -2464,9 +2500,9 @@ def lm_card_vs_cpu(torch, np, serve, registry):
                     worst = max(worst, float((d / lim).max()))
                     if not bool(torch.isfinite(lg).all()) or \
                             bool((d > lim).any()):
-                        fail("lm_serve", f"{name} kv={kv} step {t}: card "
-                                         f"logits differ from the CPU's by "
-                                         f"{float(d.max()):.3g}")
+                        fail(phase, f"{name} kv={kv} step {t}: card "
+                                    f"logits differ from the CPU's by "
+                                    f"{float(d.max()):.3g}")
             row = {"max_err_over_tol": worst, "vocab": cfg.vocab}
             if kv == "int8":
                 cc, cg = caches["cpu"], caches["cuda"]
@@ -2480,30 +2516,50 @@ def lm_card_vs_cpu(torch, np, serve, registry):
                 if row["int8_max_step"] > 1 or row[
                         "int8_entries_differing"] > LM_INT8_FLIP_SHARE * \
                         row["int8_entries_written"]:
-                    fail("lm_serve", f"{name} int8: "
-                                     f"{row['int8_entries_differing']} "
-                                     f"cache entries differ, up to "
-                                     f"{row['int8_max_step']} steps")
+                    fail(phase, f"{name} int8: "
+                                f"{row['int8_entries_differing']} "
+                                f"cache entries differ, up to "
+                                f"{row['int8_max_step']} steps")
             out[f"{name}/{kv}"] = row
     return out
 
 
 def lm_bound_ms(params, cfg, B, pos):
-    """The least time of one decode step at position ``pos``: every
-    parameter byte and the cache entries (and int8 scales) up to ``pos``
-    read once, over the HBM rate."""
+    """The least time of one decode step at position ``pos``, over the HBM
+    rate: every parameter byte read once but an untied input embedding
+    table, of which the step gathers B rows (the MoE's capacity dispatch
+    runs every expert, so all of them count); the KV entries (and int8
+    scales) up to ``pos`` of every attention layer (the hybrid's: one
+    cache an application of its shared block); the SSM state and conv
+    buffer, read and written; encdec's cross K/V. Returns (ms, parameter
+    bytes, cache bytes)."""
     import torch
 
-    p_bytes = sum(t.numel() * t.element_size()
-                  for t in _leaves(params))
-    hd = cfg.resolved_head_dim()
+    from repro_torch.models.hybrid import n_shared_applications
     from repro_torch.models.layers import dtype_of
+    from repro_torch.models.ssm import _dims
 
-    entry = 1 if cfg.kv_cache_dtype == "int8" else \
-        torch.empty((), dtype=dtype_of(cfg)).element_size()
-    c_bytes = 2 * cfg.n_layers * B * pos * cfg.n_kv_heads * hd * entry
-    if cfg.kv_cache_dtype == "int8":
-        c_bytes += 2 * cfg.n_layers * B * pos * 2
+    p_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    if not cfg.tie_embeddings:
+        tok = params["embed"]["tok"]
+        p_bytes -= (tok.shape[0] - B) * tok.shape[1] * tok.element_size()
+    es = torch.empty((), dtype=dtype_of(cfg)).element_size()
+    hd = cfg.resolved_head_dim()
+    int8 = cfg.family in ("dense", "vlm", "moe") and \
+        cfg.kv_cache_dtype == "int8"
+    kv_layers = {"ssm": 0, "hybrid": n_shared_applications(cfg)}.get(
+        cfg.family, cfg.n_layers)
+    c_bytes = 2 * kv_layers * B * pos * cfg.n_kv_heads * hd * (
+        1 if int8 else es)
+    if int8:
+        c_bytes += 2 * kv_layers * B * pos * 2
+    if cfg.family in ("ssm", "hybrid"):
+        _, H, N, conv_ch = _dims(cfg)
+        c_bytes += 2 * cfg.n_layers * B * (
+            H * cfg.ssm_head_dim * N * 4 + (cfg.ssm_conv - 1) * conv_ch * es)
+    if cfg.family == "encdec":
+        c_bytes += 2 * cfg.n_layers * B * cfg.enc_len * cfg.n_kv_heads * \
+            hd * es
     return (p_bytes + c_bytes) / HBM_BYTES_PER_S * 1e3, p_bytes, c_bytes
 
 
@@ -2521,10 +2577,11 @@ def _leaves(tree):
         yield tree
 
 
-def lm_full(torch, np, serve, name):
-    """(ii) ``name`` at full width and depth on the card, bf16 (gemma-7b
-    with its int8 KV cache): batch 8, prompt 32, generation 64 through
-    launch/serve.py's build and generate, greedy."""
+def lm_full(torch, np, serve, name, phase="lm_serve"):
+    """(ii) ``name`` at full width and depth on the card, bf16, with its
+    own KV cache dtype: batch 8, prompt 32, generation 64 through
+    launch/serve.py's build and generate, greedy (an encdec model on
+    random encoder input at its enc_len)."""
     from repro_torch.configs import get_arch
 
     cfg = get_arch(name)
@@ -2534,22 +2591,28 @@ def lm_full(torch, np, serve, name):
     params = serve.build(cfg, 0, "cuda")
     torch.cuda.synchronize()
     t_init = time.monotonic() - t0
+    enc = (lm_enc_embeds(torch, cfg, LM_BATCH, seed=4)
+           if cfg.family == "encdec" else None)
     r = serve.generate(cfg, params, batch=LM_BATCH, prompt_len=LM_PROMPT,
-                       gen=LM_GEN, seed=0, temperature=0.0, device="cuda")
+                       gen=LM_GEN, seed=0, temperature=0.0, device="cuda",
+                       enc_embeds=enc)
     toks = r["tokens"]
     if tuple(toks.shape) != (LM_BATCH, LM_GEN) or \
             int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab or \
             not bool(torch.isfinite(r["logits"]).all()):
-        fail("lm_serve", f"{name}: generation gave {tuple(toks.shape)} "
-                         "tokens out of range or non-finite logits")
+        fail(phase, f"{name}: generation gave {tuple(toks.shape)} "
+                    "tokens out of range or non-finite logits")
     # the generation steps read the cache up to positions 32..95
     mid = LM_PROMPT + LM_GEN // 2
     bound, p_bytes, c_bytes = lm_bound_ms(params, cfg, LM_BATCH, mid)
-    row = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+    row = {"family": cfg.family, "layers": cfg.n_layers,
+           "d_model": cfg.d_model,
            "vocab": cfg.vocab, "param_dtype": cfg.param_dtype,
            "kv_cache_dtype": cfg.kv_cache_dtype,
            "params": sum(t.numel() for t in _leaves(params)),
-           "param_bytes": p_bytes, "batch": LM_BATCH,
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in _leaves(params)),
+           "param_bytes_read": p_bytes, "batch": LM_BATCH,
            "prompt": LM_PROMPT, "gen": LM_GEN,
            "init_s": t_init, "prefill_s": r["prefill_s"],
            "gen_s": r["gen_s"], "gen_tok_s": r["tok_s"],
@@ -2639,13 +2702,108 @@ def lm_serve(torch, np):
     from repro_torch.launch import serve
     from repro_torch.models import dense, registry
 
-    out = {"card_vs_cpu": lm_card_vs_cpu(torch, np, serve, registry)}
+    out = {"card_vs_cpu": lm_card_vs_cpu(
+        torch, np, serve, registry,
+        [(n, c, ("float32", "int8")) for n, c in lm_smoke_cases()],
+        "lm_serve")}
     emit("lm_card_vs_cpu", ok=True, **out["card_vs_cpu"])
     out["full"] = {}
     for n in LM_FULL:
         out["full"][n] = lm_full(torch, np, serve, n)
         emit("lm_full", ok=True, name=n, **out["full"][n])
     out["checks"] = lm_checks(torch, np, serve, registry, dense)
+    return out
+
+
+# 15: the MoE, SSM, hybrid and encoder-decoder families
+# (repro_torch/models/{moe,ssm,hybrid,encdec}.py): their smoke configs on
+# the card against the CPU (the MoE's also with int8 caches), decode
+# against forward at tests/test_models.py's settings (the MoE at capacity
+# factor 16: at 1.25 its drops depend on the token grouping), and the
+# four that fit one card at full width and depth (grok-1-314b, 427 GB in
+# bf16, only at its smoke width)
+LM_FAMILY_SMOKE = ("deepseek-moe-16b", "grok-1-314b", "mamba2-130m",
+                   "zamba2-1.2b", "whisper-tiny")
+LM_FAMILY_FULL = ("deepseek-moe-16b", "mamba2-130m", "zamba2-1.2b",
+                  "whisper-tiny")
+LM_DVF = {"moe": ({"capacity_factor": 16.0}, 2e-2), "ssm": ({}, 3e-2),
+          "hybrid": ({}, 2e-2), "encdec": ({}, 2e-2)}
+LM_DVF_T = 16
+
+
+def lm_family_decode_vs_forward(torch, serve, registry, cfg, tol, seed):
+    """Token-by-token decode of ``cfg`` on the card (f32, TF32 off)
+    against its forward on the same tokens: the largest |difference|,
+    its ratio to tol + tol * |forward| and the entries over it."""
+    params = serve.build(cfg, seed, "cuda")
+    toks = lm_inputs(torch, cfg, 2, LM_DVF_T, seed=2).cuda()
+    enc = lm_enc_embeds(torch, cfg, 2, seed=3).cuda()
+    mod = registry.model_for(cfg)
+    with torch.no_grad():
+        full = (mod.forward(cfg, params, enc, toks) if cfg.family == "encdec"
+                else mod.forward(cfg, params, toks))
+        full = (full[0] if isinstance(full, tuple) else full).float()
+        cache = lm_cache(registry, cfg, 2, LM_DVF_T, "cuda", params, enc)
+        steps = []
+        for t in range(LM_DVF_T):
+            logits, cache = registry.decode_step(cfg, params, cache,
+                                                 toks[:, t:t + 1])
+            steps.append(logits[:, 0].float())
+    d = (torch.stack(steps, 1) - full).abs()
+    lim = tol + tol * full.abs()
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"tol": tol, "max_abs": float(d.max()),
+            "max_over_tol": float((d / lim).max()),
+            "entries_over_tol": int((d > lim).sum()),
+            "finite": bool(torch.isfinite(full).all())}
+
+
+def lm_families(torch, np, card):
+    """Phase 15: (i) card against CPU on the smoke configs, (ii) decode
+    against forward on the card at the smoke configs and at full width
+    with LM_CHECK_LAYERS layers, (iii) the full-width runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    phase = "lm_families"
+    out = {"card_vs_cpu": lm_card_vs_cpu(
+        torch, np, serve, registry,
+        [(n, smoke_config(n), ("float32", "int8")
+          if get_arch(n).family == "moe" else ("float32",))
+         for n in LM_FAMILY_SMOKE], phase)}
+    emit("lm_families_card_vs_cpu", ok=True, card=card, **out["card_vs_cpu"])
+
+    out["decode_vs_forward"] = {}
+    for n in LM_FAMILY_SMOKE:
+        kw, tol = LM_DVF[get_arch(n).family]
+        cases = [("smoke", smoke_config(n))]
+        if n in LM_FAMILY_FULL:
+            # an f32 cache, as the smoke configs': the int8 cache's
+            # rounding is held apart (card against CPU)
+            cases.append((f"full_x{LM_CHECK_LAYERS}", dataclasses.replace(
+                get_arch(n), n_layers=LM_CHECK_LAYERS,
+                param_dtype="float32", kv_cache_dtype="float32")))
+        for what, base in cases:
+            row = lm_family_decode_vs_forward(
+                torch, serve, registry, dataclasses.replace(base, **kw), tol,
+                seed=1)
+            out["decode_vs_forward"][f"{n}/{what}"] = row
+            if row["entries_over_tol"] or not row["finite"]:
+                fail(phase, f"{n} {what}: decode differs from forward by "
+                            f"{row['max_abs']:.3g} ({row['entries_over_tol']}"
+                            f" entries over {tol}), finite {row['finite']}")
+    emit("lm_families_decode_vs_forward", ok=True, card=card,
+         **out["decode_vs_forward"])
+
+    out["full"] = {}
+    for n in LM_FAMILY_FULL:
+        out["full"][n] = lm_full(torch, np, serve, n, phase=phase)
+        emit("lm_families_full", ok=True, card=card, name=n,
+             **out["full"][n])
     return out
 
 
@@ -2883,6 +3041,18 @@ def main():
     lm = lm_serve(torch, np)
     emit("lm_serve", ok=True, card=card, seconds=time.monotonic() - t0, **lm)
     emit("nn_baseline", ok=True, card=card, **nn_baseline(torch, np, tr, te))
+
+    # 15. the MoE, SSM, hybrid and encoder-decoder families (plain
+    # PyTorch on the card, no kernel of the port), after phase 14's
+    # models are freed
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    fam = lm_families(torch, np, card)
+    emit("lm_families", ok=True, card=card, seconds=time.monotonic() - t0,
+         full={n: {k: r[k] for k in ("step_ms", "step_bound_ms",
+                                     "gen_tok_s", "prefill_s",
+                                     "max_memory_allocated")}
+               for n, r in fam["full"].items()})
 
     kernels = []
     # K2's row carries the times of its R=3 (TMR) run; K1, K2 and B6's

@@ -14,7 +14,10 @@ for its 0/1 entries) to torch.bfloat16.
 The LM scaffold's parameters carry the same way: ``lm_params_from_numpy``
 takes the JAX param pytree with every leaf as numpy (nested dicts) and
 returns the port's, leaf for leaf; bf16 leaves go through float32 (exact)
-to torch.bfloat16.
+to torch.bfloat16. Each floating leaf must have the dtype the reference
+gives it: the config's param_dtype, or float32 for the leaves the
+reference keeps in float32 (``layers.F32_LEAVES``: the MoE router, the
+SSM's ``A_log``, ``D_skip`` and ``dt_bias``).
 """
 from __future__ import annotations
 
@@ -69,22 +72,23 @@ def lm_params_from_numpy(cfg, tree: Mapping[str, object], device=None
                          ) -> Dict[str, object]:
     """{name: np.ndarray | subtree} (a JAX LM param pytree, leaves through
     ``np.asarray``) -> the same tree of tensors on ``device`` (default:
-    CUDA), dtypes kept. Every floating leaf must be in ``cfg``'s
-    param_dtype, as the models make them."""
-    from repro_torch.models.layers import dtype_of
+    CUDA), dtypes kept. Every floating leaf must have the dtype the models
+    give it: ``cfg``'s param_dtype, or float32 for a leaf named in
+    ``layers.F32_LEAVES``."""
+    from repro_torch.models.layers import F32_LEAVES, dtype_of
 
     dev = resolve_device(device)
-    want = dtype_of(cfg)
 
-    def walk(node, path):
+    def walk(node, path, name):
         if isinstance(node, Mapping):
-            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+            return {k: walk(v, f"{path}/{k}", k) for k, v in node.items()}
         t = _leaf(np.asarray(node), dev)
+        want = torch.float32 if name in F32_LEAVES else dtype_of(cfg)
         if t.is_floating_point() and t.dtype != want:
-            raise ValueError(f"leaf {path} is {t.dtype}, the config's "
-                             f"param_dtype is {want}")
+            raise ValueError(f"leaf {path} is {t.dtype}, the models make it "
+                             f"{want}")
         return t
-    return walk(tree, "")
+    return walk(tree, "", "")
 
 
 def plan_from_numpy(plan: Mapping[str, np.ndarray], device=None

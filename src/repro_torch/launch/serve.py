@@ -6,8 +6,11 @@ of the JAX package's launch/serve.py).
   PYTHONPATH=src python -m repro_torch.launch.serve --preset tiny --device cpu
 
 It takes the reference's flags and ``--device`` (the CUDA card by
-default; ``cpu`` only when asked). As the reference does, it prefills
-token by token through the decode step, then generates ``--gen`` tokens,
+default; ``cpu`` only when asked); ``--preset smoke --arch`` serves the
+smoke config of any token-LM family (dense, moe, ssm, hybrid), and
+encdec and the VLM are refused, as the reference refuses them. As the
+reference does, it prefills token by token through the decode step,
+then generates ``--gen`` tokens,
 greedy at ``--temperature 0``. Weights, prompts and samples come from
 explicit torch generators seeded from ``--seed`` (the weights' on the
 device, the prompt's and the sampler's on the CPU), so sampled tokens are
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -46,19 +49,30 @@ def _sync(device: torch.device) -> None:
 @torch.no_grad()
 def generate(cfg: ArchConfig, params: Dict, *, batch: int, prompt_len: int,
              gen: int, seed: int = 0, temperature: float = 1.0,
-             device=None) -> Dict:
+             device=None, enc_embeds: Optional[torch.Tensor] = None) -> Dict:
     """Prefill ``prompt_len`` tokens one by one, then generate ``gen``
-    tokens. Returns the tokens and the wall times (each phase ends with a
-    device synchronisation): {"prompt", "tokens" (batch, gen) int64,
-    "prefill_s", "gen_s", "tok_s", "step_ms", "logits" (the last)}."""
+    tokens. An encdec model needs its encoder's input ``enc_embeds``
+    (batch, enc_len, d_model), which its cache runs through the encoder.
+    Returns the tokens and the wall times (each phase ends with a device
+    synchronisation; prefill includes making the cache, the encoder
+    too): {"prompt", "tokens" (batch, gen) int64, "prefill_s", "gen_s",
+    "tok_s", "step_ms", "logits" (the last)}."""
     dev = resolve_device(device)
     host = torch.Generator().manual_seed(seed + 1)
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=host,
                            dtype=torch.int32).to(dev)
-    cache = registry.init_cache(cfg, batch, prompt_len + gen, device=dev)
+    kw = {}
+    if cfg.family == "encdec":
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} decodes against its encoder's "
+                             "output: pass enc_embeds (batch, enc_len, "
+                             "d_model)")
+        kw = {"params": params, "enc_embeds": enc_embeds.to(dev)}
 
     _sync(dev)
     t0 = time.perf_counter()
+    cache = registry.init_cache(cfg, batch, prompt_len + gen, device=dev,
+                                **kw)
     for i in range(prompt_len):
         logits, cache = registry.decode_step(cfg, params, cache,
                                              prompt[:, i:i + 1])

@@ -15,7 +15,7 @@ in place; its ``pos`` is a Python int.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -43,8 +43,9 @@ def init(cfg: ArchConfig, generator: torch.Generator) -> Dict:
 
 def _block_apply(cfg: ArchConfig, lp: Dict, x: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
-    x = x + L.attention(cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x),
-                        positions)
+    h, _ = L.attention(cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x),
+                       positions)
+    x = x + h
     return x + L.mlp(cfg, lp["mlp"], L.apply_norm(cfg, lp["ln2"], x))
 
 
@@ -113,7 +114,16 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode against the static-shape KV cache: (logits (B, 1,
     vocab), the cache with this token written and ``pos`` advanced)."""
-    x = _inputs(cfg, params, tokens_or_embeds)
+    return decode_blocks(cfg, params, cache,
+                         _inputs(cfg, params, tokens_or_embeds),
+                         lambda lp, h: L.mlp(cfg, lp["mlp"], h))
+
+
+def decode_blocks(cfg: ArchConfig, params: Dict, cache: Dict,
+                  x: torch.Tensor, ffn: Callable) -> Tuple[torch.Tensor, Dict]:
+    """The decode step's layer loop from the embedded token x (B, 1, D):
+    attention against the stacked cache, then ``ffn(layer params, normed
+    x)`` on the residual; the MoE model passes its expert MLP."""
     pos = int(cache["pos"])
     if pos >= cache["k"].shape[2]:
         raise ValueError(f"cache is full: pos {pos} of "
@@ -126,7 +136,7 @@ def decode_step(
             cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x), pos,
             cache["k"], cache["v"], layer, scales=scales)[0]
         x = x + h
-        x = x + L.mlp(cfg, lp["mlp"], L.apply_norm(cfg, lp["ln2"], x))
+        x = x + ffn(lp, L.apply_norm(cfg, lp["ln2"], x))
     x = L.apply_norm(cfg, params["final_norm"], x)
     return L.lm_logits(cfg, params["embed"], x), {**cache, "pos": pos + 1}
 

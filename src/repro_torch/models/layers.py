@@ -7,10 +7,13 @@ The inference half of the JAX package's models/layers.py:
   * activations flow as (batch, seq, d_model) in the config's param_dtype
     (bf16 by default), norm statistics and softmax in f32, in the
     reference's order of casts (below);
-  * attention supports GQA (n_kv_heads <= n_heads), RoPE, causal masking,
-    query-chunked attention, and a one-token decode path that updates a
-    static-shape KV cache in place (bf16 or int8 with bf16 scales); the
-    initialisers make the stacked leaves directly.
+  * attention supports GQA (n_kv_heads <= n_heads), RoPE, causal or
+    bidirectional masking, cross-attention over a source sequence,
+    query-chunked attention, a one-token step against a cache that reads
+    all T entries under ``t <= pos`` (the hybrid's shared block), and a
+    one-token decode path that updates a static-shape stacked KV cache in
+    place (bf16 or int8 with bf16 scales); the initialisers make the
+    stacked leaves directly, one leading index at a time.
 
 The matrix products are plain ``@``/``einsum``: none of them is a Pallas
 kernel in the reference. ``scaled_dot_product_attention`` is not used: it
@@ -41,12 +44,30 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
     return _DTYPES[cfg.param_dtype]
 
 
+# leaves the reference keeps in float32 whatever the config's param_dtype
+# (moe.py:91, ssm.py:53-57)
+F32_LEAVES = frozenset({"router", "A_log", "D_skip", "dt_bias"})
+
+
+def _lead(n_layers: Optional[int]) -> Tuple[int, ...]:
+    return () if n_layers is None else (n_layers,)
+
+
 def _normal(generator: torch.Generator, shape, scale: float,
             dtype: torch.dtype) -> torch.Tensor:
-    """N(0, 1) * scale drawn in f32 on the generator's device, then cast."""
-    x = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
-    return (x * scale).to(dtype)
+    """N(0, 1) * scale drawn in f32 on the generator's device, then cast.
+    A stacked leaf (3 or more dims) is drawn one leading index at a time
+    into the cast tensor, so the f32 draw never holds more than one layer
+    (deepseek-moe-16b's stacked experts are 20.7 GB in f32)."""
+    shape = tuple(shape)
+    if len(shape) < 3:
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return (x * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    for i in range(shape[0]):
+        out[i] = _normal(generator, shape[1:], scale, dtype)
+    return out
 
 
 # ----------------------------------------------------------------- norms
@@ -78,7 +99,7 @@ def init_norm(cfg: ArchConfig, d: int, device, n_layers: Optional[int] = None
               ) -> Dict:
     """Unit scale (and zero bias for layernorm), stacked on a leading axis
     of ``n_layers`` when given."""
-    lead = () if n_layers is None else (n_layers,)
+    lead = _lead(n_layers)
     p = {"scale": torch.ones(lead + (d,), dtype=dtype_of(cfg), device=device)}
     if cfg.norm == "layernorm":
         p["bias"] = torch.zeros(lead + (d,), dtype=dtype_of(cfg),
@@ -113,17 +134,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 # ------------------------------------------------------------- attention
 def init_attention(cfg: ArchConfig, generator: torch.Generator,
-                   n_layers: int) -> Dict:
+                   n_layers: Optional[int]) -> Dict:
+    """Stacked on a leading axis of ``n_layers``, or one block (None)."""
     D = cfg.d_model
     hd = cfg.resolved_head_dim()
     H, KV = cfg.n_heads, cfg.n_kv_heads
     dt = dtype_of(cfg)
+    lead = _lead(n_layers)
     return {
-        "wq": _normal(generator, (n_layers, D, H * hd), 1 / math.sqrt(D), dt),
-        "wk": _normal(generator, (n_layers, D, KV * hd), 1 / math.sqrt(D), dt),
-        "wv": _normal(generator, (n_layers, D, KV * hd), 1 / math.sqrt(D), dt),
-        "wo": _normal(generator, (n_layers, H * hd, D),
-                      1 / math.sqrt(H * hd), dt),
+        "wq": _normal(generator, lead + (D, H * hd), 1 / math.sqrt(D), dt),
+        "wk": _normal(generator, lead + (D, KV * hd), 1 / math.sqrt(D), dt),
+        "wv": _normal(generator, lead + (D, KV * hd), 1 / math.sqrt(D), dt),
+        "wo": _normal(generator, lead + (H * hd, D), 1 / math.sqrt(H * hd),
+                      dt),
     }
 
 
@@ -167,33 +190,67 @@ def attention(
     p: Dict,
     x: torch.Tensor,                    # (B, S, D)
     positions: torch.Tensor,            # (B, S) int
-) -> torch.Tensor:
-    """Causal self-attention with RoPE over the whole sequence, query-
-    chunked when ``cfg.attn_chunk`` divides S and is smaller. (The
-    reference's cross-attention and cache arguments serve the encdec
-    family: ROADMAP A.16.)"""
+    *,
+    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cross-attn source
+    causal: bool = True,
+    use_rope: bool = True,
+    cache: Optional[Dict] = None,       # {"k","v": (B,T,KV,hd), "pos": int}
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The reference's attention (layers.py:132-187) -> (out, new cache).
+
+    ``kv``: cross-attention, K/V projected from the source (B, T, D)
+    tensors, no RoPE. ``causal=False``: every entry attended, no query
+    chunks (the reference chunks only its causal branch). ``cache``: the
+    one-token step of the hybrid's shared block: this token's K/V are
+    written at ``cache["pos"]`` in place, then all T entries are read
+    under ``t <= pos``; the returned cache holds the same tensors and
+    ``pos + S``. Otherwise causal, query-chunked when ``cfg.attn_chunk``
+    divides S and is smaller."""
     B, S, D = x.shape
     hd = cfg.resolved_head_dim()
     H, KV = cfg.n_heads, cfg.n_kv_heads
     G = H // KV
 
     q = (x @ p["wq"]).reshape(B, S, KV, G, hd)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
-    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
-    q = apply_rope(q.reshape(B, S, KV * G, hd), cos, sin).reshape(
-        B, S, KV, G, hd)
-    k = apply_rope(k, cos, sin)
+    if kv is None:
+        k = (x @ p["wk"]).reshape(B, S, KV, hd)
+        v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    else:
+        src_k, src_v = kv
+        k = (src_k @ p["wk"]).reshape(B, src_k.shape[1], KV, hd)
+        v = (src_v @ p["wv"]).reshape(B, src_v.shape[1], KV, hd)
+
+    if use_rope and kv is None:
+        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+        q = apply_rope(q.reshape(B, S, KV * G, hd), cos, sin).reshape(
+            B, S, KV, G, hd)
+        k = apply_rope(k, cos, sin)
 
     scale = _scale(hd)
-    if cfg.attn_chunk and S > cfg.attn_chunk and S % cfg.attn_chunk == 0:
-        out = _attn_chunked(cfg, q, k, v, positions, scale)
-    else:
-        t_idx = torch.arange(S, dtype=torch.int32, device=x.device)
+    new_cache = None
+    if cache is not None:
+        pos = int(cache["pos"])
+        ck, cv = cache["k"], cache["v"]
+        T = ck.shape[1]
+        if pos + S > T:
+            raise ValueError(f"cache is full: pos {pos} of {T} positions")
+        ck[:, pos:pos + S] = k.to(ck.dtype)
+        cv[:, pos:pos + S] = v.to(cv.dtype)
+        k, v = ck, cv
+        new_cache = {"k": ck, "v": cv, "pos": pos + S}
+        t_idx = torch.arange(T, dtype=torch.int32, device=x.device)
+        mask = (t_idx <= pos)[None, None, None, None, :]
+    elif causal:
+        if cfg.attn_chunk and S > cfg.attn_chunk and S % cfg.attn_chunk == 0:
+            out = _attn_chunked(cfg, q, k, v, positions, scale)
+            return out.reshape(B, S, H * hd) @ p["wo"], None
+        t_idx = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
         mask = (positions[:, None, None, :, None]
                 >= t_idx[None, None, None, None, :])
-        out = _gqa_scores_softmax_v(q, k, v, mask, scale)
-    return out.reshape(B, S, H * hd) @ p["wo"]
+    else:
+        mask = None
+    out = _gqa_scores_softmax_v(q, k, v, mask, scale)
+    return out.reshape(B, S, H * hd) @ p["wo"], new_cache
 
 
 def quantize_kv_entry(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -214,6 +271,7 @@ def attention_decode_inplace(
     k_all: torch.Tensor,     # (L, B, T, KV, hd) — full stacked cache
     v_all: torch.Tensor,
     layer: int,
+    use_rope: bool = True,
     scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # int8 cache
 ) -> Tuple[torch.Tensor, ...]:
     """One-token decode that writes this token's K/V into the stacked cache
@@ -234,11 +292,13 @@ def attention_decode_inplace(
     q = (x @ p["wq"]).reshape(B, S, KV, G, hd)
     k = (x @ p["wk"]).reshape(B, S, KV, hd)
     v = (x @ p["wv"]).reshape(B, S, KV, hd)
-    positions = torch.full((B, S), pos, dtype=torch.int32, device=x.device)
-    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
-    q = apply_rope(q.reshape(B, S, KV * G, hd), cos, sin).reshape(
-        B, S, KV, G, hd)
-    k = apply_rope(k, cos, sin)
+    if use_rope:
+        positions = torch.full((B, S), pos, dtype=torch.int32,
+                               device=x.device)
+        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+        q = apply_rope(q.reshape(B, S, KV * G, hd), cos, sin).reshape(
+            B, S, KV, G, hd)
+        k = apply_rope(k, cos, sin)
 
     k_l, v_l = k_all[layer, :, :pos], v_all[layer, :, :pos]
     if scales is not None:
@@ -274,17 +334,19 @@ def index_layer(tree, layer: int):
 
 
 # ------------------------------------------------------------------- mlp
-def init_mlp(cfg: ArchConfig, generator: torch.Generator, n_layers: int
-             ) -> Dict:
-    D, Fd = cfg.d_model, cfg.d_ff
+def init_mlp(cfg: ArchConfig, generator: torch.Generator,
+             n_layers: Optional[int], d_ff: Optional[int] = None) -> Dict:
+    """Stacked on a leading axis of ``n_layers``, or one block (None);
+    hidden width ``d_ff`` (default ``cfg.d_ff``)."""
+    D, Fd = cfg.d_model, d_ff or cfg.d_ff
     dt = dtype_of(cfg)
+    lead = _lead(n_layers)
     p = {
-        "w_up": _normal(generator, (n_layers, D, Fd), 1 / math.sqrt(D), dt),
-        "w_down": _normal(generator, (n_layers, Fd, D), 1 / math.sqrt(Fd),
-                          dt),
+        "w_up": _normal(generator, lead + (D, Fd), 1 / math.sqrt(D), dt),
+        "w_down": _normal(generator, lead + (Fd, D), 1 / math.sqrt(Fd), dt),
     }
     if cfg.mlp in ("swiglu", "geglu"):
-        p["w_gate"] = _normal(generator, (n_layers, D, Fd), 1 / math.sqrt(D),
+        p["w_gate"] = _normal(generator, lead + (D, Fd), 1 / math.sqrt(D),
                               dt)
     return p
 

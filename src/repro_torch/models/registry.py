@@ -3,12 +3,13 @@ scaffold (the port of the JAX package's models/registry.py).
 
 API per family module:
   init(cfg, generator) -> params
-  init_cache(cfg, batch, max_len, device=None) -> cache
+  init_cache(cfg, batch, max_len[, ...], device=None) -> cache
   decode_step(cfg, params, cache, tokens) -> (logits, cache)
 
-The port serves the dense family and the VLM backbone (the same module,
-``embeds_in=True``). The other families raise ``NotPortedError`` naming
-their ROADMAP item, and so does ``loss_fn`` (the training slice).
+The port serves every family of the reference: dense and the VLM backbone
+(the same module, ``embeds_in=True``), moe, ssm, hybrid and encdec
+(``init_cache(..., params=, enc_embeds=)`` runs its encoder). ``loss_fn``
+raises ``NotPortedError`` naming its ROADMAP item (the training slice).
 
 Batch contents by family:
   dense/moe/ssm/hybrid: {"tokens": (B,S) i32, "labels": (B,S) i32}
@@ -23,23 +24,19 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import NotPortedError
-from repro_torch.models import dense
+from repro_torch.models import dense, encdec, hybrid, moe, ssm
 
 _FAMILIES = {
     "dense": dense,
     "vlm": dense,      # backbone only; embeds_in=True switches the input path
+    "moe": moe,
+    "ssm": ssm,
+    "hybrid": hybrid,
+    "encdec": encdec,
 }
-_NOT_PORTED = {"moe": "ROADMAP A.16 (models/moe.py)",
-               "ssm": "ROADMAP A.16 (models/ssm.py)",
-               "hybrid": "ROADMAP A.16 (models/hybrid.py)",
-               "encdec": "ROADMAP A.16 (models/encdec.py)"}
 
 
 def model_for(cfg: ArchConfig):
-    if cfg.family in _NOT_PORTED:
-        raise NotPortedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet: "
-            f"{_NOT_PORTED[cfg.family]}")
     return _FAMILIES[cfg.family]
 
 
@@ -52,8 +49,11 @@ def loss_fn(cfg: ArchConfig, params, batch: Dict):
                          "ROADMAP A.17")
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
-    return model_for(cfg).init_cache(cfg, batch, max_len, device=device)
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None, **kw):
+    """The family's cache on ``device`` (default: CUDA); ``kw`` goes to the
+    family (encdec: ``params``, ``enc_embeds``)."""
+    return model_for(cfg).init_cache(cfg, batch, max_len, device=device,
+                                     **kw)
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens):

@@ -7,7 +7,13 @@ its flag-combination refusals; ``examples/torch_replay_load.py`` (the
 port of examples/replay_load.py) over TCP and UDP, every trigger verified
 against the host oracle. Both are handed ``--device cpu``; on the card
 they run with no device flag (chip_smoke.py phase 12).
+``examples/torch_quickstart.py`` (the port of examples/quickstart.py):
+the §5 pipeline on a reduced dataset, every event matching the golden
+model; ``examples/torch_serve_lm.py`` (the port of examples/serve_lm.py)
+with its defaults (TINY) and at the smoke width of the SSM, MoE and
+hybrid families.
 """
+import ast
 import importlib.util
 import pathlib
 
@@ -77,3 +83,27 @@ def test_replay_load_example_on_cpu(transport, backend, rate, capsys):
         assert rep.verified, rep.mismatches
         assert rep.n_events == rep.ack["events_in"] == 4 * per
     assert "all trigger decisions bit-exact vs the host oracle" in out
+
+
+def test_quickstart_example_on_cpu(capsys):
+    v = _example("torch_quickstart").main(["--device", "cpu",
+                                           "--events", "20000"])
+    out = capsys.readouterr().out
+    assert v["device"] == "cpu" and v["n"] > 0 and v["n_match"] == v["n"]
+    assert "OK — paper §5 reproduced." in out
+    assert "kernel backend, cpu" in out
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--preset", "smoke", "--arch", "mamba2-130m"],
+    ["--preset", "smoke", "--arch", "deepseek-moe-16b"],
+    ["--preset", "smoke", "--arch", "zamba2-1.2b"]],
+    ids=["tiny", "mamba2-130m", "deepseek-moe-16b", "zamba2-1.2b"])
+def test_serve_lm_example_on_cpu(flags, capsys):
+    assert _example("torch_serve_lm").main(
+        ["--device", "cpu", "--gen", "6"] + flags) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("prefill 16 tokens x 8 reqs")
+    assert lines[1].startswith("generated 6 tokens x 8 reqs")
+    toks = ast.literal_eval(lines[2].split(":", 1)[1].strip())
+    assert len(toks) == 6 and all(isinstance(t, int) for t in toks)

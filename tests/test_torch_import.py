@@ -74,7 +74,11 @@ REQUIRED_MODULES = ("repro_torch.parallel.compression",
                     "repro_torch.models.dense",
                     "repro_torch.models.registry",
                     "repro_torch.launch.serve",
-                    "repro_torch.launch.train")
+                    "repro_torch.launch.train",
+                    "repro_torch.models.moe",
+                    "repro_torch.models.ssm",
+                    "repro_torch.models.hybrid",
+                    "repro_torch.models.encdec")
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -120,7 +124,8 @@ def _entry_points():
     from repro_torch.core.nn_baseline import MLPSpec, init_mlp, train_mlp
     from repro_torch.launch import serve
     from repro_torch.launch.train import TINY
-    from repro_torch.models import dense
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import dense, encdec, hybrid, moe, registry, ssm
 
     frames = np.zeros((2, 8, 13, 21), np.float32)
     y0 = np.zeros(2, np.float32)
@@ -153,8 +158,8 @@ def _entry_points():
             np.zeros((4, 14)), np.zeros(4), steps=1, batch=2),
         "nn_baseline.init_mlp": lambda: init_mlp(torch.Generator(),
                                                  MLPSpec()),
-        "example.torch_smartpixel_readout": lambda: _smartpixel_example(
-            ["--events", "100"]),
+        "example.torch_smartpixel_readout": lambda: _run_example(
+            "torch_smartpixel_readout", ["--events", "100"]),
         "launch.serve.main": lambda: serve.main(
             ["--batch", "1", "--prompt-len", "1", "--gen", "1"]),
         "launch.serve.build": lambda: serve.build(TINY, 0, None),
@@ -163,15 +168,31 @@ def _entry_points():
         "models.dense.init_cache": lambda: dense.init_cache(TINY, 1, 2),
         "convert.lm_params_from_numpy": lambda: lm_params_from_numpy(
             TINY, {}),
+        "models.moe.init_cache": lambda: moe.init_cache(
+            smoke_config("deepseek-moe-16b"), 1, 2),
+        "models.ssm.init_cache": lambda: ssm.init_cache(
+            smoke_config("mamba2-130m"), 1, 2),
+        "models.hybrid.init_cache": lambda: hybrid.init_cache(
+            smoke_config("zamba2-1.2b"), 1, 2),
+        "models.encdec.init_cache": lambda: encdec.init_cache(
+            smoke_config("whisper-tiny"), 1, 2),
+        "registry.init_cache": lambda: registry.init_cache(
+            smoke_config("grok-1-314b"), 1, 2),
+        "launch.serve.main.smoke_ssm": lambda: serve.main(
+            ["--preset", "smoke", "--arch", "mamba2-130m", "--batch", "1",
+             "--prompt-len", "1", "--gen", "1"]),
+        "example.torch_quickstart": lambda: _run_example(
+            "torch_quickstart", ["--events", "100"]),
+        "example.torch_serve_lm": lambda: _run_example(
+            "torch_serve_lm", ["--gen", "1"]),
     }
 
 
-def _smartpixel_example(argv):
+def _run_example(name, argv):
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "torch_smartpixel_readout",
-        ROOT / "examples" / "torch_smartpixel_readout.py")
+        name, ROOT / "examples" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.main(argv)
@@ -198,7 +219,11 @@ def _spec():
     "make_fleet_meshes", "nn_baseline.train_mlp", "nn_baseline.init_mlp",
     "example.torch_smartpixel_readout", "launch.serve.main",
     "launch.serve.build", "launch.serve.generate",
-    "models.dense.init_cache", "convert.lm_params_from_numpy"])
+    "models.dense.init_cache", "convert.lm_params_from_numpy",
+    "models.moe.init_cache", "models.ssm.init_cache",
+    "models.hybrid.init_cache", "models.encdec.init_cache",
+    "registry.init_cache", "launch.serve.main.smoke_ssm",
+    "example.torch_quickstart", "example.torch_serve_lm"])
 def test_entry_point_without_cuda_raises_named_error(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

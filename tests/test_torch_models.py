@@ -16,8 +16,12 @@ identical parameters:
   step at a .5 boundary would show here as a count of 1;
 * ``forward`` against JAX ``forward`` (1e-4), including the query-chunked
   path (S > attn_chunk);
+* the same in bf16 (parameters and cache, fault C.5): decode and
+  forward within BF16_TOL, and the port's top-1 token JAX's own or tied
+  with it in bf16 (below);
 * the int8 quantizers of ``parallel/compression.py`` bit-exact;
-* the registry raises ``NotPortedError`` for the other families;
+* ``registry.loss_fn`` raises ``NotPortedError`` naming the training
+  slice;
 * ``python -m repro_torch.launch.serve --preset tiny --device cpu`` runs.
 """
 import dataclasses
@@ -70,8 +74,8 @@ def _tree_np(tree):
 
 
 @functools.lru_cache(maxsize=None)
-def _params(name):
-    jcfg, pcfg = _cfgs(name)
+def _params(name, dtype="float32"):
+    jcfg, pcfg = _cfgs(name, param_dtype=dtype)
     jp = jax_registry.init_params(jcfg, jax.random.PRNGKey(0))
     return jp, convert.lm_params_from_numpy(pcfg, _tree_np(jp), device="cpu")
 
@@ -88,7 +92,7 @@ def _inputs(jcfg, n):
 
 def _decode_both(name, **kw):
     jcfg, pcfg = _cfgs(name, **kw)
-    jp, pp = _params(name)
+    jp, pp = _params(name, jcfg.param_dtype)
     x = _inputs(jcfg, STEPS)
     step = jax.jit(functools.partial(jax_registry.decode_step, jcfg))
     jc = jax_registry.init_cache(jcfg, B, STEPS)
@@ -191,6 +195,105 @@ def test_dense_lm_module_holds_the_pytree():
             m(toks).numpy(), dense.forward(cfg, pp, toks).numpy())
 
 
+# Fault C.5, the bf16 path. The two sides round to bf16 at other points
+# and sum their products in other orders, so their bf16 logits differ by a
+# few bf16 ulps (2**-7 of the magnitude): on these inputs (JAX init seed
+# 0, the dense smoke configs and TINY, 8 decode steps and forwards of 12
+# and 32 tokens) by at most 0.060 (1 + |logit|) (phi3's chunked forward;
+# the decodes 0.041). BF16_TOL (rtol = atol = 0.1) holds them. JAX's own
+# bf16 logits tie exactly at the top (the top two equal) at some
+# positions, where either token is its top-1; so the port's top-1 must be
+# JAX's, or a token whose JAX logit is within BF16_TIE_ULPS ulps of JAX's
+# top (seen: 0 to 2).
+BF16_TOL = 0.1
+BF16_TIE_ULPS = 4
+
+
+def _hold_bf16(got, want):
+    np.testing.assert_allclose(got, want, rtol=BF16_TOL, atol=BF16_TOL)
+    top = want.max(-1)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(top), 1e-30))) - 7)
+    picked = np.take_along_axis(want, got.argmax(-1)[..., None], -1)[..., 0]
+    assert (picked >= top - BF16_TIE_ULPS * ulp).all(), (
+        "the port's top-1 is not JAX's", np.argwhere(
+            picked < top - BF16_TIE_ULPS * ulp).tolist())
+
+
+@pytest.fixture
+def jax_bf16(request):
+    """The JAX side of a bf16 comparison, made in setup (its init and
+    compiles are outside the test's time budget): (name, S, chunk) with S
+    None for 8 decode steps -> (the case, JAX's logits as float32)."""
+    name, S, chunk = request.param
+    jcfg, _ = _cfgs(name, attn_chunk=chunk, param_dtype="bfloat16",
+                    kv_cache_dtype="bfloat16")
+    jp, _ = _params(name, "bfloat16")
+    if S is None:
+        step = jax.jit(functools.partial(jax_registry.decode_step, jcfg))
+        jc, x, want = jax_registry.init_cache(jcfg, B, STEPS), \
+            _inputs(jcfg, STEPS), []
+        for t in range(STEPS):
+            jl, jc = step(jp, jc, x[:, t:t + 1])
+            want.append(np.asarray(jl, np.float32))
+        return request.param, np.stack(want)
+    return request.param, np.asarray(
+        jax_dense.forward(jcfg, jp, _inputs(jcfg, S)), np.float32)
+
+
+BF16_CASES = [(n, S, chunk) for n in CASES
+              for S, chunk in ((None, 0), (12, 0), (32, 8))]
+
+
+@pytest.mark.parametrize(
+    "jax_bf16", BF16_CASES, indirect=True,
+    ids=[f"{n}-{'decode' if S is None else 'chunked' if c else 'full'}"
+         for n, S, c in BF16_CASES])
+def test_bf16_matches_jax(jax_bf16):
+    """decode (8 teacher-forced steps, bf16 cache) and forward (full and
+    query-chunked) in bf16 against JAX's."""
+    (name, S, chunk), want = jax_bf16
+    jcfg, pcfg = _cfgs(name, attn_chunk=chunk, param_dtype="bfloat16",
+                       kv_cache_dtype="bfloat16")
+    _, pp = _params(name, "bfloat16")
+    with torch.no_grad():
+        if S is None:
+            x = _inputs(jcfg, STEPS)
+            pc = registry.init_cache(pcfg, B, STEPS, device="cpu")
+            assert pc["k"].dtype == torch.bfloat16
+            got = []
+            for t in range(STEPS):
+                pl, pc = registry.decode_step(pcfg, pp, pc,
+                                              torch.tensor(x[:, t:t + 1]))
+                got.append(pl)
+            got = torch.stack(got)
+        else:
+            got = dense.forward(pcfg, pp, torch.tensor(_inputs(jcfg, S)))
+    assert got.dtype == torch.bfloat16
+    _hold_bf16(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_bf16_decode_matches_forward_in_the_port(name):
+    """In bf16 the port's decode and forward differ where JAX's are
+    bit-identical: a product's float32 sum runs in another order for the
+    decode's B rows than for the forward's B * S (torch picks its GEMM by
+    shape), and an output at a bf16 rounding boundary lands one ulp apart
+    (the attention reads the same, sliced or masked). Held as the port is
+    held to JAX."""
+    jcfg, cfg = _cfgs(name, param_dtype="bfloat16",
+                      kv_cache_dtype="bfloat16")
+    _, pp = _params(name, "bfloat16")
+    x = torch.tensor(_inputs(jcfg, 12))
+    with torch.no_grad():
+        full = dense.forward(cfg, pp, x)
+        cache = dense.init_cache(cfg, B, 12, device="cpu")
+        got = []
+        for t in range(12):
+            logits, cache = dense.decode_step(cfg, pp, cache, x[:, t:t + 1])
+            got.append(logits[:, 0])
+    _hold_bf16(torch.stack(got, 1).float().numpy(), full.float().numpy())
+
+
 def test_int8_quantizers_match_jax():
     rng = np.random.default_rng(0)
     x = (rng.normal(size=(3, 5, 4, 16)) * rng.uniform(0.1, 9, (3, 5, 1, 1))
@@ -212,14 +315,7 @@ def test_int8_quantizers_match_jax():
             np.asarray(jax_cp.dequantize_kv(jq, js, jnp.float32)))
 
 
-@pytest.mark.parametrize("name", sorted(
-    n for n, c in ARCHS.items() if c.family not in ("dense", "vlm")))
-def test_registry_refuses_unported_families(name):
-    cfg = smoke_config(name)
-    with pytest.raises(NotPortedError, match="ROADMAP A.16"):
-        registry.init_params(cfg, torch.Generator())
-    with pytest.raises(NotPortedError):
-        registry.init_cache(cfg, 1, 4, device="cpu")
+def test_loss_fn_names_the_training_slice():
     with pytest.raises(NotPortedError, match="A.17"):
         registry.loss_fn(smoke_config("gemma-7b"), {}, {})
 
