@@ -2807,6 +2807,266 @@ def lm_families(torch, np, card):
     return out
 
 
+# 16: the LM training path (repro_torch/train, launch/train.py): the
+# family smoke configs card against CPU, TINY through the driver with
+# resume, gemma-7b at full width with its depth cut to 4 layers (f32
+# params, grads and AdamW moments of all 28 layers are 8.54 B x 16 B =
+# 137 GB, over the card's 80 GB; 4 layers are 1.89 B parameters, 30.3 GB)
+# and mamba2-130m at full width and depth
+TRAIN_CASES = ("tiny", "gemma-7b", "deepseek-moe-16b", "mamba2-130m",
+               "zamba2-1.2b", "whisper-tiny")
+TRAIN_LR, TRAIN_WD, TRAIN_CHECK_STEPS = 1e-3, 0.01, 3
+# loss within rtol 1e-5; every grad leaf within 1e-4 max|g_leaf| + 1e-6
+TRAIN_LOSS_RTOL, TRAIN_G_REL, TRAIN_G_ABS = 1e-5, 1e-4, 1e-6
+# params: entries outside 1e-6 + 1e-4 |p| (AdamW's g / (|g| + eps) turns
+# the last bits of a grad near zero into a share of lr) under 0.1% of
+# all, each within 2 lr (1 + wd): tests/test_torch_train.py's rule
+TRAIN_P_REL, TRAIN_P_ABS, TRAIN_MAX_SHARE = 1e-4, 1e-6, 1e-3
+TRAIN_TINY = ("--preset", "tiny", "--batch", "16", "--seq", "128", "--lr",
+              "2e-3", "--ckpt-every", "20", "--log-every", "1")
+TRAIN_TINY_STEPS, TRAIN_TINY_RESUME = 60, 80
+TRAIN_FULL = {"gemma-7b": {"n_layers": 4, "remat": "full",
+                           "loss_chunk": 1024, "batch": 8, "seq": 256},
+              "mamba2-130m": {"batch": 8, "seq": 512}}
+TRAIN_FULL_STEPS = 6
+
+
+def train_param_diff(np, got, want, lr, wd, small=None):
+    """Params ({key: array}) against a reference under the rule above.
+    ``small`` ({key: bool array}, optional): the entries allowed outside
+    1e-6 + 1e-4 |p| (grads below the grads' own tolerance); with it, any
+    other entry outside counts in ``outside_small``."""
+    over = entries = outside = 0
+    worst = 0.0
+    for k, w in want.items():
+        d = np.abs(got[k] - w)
+        o = d > TRAIN_P_ABS + TRAIN_P_REL * np.abs(w)
+        if small is not None:
+            outside += int((o & ~small[k]).sum())
+        over += int(o.sum())
+        entries += d.size
+        if o.any():
+            worst = max(worst, float(d[o].max()) / lr)
+    return {"over": over, "entries": entries, "max_over_lr": worst,
+            "outside_small": outside,
+            "ok": (outside == 0 and over <= TRAIN_MAX_SHARE * entries
+                   and worst <= 2 * (1 + wd))}
+
+
+def _np_leaves(tree):
+    from repro_torch.train import tree as T
+
+    return {k: v.detach().float().cpu().numpy() for k, v in T.items(tree)}
+
+
+def train_cfg(name):
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.train import TINY
+
+    return TINY if name == "tiny" else smoke_config(name)
+
+
+def train_card_vs_cpu(torch, np, name, phase="lm_train"):
+    """(i) ``name``'s config (f32, TF32 off), the same weights and batches
+    on the card and the CPU: loss and grads at the initial weights, then
+    TRAIN_CHECK_STEPS AdamW steps (TINY also Adafactor)."""
+    import functools
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import registry
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import (make_opt_init, make_train_step,
+                                              value_and_grad)
+
+    cfg = train_cfg(name)
+    cpu = registry.init_params(cfg, torch.Generator().manual_seed(0))
+    card = _tree_to(cpu, "cuda")
+    shape = ShapeSpec("train", 64, 2, "train")
+    batches = [registry.make_batch(cfg, shape,
+                                   torch.Generator().manual_seed(1 + i))
+               for i in range(TRAIN_CHECK_STEPS)]
+    vag = value_and_grad(functools.partial(registry.loss_fn, cfg))
+    lc, gc = vag(cpu, batches[0])
+    lg, gg = vag(card, _tree_to(batches[0], "cuda"))
+    gc, gg = _np_leaves(gc), _np_leaves(gg)
+    worst = max(float(np.abs(gg[k] - w).max())
+                / (TRAIN_G_REL * float(np.abs(w).max()) + TRAIN_G_ABS)
+                for k, w in gc.items())
+    row = {"loss_cpu": float(lc), "loss_card": float(lg),
+           "loss_rel": abs(float(lg) - float(lc)) / abs(float(lc)),
+           "grad_err_over_tol": worst}
+    if not row["loss_rel"] <= TRAIN_LOSS_RTOL or not worst <= 1.0:
+        fail(phase, f"{name}: card loss {float(lg)} against the CPU's "
+                    f"{float(lc)}, grads at {worst:.3g} of the tolerance")
+    for opt in ("adamw", "adafactor") if name == "tiny" else ("adamw",):
+        opt_cfg = OptimizerConfig(name=opt, lr=TRAIN_LR, warmup_steps=0,
+                                  weight_decay=TRAIN_WD)
+        step_fn = make_train_step(cfg, opt_cfg)
+        sides = {"cpu": [cpu, make_opt_init(cfg, opt_cfg)(cpu)],
+                 "cuda": [card, make_opt_init(cfg, opt_cfg)(card)]}
+        for batch in batches:
+            for dev, side in sides.items():
+                side[0], side[1], metrics = step_fn(
+                    side[0], side[1], _tree_to(batch, dev))
+                if not bool(torch.isfinite(metrics["loss"])):
+                    fail(phase, f"{name} {opt}: loss {metrics['loss']} "
+                                f"on {dev}")
+        diff = train_param_diff(np, _np_leaves(sides["cuda"][0]),
+                                _np_leaves(sides["cpu"][0]), TRAIN_LR,
+                                TRAIN_WD)
+        row[f"{opt}_params"] = diff
+        if not diff["ok"]:
+            fail(phase, f"{name} {opt}: after {TRAIN_CHECK_STEPS} steps "
+                        f"{diff['over']} of {diff['entries']} params "
+                        f"outside 1e-6 + 1e-4 |p|, up to "
+                        f"{diff['max_over_lr']:.3g} lr")
+    return row
+
+
+def train_tiny_driver(torch, np, phase="lm_train"):
+    """(ii) TINY through launch/train.py's main on the card: 60 steps at
+    batch 16 x seq 128 with a checkpoint every 20 into a temporary
+    directory, then --resume --steps 80. The loss must fall by more than
+    0.5 nats (mean of the last 5 steps against the first 5), and the
+    second run must restore step 60."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    from repro_torch.launch import train
+
+    logs = []
+    with tempfile.TemporaryDirectory() as d:
+        for extra in (["--steps", str(TRAIN_TINY_STEPS)],
+                      ["--steps", str(TRAIN_TINY_RESUME), "--resume"]):
+            buf = io.StringIO()
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(buf):
+                rc = train.main(list(TRAIN_TINY) + ["--ckpt-dir", d] + extra)
+            torch.cuda.synchronize()
+            logs.append((rc, buf.getvalue(), time.monotonic() - t0))
+    steps = [re.match(r"step\s+(\d+)\s+loss\s+(\S+).*\s([\d,]+) tok/s", ln)
+             for ln in logs[0][1].splitlines() if ln.startswith("step")]
+    losses = [float(m.group(2)) for m in steps]
+    tok_s = [float(m.group(3).replace(",", "")) for m in steps]
+    drop = float(np.mean(losses[:5]) - np.mean(losses[-5:]))
+    row = {"rc": [r[0] for r in logs], "steps": len(losses),
+           "first_losses": losses[:5], "last_losses": losses[-5:],
+           "loss_drop": drop,
+           "tok_s_median": float(np.median(tok_s[1:])),
+           "run_s": logs[0][2],
+           "run_tok_s": TRAIN_TINY_STEPS * 16 * 128 / logs[0][2],
+           "final_line": logs[0][1].splitlines()[-1],
+           "resumed": f"[resume] restored step {TRAIN_TINY_STEPS}" in
+           logs[1][1],
+           "resume_final_line": logs[1][1].splitlines()[-1]}
+    if row["rc"] != [0, 0] or len(losses) != TRAIN_TINY_STEPS or \
+            not np.isfinite(losses).all():
+        fail(phase, f"TINY driver: exit codes {row['rc']}, "
+                    f"{len(losses)} logged losses")
+    if not drop > 0.5:
+        fail(phase, f"TINY driver: the loss fell {drop:.3f} nats, not more "
+                    "than 0.5")
+    if not row["resumed"]:
+        fail(phase, f"TINY driver: no '[resume] restored step "
+                    f"{TRAIN_TINY_STEPS}' in {logs[1][1][:200]!r}")
+    return row
+
+
+def train_bound_ms(cfg, n_params, tokens):
+    """The least time of one train step: its FLOPs (6 N tokens, 8 N tokens
+    with the full remat's second forward; attention's and the SSD scan's
+    own products not counted) over the float32 rate (TF32 is off), or the
+    optimizer's bytes (params, grads and both moments read, params and
+    moments written, float32) over the HBM rate, whichever is larger."""
+    flops = (8 if cfg.remat == "full" else 6) * n_params * tokens
+    nbytes = 7 * 4 * n_params
+    ms = {"operations": flops / FP32_OPS_PER_S * 1e3,
+          "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    by = max(ms, key=ms.get)
+    return ms[by], by, flops
+
+
+def train_full(torch, np, name, phase="lm_train"):
+    """(iii) ``name`` at full width (its depth as TRAIN_FULL says), f32
+    weights and AdamW moments, trained TRAIN_FULL_STEPS steps on the markov
+    TokenPipeline through make_train_step(donate=True): finite loss and
+    grad norm at every step; ms a step (median of steps 2-6), tokens/s,
+    peak memory, the bound."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import registry
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import make_opt_init, make_train_step
+
+    spec = dict(TRAIN_FULL[name])
+    batch, seq = spec.pop("batch"), spec.pop("seq")
+    cfg = dataclasses.replace(get_arch(name), param_dtype="float32",
+                              num_microbatches=1, **spec)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = registry.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt_cfg = OptimizerConfig(name="adamw", lr=1e-4, warmup_steps=2,
+                              total_steps=TRAIN_FULL_STEPS)
+    state = make_opt_init(cfg, opt_cfg)(params)
+    n_params = sum(t.numel() for t in _leaves(params))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for tree in (params, state["m"], state["v"])
+                      for t in _leaves(tree))
+    step_fn = make_train_step(cfg, opt_cfg, donate=True)
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=batch, seed=0))
+    times, losses, norms = [], [], []
+    for i in range(TRAIN_FULL_STEPS):
+        b = {k: torch.from_numpy(v).cuda() for k, v in
+             data.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    tokens = batch * seq
+    ms = float(np.median(times[1:])) * 1e3
+    bound, by, flops = train_bound_ms(cfg, n_params, tokens)
+    row = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "remat": cfg.remat,
+           "loss_chunk": cfg.loss_chunk, "batch": batch, "seq": seq,
+           "params": n_params, "state_bytes": state_bytes,
+           "losses": losses, "grad_norms": norms,
+           "step_ms": ms, "step_ms_all": [t * 1e3 for t in times],
+           "tok_s": tokens / (ms / 1e3), "step_bound_ms": bound,
+           "bound_by": by, "flops": flops,
+           "bound_share": bound / ms,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        fail(phase, f"{name}: non-finite loss or grad norm {losses} "
+                    f"{norms}")
+    del params, state, m
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_train(torch, np, card):
+    """Phase 16: (i) card against CPU, (ii) TINY through the driver, (iii)
+    gemma-7b x 4 layers and mamba2-130m trained at full width."""
+    out = {"card_vs_cpu": {n: train_card_vs_cpu(torch, np, n)
+                           for n in TRAIN_CASES}}
+    emit("lm_train_card_vs_cpu", ok=True, card=card, **out["card_vs_cpu"])
+    out["tiny_driver"] = train_tiny_driver(torch, np)
+    emit("lm_train_tiny", ok=True, card=card, **out["tiny_driver"])
+    out["full"] = {}
+    for n in TRAIN_FULL:
+        out["full"][n] = train_full(torch, np, n)
+        emit("lm_train_full", ok=True, card=card, name=n, **out["full"][n])
+    return out
+
+
 def nn_baseline(torch, np, tr, te):
     """The paper's NN baseline on the card, as
     examples/smartpixel_readout.py runs it: train_mlp on the first 100,000
@@ -3053,6 +3313,17 @@ def main():
                                      "gen_tok_s", "prefill_s",
                                      "max_memory_allocated")}
                for n, r in fam["full"].items()})
+
+    # 16. the LM training path (plain PyTorch on the card, no kernel of
+    # the port), after phase 15's models are freed
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    tr16 = lm_train(torch, np, card)
+    emit("lm_train", ok=True, card=card, seconds=time.monotonic() - t0,
+         tiny_tok_s=tr16["tiny_driver"]["tok_s_median"],
+         full={n: {k: r[k] for k in ("step_ms", "step_bound_ms", "bound_by",
+                                     "tok_s", "max_memory_allocated")}
+               for n, r in tr16["full"].items()})
 
     kernels = []
     # K2's row carries the times of its R=3 (TMR) run; K1, K2 and B6's

@@ -17,7 +17,9 @@ returns the port's, leaf for leaf; bf16 leaves go through float32 (exact)
 to torch.bfloat16. Each floating leaf must have the dtype the reference
 gives it: the config's param_dtype, or float32 for the leaves the
 reference keeps in float32 (``layers.F32_LEAVES``: the MoE router, the
-SSM's ``A_log``, ``D_skip`` and ``dt_bias``).
+SSM's ``A_log``, ``D_skip`` and ``dt_bias``). ``opt_state_from_numpy``
+carries an optimizer state the same way (AdamW's or Adafactor's), so a
+test can start both packages' train steps from one state.
 """
 from __future__ import annotations
 
@@ -101,3 +103,38 @@ def plan_from_numpy(plan: Mapping[str, np.ndarray], device=None
         raise ValueError(f"plan lacks {sorted(missing)}")
     return {k: torch.as_tensor(np.array(plan[k]), device=dev)
             for k in _PLAN_KEYS}
+
+
+def opt_state_from_numpy(cfg, opt_cfg, tree: Mapping[str, object],
+                         device=None) -> Dict[str, object]:
+    """The JAX package's optimizer state (``make_opt_init`` /
+    ``train_step``'s, leaves through ``np.asarray``) -> the port's, leaf
+    for leaf on ``device`` (default: CUDA), keys and dtypes kept: AdamW
+    {"m", "v": param trees in ``opt_cfg.moment_dtype``, "step": int32},
+    Adafactor {"v": a {"vr", "vc"} or {"v"} float32 dict a param leaf,
+    "step": int32}. Any other key or dtype raises ValueError."""
+    dev = resolve_device(device)
+    want = {"adamw": {"m", "v", "step"},
+            "adafactor": {"v", "step"}}.get(opt_cfg.name)
+    if want is None or set(tree) != want:
+        raise ValueError(f"a {opt_cfg.name} state has the keys "
+                         f"{sorted(want or ())}, got {sorted(tree)}")
+    moment = (opt_cfg.moment_dtype if opt_cfg.name == "adamw"
+              else "float32")
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+        a = np.asarray(node)
+        if a.dtype.name != moment:
+            raise ValueError(f"leaf {path} is {a.dtype}, the optimizer "
+                             f"keeps {moment}")
+        return _leaf(a, dev)
+
+    step = np.asarray(tree["step"])
+    if step.dtype != np.int32 or step.shape != ():
+        raise ValueError(f"step is {step.dtype}{step.shape}, want a scalar "
+                         "int32")
+    out = {k: walk(v, k) for k, v in tree.items() if k != "step"}
+    out["step"] = torch.tensor(step, device=dev)
+    return out

@@ -1,5 +1,7 @@
-"""Device plans of the readout server and the multi-tenant fleet (the
-port's copy of the readout half of the JAX package's launch/mesh.py).
+"""Device plans of the readout server, the multi-tenant fleet and the
+trainer (the port of the JAX package's launch/mesh.py, without the
+production mesh and its roofline constants, which serve the dry-run:
+ROADMAP A.18).
 
 A plan is a ``ReadoutMesh``: a frozen tuple of devices under one "chips"
 axis. Two plans over the same devices compare equal, so the fleet can
@@ -9,7 +11,9 @@ the reference's, over the ``torch.cuda.device_count()`` cards (or the one
 device asked for). The port's server keeps its whole chip axis on one
 device, the plan's first, and the port's fleet asks for its one device,
 so every bucket gets it: ``cuda:0`` on a card, the CPU with
-``device="cpu"``.
+``device="cpu"``. The trainer's plan (``make_host_mesh``) is one device
+too: the port trains on one card, and a larger (data, model) plan raises
+``NotPortedError``.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import NotPortedError, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +43,22 @@ class ReadoutMesh:
     def device(self) -> torch.device:
         """Where the port's server keeps the chip axis."""
         return self.devices[0]
+
+
+def make_host_mesh(data: int = 1, model: int = 1, device=None
+                   ) -> ReadoutMesh:
+    """The trainer's plan: one device (``device``, default CUDA) for
+    ``data == model == 1``. A plan over more devices shards the params
+    and the batch (``parallel/sharding``), which is not ported: it raises
+    ``NotPortedError`` (ROADMAP A.18)."""
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh axes must be >= 1, got data={data} "
+                         f"model={model}")
+    if data * model > 1:
+        raise NotPortedError(f"a (data={data}, model={model}) training mesh "
+                             "shards the params and the batch: ROADMAP "
+                             "A.18")
+    return ReadoutMesh((resolve_device(device),))
 
 
 def local_devices(device=None) -> List[torch.device]:

@@ -2,9 +2,10 @@
 
 Covers starcoder2-7b, gemma-7b, phi3-medium-14b, nemotron-4-340b, and the
 internvl2-76b VLM backbone (embeds_in=True: the patch/text embeddings
-arrive precomputed). The port of the JAX package's models/dense.py,
-inference half: ``init``, ``hidden_states`` / ``forward``, ``init_cache``
-and ``decode_step`` (remat and ``loss_fn`` come with the training slice).
+arrive precomputed). The port of the JAX package's models/dense.py:
+``init``, ``hidden_states`` / ``forward``, ``loss_fn`` (chunked cross
+entropy, each block under the config's remat policy), ``init_cache`` and
+``decode_step``.
 
 Parameters keep the reference's pytree: per-layer leaves stacked on a
 leading layer axis under the same names ({"blocks": {"ln1", "attn",
@@ -15,6 +16,7 @@ in place; its ``pos`` is a Python int.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -67,9 +69,9 @@ def hidden_states(
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
-    for layer in range(cfg.n_layers):
-        x = _block_apply(cfg, L.index_layer(params["blocks"], layer), x,
-                         positions)
+    block = L.remat(cfg.remat, functools.partial(_block_apply, cfg))
+    for lp in L.layer_params(params["blocks"], cfg.n_layers):
+        x = block(lp, x, positions)
     return L.apply_norm(cfg, params["final_norm"], x)
 
 
@@ -78,6 +80,14 @@ def forward(cfg: ArchConfig, params: Dict, tokens_or_embeds: torch.Tensor,
     """Full logits (B, S, vocab)."""
     return L.lm_logits(cfg, params["embed"],
                        hidden_states(cfg, params, tokens_or_embeds, positions))
+
+
+def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch`` ({"tokens" or, for the
+    VLM, "embeds"; "labels"}), a float32 scalar."""
+    inp = batch["embeds"] if cfg.embeds_in else batch["tokens"]
+    x = hidden_states(cfg, params, inp)
+    return L.chunked_xent(cfg, params["embed"], x, batch["labels"])
 
 
 # ------------------------------------------------------------------ decode

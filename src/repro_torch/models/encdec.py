@@ -1,5 +1,5 @@
 """Encoder-decoder transformer (whisper-tiny backbone): the port of the JAX
-package's models/encdec.py, inference half.
+package's models/encdec.py.
 
 The audio frontend is a stub, as in the reference: the encoder takes
 precomputed frame embeddings (B, enc_len, d_model). Encoder: bidirectional
@@ -7,7 +7,8 @@ self-attention blocks with RoPE. Decoder: causal self-attention (a KV
 cache in decode) + cross-attention over the encoder output without RoPE
 + MLP. ``init_cache(params=, enc_embeds=)`` runs the encoder once and
 stores each decoder layer's cross K/V, which every decode step attends
-to in full.
+to in full. ``loss_fn``: the decoder's chunked cross entropy over the
+encoder's output (no remat, as in the reference).
 """
 from __future__ import annotations
 
@@ -50,8 +51,7 @@ def encode(cfg: ArchConfig, params: Dict, enc_embeds: torch.Tensor
     param dtype."""
     x = enc_embeds.to(L.dtype_of(cfg))
     positions = _positions(x.shape[0], x.shape[1], x.device)
-    for layer in range(cfg.n_enc_layers):
-        lp = L.index_layer(params["enc_blocks"], layer)
+    for lp in L.layer_params(params["enc_blocks"], cfg.n_enc_layers):
         h, _ = L.attention(cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x),
                            positions, causal=False)
         x = x + h
@@ -91,9 +91,8 @@ def hidden_states(cfg: ArchConfig, params: Dict, enc_embeds: torch.Tensor,
     enc_out = encode(cfg, params, enc_embeds)
     x = L.embed_tokens(params["embed"], tokens)
     positions = _positions(x.shape[0], x.shape[1], x.device)
-    for layer in range(cfg.n_layers):
-        x = _dec_block(cfg, L.index_layer(params["dec_blocks"], layer), x,
-                       positions, enc_out)
+    for lp in L.layer_params(params["dec_blocks"], cfg.n_layers):
+        x = _dec_block(cfg, lp, x, positions, enc_out)
     return L.apply_norm(cfg, params["final_norm"], x)
 
 
@@ -102,6 +101,13 @@ def forward(cfg: ArchConfig, params: Dict, enc_embeds: torch.Tensor,
     """Full logits (B, S, vocab)."""
     return L.lm_logits(cfg, params["embed"],
                        hidden_states(cfg, params, enc_embeds, tokens))
+
+
+def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch`` ({"enc_embeds",
+    "tokens", "labels"}), a float32 scalar."""
+    x = hidden_states(cfg, params, batch["enc_embeds"], batch["tokens"])
+    return L.chunked_xent(cfg, params["embed"], x, batch["labels"])
 
 
 # ------------------------------------------------------------------ decode

@@ -1,5 +1,5 @@
 """Hybrid SSM + shared-attention model (zamba2-1.2b): the port of the JAX
-package's models/hybrid.py, inference half.
+package's models/hybrid.py.
 
 A Mamba2 backbone (``ssm``) with ONE weight-shared transformer block
 (attention + MLP) applied before every segment of ``shared_attn_every``
@@ -7,9 +7,14 @@ SSM layers. The shared block's weights are the same at every application;
 in decode each application keeps its own KV cache, read through
 ``layers.attention(cache=)``: the token's K/V written at ``pos`` in place,
 then all T entries under ``t <= pos``, as the reference reads them.
+In the full-sequence forward (and ``loss_fn``) the SSM blocks follow the
+config's remat policy and the shared block is fully rematerialised
+whenever the policy is not "none", as in the reference: its attention
+probabilities would otherwise be saved at every application.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -78,10 +83,18 @@ def hidden_states(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
     if positions is None:
         positions = torch.arange(Ssz, dtype=torch.int32,
                                  device=x.device).expand(B, Ssz)
+    shared = L.remat("none" if cfg.remat == "none" else "full",
+                     functools.partial(_shared_out, cfg))
+    blocks = L.layer_params(params["blocks"], cfg.n_layers)
     for _, layers in _segments(cfg):
-        x = _shared_apply(cfg, params["shared"], x, positions)[0]
-        x = S.run_blocks(cfg, params["blocks"], x, layers)
+        x = shared(params["shared"], x, positions)
+        x = S.run_blocks(cfg, blocks[layers.start:layers.stop], x)
     return L.apply_norm(cfg, params["final_norm"], x)
+
+
+def _shared_out(cfg: ArchConfig, sp: Dict, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    return _shared_apply(cfg, sp, x, positions)[0]
 
 
 def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
@@ -89,6 +102,12 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
     """Full logits (B, S, vocab)."""
     return L.lm_logits(cfg, params["embed"],
                        hidden_states(cfg, params, tokens, positions))
+
+
+def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch``, a float32 scalar."""
+    x = hidden_states(cfg, params, batch["tokens"])
+    return L.chunked_xent(cfg, params["embed"], x, batch["labels"])
 
 
 # ------------------------------------------------------------------ decode

@@ -1,9 +1,11 @@
 """Shared model-layer primitives of the LM scaffold (PyTorch, dict params).
 
-The inference half of the JAX package's models/layers.py:
+The port of the JAX package's models/layers.py:
   * params are nested dicts of tensors; per-layer weights are STACKED on a
     leading L axis under the reference's names, and the model loops over
-    them in Python (``index_layer``);
+    them in Python: a full-sequence forward splits each stacked leaf once
+    (``layer_params``, one ``unbind`` whose backward stacks the layers'
+    grads once), a decode step indexes it (``index_layer``);
   * activations flow as (batch, seq, d_model) in the config's param_dtype
     (bf16 by default), norm statistics and softmax in f32, in the
     reference's order of casts (below);
@@ -20,17 +22,26 @@ kernel in the reference. ``scaled_dot_product_attention`` is not used: it
 does not follow the reference's casts (f32 scores, -1e30 masking,
 probabilities cast to v's dtype before the second product).
 The sharding constraints of the reference (``act_constraint``,
-``act_entry``) are the identity without a mesh and are not carried; the
-losses (``softmax_xent``, ``chunked_xent``) come with the training slice.
+``act_entry``) are the identity without a mesh and are not carried
+(ROADMAP A.18).
+
+Training: ``softmax_xent`` and ``chunked_xent`` (the LM head folded into
+a cross entropy chunked over the sequence, each chunk recomputed in
+backward), and ``remat``, the reference's rematerialisation policies
+("full", "dots", "none") as ``torch.utils.checkpoint``. Both act only
+while autograd records (``torch.is_grad_enabled()``); under
+``torch.no_grad`` they run the plain function, so serving is unchanged.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 
@@ -176,12 +187,16 @@ def _attn_chunked(cfg: ArchConfig, q, k, v, positions, scale):
     T = k.shape[1]
     chunk = cfg.attn_chunk
     t_idx = torch.arange(T, dtype=torch.int32, device=q.device)
+    # each chunk is recomputed in backward, as the reference's
+    # jax.checkpoint body: otherwise every chunk's (B,H,C,T) f32
+    # probabilities would be saved
+    body = remat("full", _gqa_scores_softmax_v)
     outs = []
     for lo in range(0, S, chunk):
         qc = q[:, lo:lo + chunk]
         pc = positions[:, lo:lo + chunk]
         mask = pc[:, None, None, :, None] >= t_idx[None, None, None, None, :]
-        outs.append(_gqa_scores_softmax_v(qc, k, v, mask, scale))
+        outs.append(body(qc, k, v, mask, scale))
     return torch.cat(outs, dim=1)
 
 
@@ -333,6 +348,62 @@ def index_layer(tree, layer: int):
     return tree[layer]
 
 
+def layer_params(tree, n_layers: int) -> List[Dict]:
+    """Every layer of a stacked param pytree: ``n_layers`` trees of views,
+    from one ``torch.unbind`` a leaf. Its backward writes each leaf's
+    grad once (a stack of the layers' grads), where indexing a layer at a
+    time (``index_layer``) writes a zero-filled grad the size of the
+    whole leaf for every layer and sums them."""
+    def split(node):
+        if isinstance(node, dict):
+            return {k: split(v) for k, v in node.items()}
+        parts = torch.unbind(node)
+        if len(parts) != n_layers:
+            raise ValueError(f"a stacked leaf has {len(parts)} layers, "
+                             f"the config {n_layers}")
+        return parts
+
+    parts = split(tree)
+    return [index_layer(parts, layer) for layer in range(n_layers)]
+
+
+# ----------------------------------------------------------------- remat
+# The ops whose outputs the "dots" policy keeps: the matrix products (the
+# reference's dots_with_no_batch_dims_saveable keeps dot_general outputs)
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOT_OPS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(mode: str, fn: Callable) -> Callable:
+    """``fn`` under the reference's remat policy ``mode``: "none" saves
+    what autograd saves; "full" keeps only the inputs and recomputes the
+    rest in backward; "dots" keeps the matrix products' outputs and
+    recomputes the rest. Memory changes, values do not. Without autograd
+    recording, ``fn`` itself."""
+    if mode not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat policy {mode!r}")
+    if mode == "none":
+        return fn
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if mode == "full":
+            return ckpt.checkpoint(fn, *args, use_reentrant=False)
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    return wrapped
+
+
 # ------------------------------------------------------------------- mlp
 def init_mlp(cfg: ArchConfig, generator: torch.Generator,
              n_layers: Optional[int], d_ff: Optional[int] = None) -> Dict:
@@ -379,10 +450,49 @@ def init_embed(cfg: ArchConfig, generator: torch.Generator) -> Dict:
 
 
 def embed_tokens(p: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens.long()]
+    """Rows ``tokens`` of the table. ``F.embedding`` rather than indexing:
+    the same rows, and its backward adds a repeated token's grads in a
+    fixed order (indexing's, on the CPU, depends on the threads)."""
+    return F.embedding(tokens.long(), p["tok"])
 
 
 def lm_logits(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ p["tok"].T
     return x @ p["lm_head"]
+
+
+# ------------------------------------------------------------------ loss
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token-level cross entropy; logits (..., V), labels (...) int."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def _xent_sum(cfg: ArchConfig, embed_p: Dict, x: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    logits = lm_logits(cfg, embed_p, x).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.sum(logz - gold)
+
+
+def chunked_xent(cfg: ArchConfig, embed_p: Dict, x: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+    """Cross entropy with the LM head folded in, chunked over the sequence
+    in ``cfg.loss_chunk`` positions (the whole sequence when that does not
+    divide it): the live logits are (B, chunk, V), never (B, S, V), and
+    each chunk's are recomputed in backward rather than saved. The chunk
+    sums add up in float32, in order; the mean is over B * S."""
+    B, S, _ = x.shape
+    chunk = min(cfg.loss_chunk, S)
+    if S % chunk != 0:
+        chunk = S
+    body = remat("full", functools.partial(_xent_sum, cfg))
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, S, chunk):
+        total = total + body(embed_p, x[:, lo:lo + chunk],
+                             labels[:, lo:lo + chunk])
+    return total / (B * S)

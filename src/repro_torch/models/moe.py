@@ -1,5 +1,5 @@
 """Mixture-of-Experts transformer (deepseek-moe-16b, grok-1-314b): the port
-of the JAX package's models/moe.py, inference half.
+of the JAX package's models/moe.py.
 
 Token-choice top-k routing with GShard-style capacity dispatch, as grouped
 one-hot einsums (dense and statically shaped):
@@ -16,7 +16,9 @@ one-hot einsums (dense and statically shaped):
     returns it.
 
 Attention, norms and embeddings are the dense model's (``layers``); the
-KV cache is the dense cache, int8 included. The reference's sharding
+KV cache is the dense cache, int8 included. ``loss_fn`` is the chunked
+cross entropy plus 0.01 times the aux loss, each block under the
+config's remat policy. The reference's sharding
 hints (``moe_token_axes``, ``act_constraint``) are the identity on one
 card and are not carried (ROADMAP A.18). The router and its softmax are
 float32, as the reference's promotion makes them: x is cast to float32
@@ -25,6 +27,7 @@ Top-k breaks ties toward the lower expert index, as ``lax.top_k`` does.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -196,14 +199,20 @@ def hidden_states(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in range(cfg.n_layers):
-        lp = L.index_layer(params["blocks"], layer)
-        h, _ = L.attention(cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x),
-                           positions)
-        x = x + h
-        m, a = moe_mlp(cfg, lp["moe"], L.apply_norm(cfg, lp["ln2"], x))
-        x, aux = x + m, aux + a
+    block = L.remat(cfg.remat, functools.partial(_block_apply, cfg))
+    for lp in L.layer_params(params["blocks"], cfg.n_layers):
+        x, aux = block(lp, x, aux, positions)
     return L.apply_norm(cfg, params["final_norm"], x), aux / cfg.n_layers
+
+
+def _block_apply(cfg: ArchConfig, lp: Dict, x: torch.Tensor,
+                 aux: torch.Tensor, positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    h, _ = L.attention(cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x),
+                       positions)
+    x = x + h
+    m, a = moe_mlp(cfg, lp["moe"], L.apply_norm(cfg, lp["ln2"], x))
+    return x + m, aux + a
 
 
 def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
@@ -212,6 +221,14 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
     """(full logits (B, S, vocab), aux loss)."""
     x, aux = hidden_states(cfg, params, tokens, positions)
     return L.lm_logits(cfg, params["embed"], x), aux
+
+
+def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict) -> torch.Tensor:
+    """Chunked cross entropy of ``batch`` plus 0.01 times the aux load
+    -balance loss, a float32 scalar."""
+    x, aux = hidden_states(cfg, params, batch["tokens"])
+    return (L.chunked_xent(cfg, params["embed"], x, batch["labels"])
+            + 0.01 * aux)
 
 
 # ------------------------------------------------------------------ decode

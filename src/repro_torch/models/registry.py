@@ -3,13 +3,13 @@ scaffold (the port of the JAX package's models/registry.py).
 
 API per family module:
   init(cfg, generator) -> params
+  loss_fn(cfg, params, batch) -> scalar
   init_cache(cfg, batch, max_len[, ...], device=None) -> cache
   decode_step(cfg, params, cache, tokens) -> (logits, cache)
 
-The port serves every family of the reference: dense and the VLM backbone
-(the same module, ``embeds_in=True``), moe, ssm, hybrid and encdec
-(``init_cache(..., params=, enc_embeds=)`` runs its encoder). ``loss_fn``
-raises ``NotPortedError`` naming its ROADMAP item (the training slice).
+The port serves and trains every family of the reference: dense and the
+VLM backbone (the same module, ``embeds_in=True``), moe, ssm, hybrid and
+encdec (``init_cache(..., params=, enc_embeds=)`` runs its encoder).
 
 Batch contents by family:
   dense/moe/ssm/hybrid: {"tokens": (B,S) i32, "labels": (B,S) i32}
@@ -23,7 +23,6 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import NotPortedError
 from repro_torch.models import dense, encdec, hybrid, moe, ssm
 
 _FAMILIES = {
@@ -44,9 +43,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator):
     return model_for(cfg).init(cfg, generator)
 
 
-def loss_fn(cfg: ArchConfig, params, batch: Dict):
-    raise NotPortedError("the LM loss comes with the training slice: "
-                         "ROADMAP A.17")
+def loss_fn(cfg: ArchConfig, params, batch: Dict) -> torch.Tensor:
+    """The family's training loss on ``batch``, a float32 scalar."""
+    return model_for(cfg).loss_fn(cfg, params, batch)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None, **kw):

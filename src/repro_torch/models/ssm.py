@@ -1,6 +1,7 @@
 """Mamba2 / SSD (state-space duality) model: mamba2-130m, and the backbone
-blocks of zamba2 (hybrid.py). The port of the JAX package's models/ssm.py,
-inference half.
+blocks of zamba2 (hybrid.py). The port of the JAX package's models/ssm.py:
+the full-sequence forward and ``loss_fn`` (each block under the config's
+remat policy), and the one-token decode step.
 
 The chunked SSD algorithm of arXiv:2405.21060 (single B/C group):
 
@@ -24,8 +25,9 @@ param dtype, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -189,11 +191,18 @@ def init(cfg: ArchConfig, generator: torch.Generator) -> Dict:
             "final_norm": L.init_norm(cfg, cfg.d_model, generator.device)}
 
 
-def run_blocks(cfg: ArchConfig, blocks: Dict, x: torch.Tensor,
-               layers: range) -> torch.Tensor:
-    """The full-sequence forward through the stacked blocks ``layers``."""
-    for layer in layers:
-        x = ssm_block_apply(cfg, L.index_layer(blocks, layer), x)[0]
+def _block_out(cfg: ArchConfig, lp: Dict, x: torch.Tensor) -> torch.Tensor:
+    return ssm_block_apply(cfg, lp, x)[0]
+
+
+def run_blocks(cfg: ArchConfig, layers: List[Dict], x: torch.Tensor
+               ) -> torch.Tensor:
+    """The full-sequence forward through the blocks ``layers`` (per-layer
+    param trees, ``layers.layer_params``), each under the config's remat
+    policy."""
+    block = L.remat(cfg.remat, functools.partial(_block_out, cfg))
+    for lp in layers:
+        x = block(lp, x)
     return x
 
 
@@ -215,7 +224,7 @@ def hidden_states(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
     """Full-sequence forward -> final hidden states (B, S, D) (positions
     are not used: the model has no attention)."""
     x = L.embed_tokens(params["embed"], tokens)
-    x = run_blocks(cfg, params["blocks"], x, range(cfg.n_layers))
+    x = run_blocks(cfg, L.layer_params(params["blocks"], cfg.n_layers), x)
     return L.apply_norm(cfg, params["final_norm"], x)
 
 
@@ -224,6 +233,12 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
     """Full logits (B, S, vocab)."""
     return L.lm_logits(cfg, params["embed"],
                        hidden_states(cfg, params, tokens))
+
+
+def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch``, a float32 scalar."""
+    x = hidden_states(cfg, params, batch["tokens"])
+    return L.chunked_xent(cfg, params["embed"], x, batch["labels"])
 
 
 # ------------------------------------------------------------------ decode

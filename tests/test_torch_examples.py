@@ -11,7 +11,8 @@ they run with no device flag (chip_smoke.py phase 12).
 the §5 pipeline on a reduced dataset, every event matching the golden
 model; ``examples/torch_serve_lm.py`` (the port of examples/serve_lm.py)
 with its defaults (TINY) and at the smoke width of the SSM, MoE and
-hybrid families.
+hybrid families; ``examples/torch_train_lm.py`` (the port of
+examples/train_lm.py) for 4 steps, then resumed from its checkpoint.
 """
 import ast
 import importlib.util
@@ -107,3 +108,15 @@ def test_serve_lm_example_on_cpu(flags, capsys):
     assert lines[1].startswith("generated 6 tokens x 8 reqs")
     toks = ast.literal_eval(lines[2].split(":", 1)[1].strip())
     assert len(toks) == 6 and all(isinstance(t, int) for t in toks)
+
+
+def test_train_lm_example_on_cpu(tmp_path, capsys):
+    ck = ["--ckpt-dir", str(tmp_path / "lm")]
+    train_lm = _example("torch_train_lm")
+    assert train_lm.main(["--device", "cpu", "--steps", "4"] + ck) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("step     0  loss") and "tok/s" in out[0]
+    assert out[-1].startswith("done in") and "entropy bound 1.3863" in out[-1]
+    # the example resumes by default: a longer run picks up at step 4
+    assert train_lm.main(["--device", "cpu", "--steps", "5"] + ck) == 0
+    assert capsys.readouterr().out.startswith("[resume] restored step 4")

@@ -78,7 +78,12 @@ REQUIRED_MODULES = ("repro_torch.parallel.compression",
                     "repro_torch.models.moe",
                     "repro_torch.models.ssm",
                     "repro_torch.models.hybrid",
-                    "repro_torch.models.encdec")
+                    "repro_torch.models.encdec",
+                    "repro_torch.data.pipeline",
+                    "repro_torch.train.tree",
+                    "repro_torch.train.optimizer",
+                    "repro_torch.train.train_step",
+                    "repro_torch.train.checkpoint")
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -122,7 +127,8 @@ def _entry_points():
     from repro_torch.net.replay import host_oracle
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.core.nn_baseline import MLPSpec, init_mlp, train_mlp
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import TINY
     from repro_torch.configs import smoke_config
     from repro_torch.models import dense, encdec, hybrid, moe, registry, ssm
@@ -185,7 +191,25 @@ def _entry_points():
             "torch_quickstart", ["--events", "100"]),
         "example.torch_serve_lm": lambda: _run_example(
             "torch_serve_lm", ["--gen", "1"]),
+        "launch.train.main": lambda: train.main(["--steps", "1"]),
+        "make_host_mesh": lambda: make_host_mesh(),
+        "CheckpointManager.restore": _restore_onto_default_device,
+        "example.torch_train_lm": lambda: _run_example(
+            "torch_train_lm", ["--steps", "1"]),
     }
+
+
+def _restore_onto_default_device():
+    """A checkpoint restored into a template of numpy leaves (no device of
+    their own) goes to the default device."""
+    import tempfile
+
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        mgr.save(1, {"w": np.zeros(3, np.float32)})
+        return mgr.restore({"w": np.zeros(3, np.float32)})
 
 
 def _run_example(name, argv):
@@ -223,7 +247,9 @@ def _spec():
     "models.moe.init_cache", "models.ssm.init_cache",
     "models.hybrid.init_cache", "models.encdec.init_cache",
     "registry.init_cache", "launch.serve.main.smoke_ssm",
-    "example.torch_quickstart", "example.torch_serve_lm"])
+    "example.torch_quickstart", "example.torch_serve_lm",
+    "launch.train.main", "make_host_mesh", "CheckpointManager.restore",
+    "example.torch_train_lm"])
 def test_entry_point_without_cuda_raises_named_error(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

@@ -20,8 +20,6 @@ identical parameters:
   forward within BF16_TOL, and the port's top-1 token JAX's own or tied
   with it in bf16 (below);
 * the int8 quantizers of ``parallel/compression.py`` bit-exact;
-* ``registry.loss_fn`` raises ``NotPortedError`` naming the training
-  slice;
 * ``python -m repro_torch.launch.serve --preset tiny --device cpu`` runs.
 """
 import dataclasses
@@ -47,7 +45,6 @@ from repro.models import registry as jax_registry  # noqa: E402
 from repro.parallel import compression as jax_cp  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import ARCHS, smoke_config  # noqa: E402
-from repro_torch.device import NotPortedError  # noqa: E402
 from repro_torch.launch.train import TINY  # noqa: E402
 from repro_torch.models import dense, registry  # noqa: E402
 from repro_torch.parallel import compression as port_cp  # noqa: E402
@@ -313,11 +310,6 @@ def test_int8_quantizers_match_jax():
         np.testing.assert_array_equal(
             port_cp.dequantize_kv(pq, ps, torch.float32).numpy(),
             np.asarray(jax_cp.dequantize_kv(jq, js, jnp.float32)))
-
-
-def test_loss_fn_names_the_training_slice():
-    with pytest.raises(NotPortedError, match="A.17"):
-        registry.loss_fn(smoke_config("gemma-7b"), {}, {})
 
 
 def test_configs_are_the_reference_configs():
