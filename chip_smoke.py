@@ -192,6 +192,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the vocabulary, prefill s, tokens/s, ms a step against its
                HBM bound, peak memory. grok-1-314b (427 GB in bf16) runs
                only at its smoke width.
+ 16. lm      — the LM training path (repro_torch/train, launch/train.py):
+     train     the family smoke configs card against CPU, TINY through the
+               driver with resume, gemma-7b x 4 layers and mamba2-130m at
+               full width.
+ 17. lm      — the sharded training path (parallel/{sharding,compression,
+     sharded   hlo_analysis,transport}.py, launch/{specs,dryrun}.py,
+               train/{train_step,elastic}.py over DTensors), plain
+               PyTorch. (b) two ranks spawned on cuda:0 in a gloo world
+               (NCCL refuses two ranks on one card; every collective is
+               staged through the host): gemma-7b at full width cut to 2
+               layers, f32, batch 8 x 256, 3 AdamW steps on a (pod=2,
+               data=1, model=1) mesh with the int8 pod reduction (grads
+               of the first batch within 4 (2 max|g| / 254 + 1e-5) of the
+               exact one-rank grads, loss within 1e-4 relative; losses
+               and params against the same compressed step on one rank
+               (its grads bit-equal to the pod ranks', its params under
+               train_param_diff's rule); the int8 all-gather
+               wire bytes equal N + 4 x leaves) and on a (data=2,
+               model=1) mesh without compression (against the one-rank
+               step, same rule), ms a step; (c) TINY and its AdamW state
+               resharded onto the (2, 1) plan and back, bit-equal. (a)
+               the dry-run of gemma-7b train_4k on both production
+               meshes, gemma-7b decode_32k and mamba2-130m train_4k on
+               the single pod (deepseek-moe-16b train_4k takes 247 s
+               alone and is left to the dry-run's CLI), full width and
+               depth, one CPU process a cell (a fake world of 256 or 512
+               ranks, fake tensors: no device memory), each with FLOPs
+               and at least one collective: fits_hbm, peak GiB, wire
+               bytes, seconds.
 Then a `kernels` JSON line, the card's name and power limit, and the
 final line {"ok": true, "device": {...}}.
 """
@@ -3067,6 +3096,435 @@ def lm_train(torch, np, card):
     return out
 
 
+# 17: the sharded training path (parallel/{sharding,compression,
+# hlo_analysis}.py, launch/{specs,dryrun}.py, train/{train_step,elastic}.py
+# over DTensors). (a) dry-run cells at full width and depth on fake worlds
+# of the production meshes, one process a cell, all at once, each within
+# its own time limit; (b) two ranks on cuda:0 (gloo: NCCL refuses two
+# ranks on one card; parallel/transport stages the collectives through
+# the host), gemma-7b at full width cut to 2 layers (f32 params, grads and
+# AdamW moments: 1.34 B x 16 B = 21.4 GB a rank), against one rank;
+# (c) TINY and its AdamW state resharded onto the (2, 1) plan and back
+SHARDED_CELLS = (("gemma-7b", "train_4k", "single"),
+                 ("gemma-7b", "train_4k", "multi"),
+                 ("gemma-7b", "decode_32k", "single"),
+                 ("mamba2-130m", "train_4k", "single"))
+# deepseek-moe-16b train_4k (expert parallelism) runs through the same
+# dry-run in 247 s of one core (1.73 M local ops, 8 microbatches), over
+# the phase's time: `python -m repro_torch.launch.dryrun --arch
+# deepseek-moe-16b --shape train_4k`
+SHARDED_CELL_TIMEOUT_S = 420
+SHARDED_RANKS = {"arch": "gemma-7b", "n_layers": 2, "smoke": False,
+                 "batch": 8, "seq": 256, "steps": 3}
+SHARDED_MESHES = (("pod", {"pod": 2, "data": 1, "model": 1}),
+                  ("data", {"data": 2, "model": 1}))
+SHARDED_LOSS_RTOL = 1e-4
+SHARDED_TIMEOUT_S = 600
+
+
+def dryrun_cells(cells=SHARDED_CELLS, timeout=SHARDED_CELL_TIMEOUT_S):
+    """(a): every cell through ``python -m repro_torch.launch.dryrun`` in
+    its own process, all started together; {cell: summary}. A cell must
+    report FLOPs and at least one collective."""
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="torch_dryrun_")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = {}
+    for arch, shape, mesh in cells:
+        procs[arch, shape, mesh] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--mesh", mesh, "--out", out],
+            env=env, cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    t0 = time.monotonic()
+    res = {}
+    for (arch, shape, mesh), proc in procs.items():
+        try:
+            log, _ = proc.communicate(
+                timeout=max(1, timeout - (time.monotonic() - t0)))
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+                q.wait()
+            raise RuntimeError(f"dry-run {arch} {shape} {mesh}: over "
+                               f"{timeout} s")
+        if proc.returncode != 0:
+            raise RuntimeError(f"dry-run {arch} {shape} {mesh} failed: "
+                               f"{log[-2000:]}")
+        name = "multi_pod_2x16x16" if mesh == "multi" else "single_pod_16x16"
+        with open(os.path.join(out, name, f"{arch}__{shape}.json")) as f:
+            s = json.load(f)
+        if not (s["flops_per_device"] > 0 and s["collective_count"] > 0):
+            raise RuntimeError(f"dry-run {arch} {shape} {mesh}: flops "
+                               f"{s['flops_per_device']}, "
+                               f"{s['collective_count']} collectives")
+        res[f"{arch} {shape} {name}"] = {
+            "fits_hbm": s["fits_hbm"],
+            "peak_gib": s["memory"]["peak_bytes"] / 2**30,
+            "argument_gib": s["memory"]["argument_bytes"] / 2**30,
+            "peak_top": s["memory"]["peak_top"][:3],
+            "flops_per_device": s["flops_per_device"],
+            "collective_wire_bytes_per_device":
+                s["collective_wire_bytes_per_device"],
+            "collective_count": s["collective_count"],
+            "collective_by_op": s["collective_by_op"],
+            "num_microbatches": s["num_microbatches"],
+            "profile": s["profile"], "local_ops": s["local_ops"],
+            "seconds": s["lower_s"]}
+    return res
+
+
+def sharded_cfg(spec):
+    import dataclasses
+
+    from repro_torch.configs import get_arch, smoke_config
+
+    base = smoke_config(spec["arch"]) if spec["smoke"] else get_arch(
+        spec["arch"])
+    # both meshes of (b) have model = 1, where sequence parallelism has
+    # nothing to shard: act_shard "none"
+    return dataclasses.replace(base, n_layers=spec["n_layers"],
+                               param_dtype="float32", num_microbatches=1,
+                               remat="none", act_shard="none")
+
+
+def sharded_worker(rank, world, store, out, spec):
+    """One rank of (b)/(c) on cuda:0 in a gloo world; rank 0 writes the
+    result JSON to ``out``."""
+    # two ranks share the card: growable segments, no stranded blocks;
+    # cuBLAS's deterministic workspace (the int8 reduction rounds each
+    # grad: a grad one ulp off can land a quantum away)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    sys.path.insert(0, SRC)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    if spec.get("device", "cuda") == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        res = sharded_ranks(torch, np, rank, spec)
+        dist.barrier()
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _timed(torch, fn):
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (
+        lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    r = fn()
+    sync()
+    return r, (time.perf_counter() - t0) * 1e3
+
+
+def sharded_ranks(torch, np, rank, spec):
+    """(b) and (c) on this rank; the comparisons on rank 0."""
+    import contextlib
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.train import TINY
+    from repro_torch.models import registry
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.compression import (
+        make_compressed_value_and_grad)
+    from repro_torch.parallel.hlo_analysis import (StepTrace,
+                                                   collectives_of_trace)
+    from repro_torch.parallel.transport import transport_for
+    from repro_torch.train import elastic
+    from repro_torch.train import tree as T
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import (
+        make_loss_fn, make_opt_init, make_train_step, sharded_context,
+        value_and_grad)
+
+    dev = torch.device(spec.get("device", "cuda"), 0)
+    cfg = sharded_cfg(spec)
+    B, S = spec["batch"], spec["seq"]
+    opt_cfg = OptimizerConfig(name="adamw", lr=TRAIN_LR, warmup_steps=0,
+                              weight_decay=TRAIN_WD)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                    global_batch=B))
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch_at(i).items()}
+               for i in range(spec["steps"])]
+
+    def fresh():
+        return registry.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0))
+
+    mem = {}
+
+    def free(stage=None):
+        # hand freed blocks back: two ranks share the card's 80 GB
+        import gc
+
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            if stage:
+                mem[stage] = {
+                    "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+                torch.cuda.reset_peak_memory_stats()
+
+    res = {}
+    if rank == 0:
+        # the one-rank step: grads of the first batch, then the steps
+        p = fresh()
+        loss_e, grads_e = value_and_grad(make_loss_fn(cfg))(p, batches[0])
+        grads_e = {k: v.cpu() for k, v in T.items(grads_e)}
+        opt = make_opt_init(cfg, opt_cfg)(p)
+        step = make_train_step(cfg, opt_cfg, donate=True)
+        ref_losses, ref_ms = [], []
+        for b in batches:
+            (p, opt, m), ms = _timed(torch, lambda: step(p, opt, b))
+            ref_losses.append(float(m["loss"]))
+            ref_ms.append(ms)
+        ref = {"data": {k: v.cpu().numpy() for k, v in T.items(p)}}
+        del p, opt
+        free()
+        res["one_rank"] = {"losses": ref_losses, "step_ms": ref_ms}
+        ref_losses = {"data": ref_losses}
+    dist.barrier()
+    for name, shape in SHARDED_MESHES:
+        mesh = init_device_mesh(dev.type, tuple(shape.values()),
+                                mesh_dim_names=tuple(shape))
+        run = {}
+        if name == "pod":
+            inner = mesh["data", "model"]
+            if rank == 0:
+                p, ref_losses["pod"], pod_g1 = pod_reference_steps(
+                    torch, cfg, opt_cfg, fresh(), batches, inner)
+                ref["pod"] = {k: v.cpu().numpy() for k, v in T.items(p)}
+                del p
+                free()
+            dist.barrier()
+        with transport_for(mesh) as staged:
+            host = fresh()
+            res["n_params"] = sum(x.numel() for x in T.leaves(host))
+            params = elastic.reshard_params(cfg, mesh, host)
+            opt = elastic.reshard_opt_state(
+                cfg, mesh, make_opt_init(cfg, opt_cfg)(host), host)
+            del host
+            free(f"{name}: placed")
+            bspecs = shd.batch_specs(cfg, mesh, ShapeSpec("b", S, B, "train"))
+            bsh = shd.named(mesh, bspecs)
+            gspecs = shd.grad_specs(cfg, mesh, params)
+
+            def place(b):
+                return {k: shd.distribute(v, bsh[k], src_data_rank=None)
+                        for k, v in b.items()}
+
+            if name == "pod":
+                vag = make_compressed_value_and_grad(
+                    make_loss_fn(cfg), mesh, bspecs, grad_specs=gspecs)
+                trace = StepTrace()
+                with sharded_context(params), trace:
+                    loss_c, g_c = vag(params, place(batches[0]))
+                # the int8 leaves and one f32 scale a leaf, all-gathered
+                # over the pod (g = 2): (g-1)/g of each result on the wire
+                run["int8_wire_bytes"] = collectives_of_trace(
+                    trace.records, 2).by_op.get("all-gather", 0.0)
+                run["int8_wire_formula"] = float(
+                    res["n_params"] + 4 * len(T.leaves(params)))
+                g_c = {k: v.full_tensor().cpu()
+                       for k, v in T.items(g_c)}
+                if rank == 0:
+                    worst = 0.0
+                    for k, ge in grads_e.items():
+                        bound = 4 * (2 * float(ge.abs().max()) / 254 + 1e-5)
+                        err = float((g_c[k] - ge).abs().max())
+                        worst = max(worst, err / bound)
+                    run["loss_rel_err"] = abs(
+                        float(loss_c.full_tensor()) - float(loss_e)) / abs(
+                        float(loss_e))
+                    run["grad_err_over_bound"] = worst
+                    # the pod ranks' reduced grads against the one-rank
+                    # compressed step's: entries that differ, a leaf
+                    run["grads_vs_one_rank_differ"] = {
+                        k: int((g_c[k] != pod_g1[k]).sum()) for k in g_c}
+                    del grads_e, pod_g1
+                del g_c
+                free(f"{name}: compressed grads")
+            step = make_train_step(
+                cfg, opt_cfg, grad_specs=shd.named(mesh, gspecs),
+                compress_pod=(mesh, bspecs) if name == "pod" else None,
+                donate=True)
+            losses, ms = [], []
+            for i, b in enumerate(batches):
+                # the first step traced (its collectives), the rest timed
+                trace = StepTrace() if i == 0 else contextlib.nullcontext()
+                with trace:
+                    (params, opt, m), t = _timed(
+                        torch, lambda: step(params, opt, place(b)))
+                losses.append(float(m["loss"]))
+                ms.append(t)
+                if i == 0:
+                    coll = collectives_of_trace(trace.records, 2)
+            run["collective_by_op"] = coll.by_op
+            run["collective_count"] = coll.count
+            got = dict(T.items(elastic.gather_to_host(params)))
+            run.update(losses=losses, step_ms=ms)
+            if staged is not None and hasattr(staged, "staged"):
+                run["staged_to_host"] = dict(staged.staged)
+            if name == "data":
+                # (c) TINY and its AdamW state onto the (2, 1) plan and back
+                tiny = registry.init_params(
+                    TINY, torch.Generator(device=dev).manual_seed(0))
+                tiny_opt = make_opt_init(TINY, opt_cfg)(tiny)
+                back = elastic.gather_to_host(
+                    elastic.reshard_params(TINY, mesh, tiny))
+                opt_back = elastic.gather_to_host(elastic.reshard_opt_state(
+                    TINY, mesh, tiny_opt, tiny))
+                run["reshard_bit_equal"] = all(
+                    np.array_equal(b, v.cpu().numpy()) for b, v in zip(
+                        T.leaves(back), T.leaves(tiny))) and all(
+                    np.array_equal(np.asarray(b), v.cpu().numpy())
+                    for b, v in zip(T.leaves(opt_back), T.leaves(tiny_opt)))
+        del params, opt
+        free(f"{name}: steps")
+        if rank == 0:
+            run["loss_vs_one_rank"] = max(
+                abs(a - b) / abs(b) for a, b in zip(losses, ref_losses[name]))
+            run["params"] = train_param_diff(np, got, ref[name], TRAIN_LR,
+                                             TRAIN_WD)
+            res[name] = run
+        del got
+    res["memory"] = mem
+    return res
+
+
+def pod_reference_steps(torch, cfg, opt_cfg, params, batches, inner,
+                        n_pod=2):
+    """The compressed pod step on one rank: each pod's grads of its slice
+    of the batch, computed as a pod rank computes them (DTensors on
+    ``inner``, this rank's one-device intra-pod mesh: the same ops, so
+    the same bits, which the int8 rounding needs), int8-quantized,
+    dequantized and summed in pod order, over the pod count
+    (parallel/compression.quantized_psum's arithmetic); the loss the pods'
+    mean. -> (params, losses, the first step's reduced grads on the
+    host)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.parallel.compression import quantize_int8
+    from repro_torch.train import tree as T
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import (make_loss_fn, sharded_context,
+                                              value_and_grad)
+
+    init, update = make_optimizer(opt_cfg)
+    opt = init(params)
+    vag = value_and_grad(make_loss_fn(cfg))
+    rep = [Replicate()] * inner.ndim
+    on_inner = lambda x: DTensor.from_local(x, inner, rep, run_check=False)
+    local = lambda x: x.to_local() if isinstance(x, DTensor) else x
+
+    def pod_part(b, i):
+        # each pod's slice a tensor of its own, as a pod rank holds it
+        half = {k: v.chunk(n_pod)[i].clone() for k, v in b.items()}
+        p_in = T.map_leaves(on_inner, params)
+        with sharded_context(p_in):
+            loss, g = vag(p_in, T.map_leaves(on_inner, half))
+        return local(loss), T.map_leaves(local, g)
+
+    losses = []
+    for b in batches:
+        parts = [pod_part(b, i) for i in range(n_pod)]
+
+        def reduce(*gs):
+            qs = [quantize_int8(g) for g in gs]
+            deq = torch.stack([q.to(torch.float32) for q, _ in qs]) * \
+                torch.stack([sc for _, sc in qs]).reshape(
+                    (-1,) + (1,) * gs[0].ndim)
+            return torch.sum(deq, dim=0).to(gs[0].dtype) / n_pod
+
+        grads = T.map_leaves(reduce, *[g for _, g in parts])
+        if not losses:
+            first = {k: v.cpu() for k, v in T.items(grads)}
+        loss = sum(l for l, _ in parts) / n_pod
+        params, opt, _ = update(grads, opt, params, donate=True)
+        losses.append(float(loss))
+    return params, losses, first
+
+
+def lm_sharded_ranks(spec=SHARDED_RANKS, timeout=SHARDED_TIMEOUT_S):
+    """(b)/(c): two ranks spawned on cuda:0; the rank-0 result, checked.
+    Every failure raises."""
+    import multiprocessing as mp
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="torch_sharded_")
+    out = os.path.join(d, "result.json")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=sharded_worker,
+                         args=(r, 2, os.path.join(d, "store"), out, spec))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    t0 = time.monotonic()
+    for p in procs:
+        p.join(max(1, timeout - (time.monotonic() - t0)))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    if alive or any(p.exitcode != 0 for p in procs):
+        raise RuntimeError(f"sharded ranks: exit codes "
+                           f"{[p.exitcode for p in procs]}"
+                           f"{' (timed out)' if alive else ''}")
+    with open(out) as f:
+        res = json.load(f)
+    pod, data = res["pod"], res["data"]
+    checks = {
+        "pod loss vs exact": pod["loss_rel_err"] <= SHARDED_LOSS_RTOL,
+        "pod grads within 4 (2 max|g| / 254 + 1e-5)":
+            pod["grad_err_over_bound"] <= 1.0,
+        "pod grads bit-equal to the one-rank compressed step's":
+            not any(pod["grads_vs_one_rank_differ"].values()),
+        "pod params (train_param_diff)": pod["params"]["ok"],
+        "pod losses vs the one-rank compressed step":
+            pod["loss_vs_one_rank"] <= SHARDED_LOSS_RTOL,
+        "int8 wire bytes by formula":
+            pod["int8_wire_bytes"] == pod["int8_wire_formula"],
+        "data params (train_param_diff)": data["params"]["ok"],
+        "data losses vs one rank":
+            data["loss_vs_one_rank"] <= TRAIN_LOSS_RTOL * 10,
+        "reshard (2, 1) and back bit-equal": data["reshard_bit_equal"],
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"sharded ranks: {bad}: {json.dumps(res)[:3000]}")
+    return res
+
+
+def lm_sharded(torch, np, card):
+    """Phase 17: (b) and (c) on the card, then (a) on the host."""
+    out = {"ranks": lm_sharded_ranks()}
+    emit("lm_sharded_ranks", ok=True, card=card, **out["ranks"])
+    out["dryrun"] = dryrun_cells()
+    for cell, r in out["dryrun"].items():
+        emit("lm_sharded_dryrun", ok=True, card=card, cell=cell, **r)
+    return out
+
+
 def nn_baseline(torch, np, tr, te):
     """The paper's NN baseline on the card, as
     examples/smartpixel_readout.py runs it: train_mlp on the first 100,000
@@ -3324,6 +3782,20 @@ def main():
          full={n: {k: r[k] for k in ("step_ms", "step_bound_ms", "bound_by",
                                      "tok_s", "max_memory_allocated")}
                for n, r in tr16["full"].items()})
+
+    # 17. the sharded training path: two ranks on the card, resharding, and
+    # the dry-run of the production meshes (CPU processes: fake tensors)
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    sh17 = lm_sharded(torch, np, card)
+    emit("lm_sharded", ok=True, card=card, seconds=time.monotonic() - t0,
+         step_ms={k: sh17["ranks"][k]["step_ms"]
+                  for k in ("one_rank", "pod", "data")},
+         int8_wire_bytes=sh17["ranks"]["pod"]["int8_wire_bytes"],
+         dryrun={c: {k: r[k] for k in ("fits_hbm", "peak_gib",
+                                       "collective_wire_bytes_per_device",
+                                       "seconds")}
+                 for c, r in sh17["dryrun"].items()})
 
     kernels = []
     # K2's row carries the times of its R=3 (TMR) run; K1, K2 and B6's

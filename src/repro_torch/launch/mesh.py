@@ -1,7 +1,5 @@
-"""Device plans of the readout server, the multi-tenant fleet and the
-trainer (the port of the JAX package's launch/mesh.py, without the
-production mesh and its roofline constants, which serve the dry-run:
-ROADMAP A.18).
+"""Device plans of the readout server, the multi-tenant fleet, the
+trainer and the dry-run (the port of the JAX package's launch/mesh.py).
 
 A plan is a ``ReadoutMesh``: a frozen tuple of devices under one "chips"
 axis. Two plans over the same devices compare equal, so the fleet can
@@ -11,18 +9,32 @@ the reference's, over the ``torch.cuda.device_count()`` cards (or the one
 device asked for). The port's server keeps its whole chip axis on one
 device, the plan's first, and the port's fleet asks for its one device,
 so every bucket gets it: ``cuda:0`` on a card, the CPU with
-``device="cpu"``. The trainer's plan (``make_host_mesh``) is one device
-too: the port trains on one card, and a larger (data, model) plan raises
-``NotPortedError``.
+``device="cpu"``.
+
+The trainer's plan (``make_host_mesh``) is one device for a (1, 1) mesh;
+a larger one, and the production meshes (``make_production_mesh``: a
+(16, 16) ("data", "model") pod, or (2, 16, 16) with a pure data-parallel
+"pod" axis in front), are ``DeviceMesh``es over the ranks of the process
+group the caller has initialised (``torchrun``'s environment, or the
+dry-run's fake world): a mesh of N devices needs a world of N ranks, and
+without one they raise ``MeshUnavailableError`` instead of running on
+fewer devices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+import math
+from typing import Dict, List, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.device import NotPortedError, resolve_device
+from repro_torch.device import resolve_device
+
+
+class MeshUnavailableError(RuntimeError):
+    """A mesh over several devices was asked for without a process group
+    of that many ranks to lay it over."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,20 +57,83 @@ class ReadoutMesh:
         return self.devices[0]
 
 
-def make_host_mesh(data: int = 1, model: int = 1, device=None
-                   ) -> ReadoutMesh:
-    """The trainer's plan: one device (``device``, default CUDA) for
-    ``data == model == 1``. A plan over more devices shards the params
-    and the batch (``parallel/sharding``), which is not ported: it raises
-    ``NotPortedError`` (ROADMAP A.18)."""
+def make_world_mesh(shape: Dict[str, int], device_type: str):
+    """A ``DeviceMesh`` of ``shape`` ({axis name: size}, in mesh order) over
+    the ranks of the initialised default process group, whose size must be
+    the product of the sizes."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = math.prod(shape.values())
+    if not dist.is_available() or not dist.is_initialized():
+        raise MeshUnavailableError(
+            f"a {tuple(shape.values())} {tuple(shape)} mesh needs an "
+            f"initialised process group of {n} ranks "
+            "(torch.distributed.init_process_group; torchrun sets its "
+            "environment)")
+    if dist.get_world_size() != n:
+        raise MeshUnavailableError(
+            f"a {tuple(shape.values())} {tuple(shape)} mesh needs {n} "
+            f"ranks, the process group has {dist.get_world_size()}")
+    return init_device_mesh(device_type, tuple(shape.values()),
+                            mesh_dim_names=tuple(shape))
+
+
+def init_world(device_type: str) -> bool:
+    """Initialise the default process group from torchrun's environment
+    (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``/``MASTER_PORT``) unless one
+    is already up; True when this call made it. CPU: gloo. CUDA: NCCL
+    when every rank gets its own card, else gloo (NCCL refuses two ranks
+    on one GPU; ``parallel/transport`` stages gloo's collectives), each
+    rank on card ``LOCAL_RANK`` mod the cards."""
+    import os
+
+    if dist.is_initialized():
+        return False
+    if "WORLD_SIZE" not in os.environ:
+        raise MeshUnavailableError(
+            "no process group and no torchrun environment (WORLD_SIZE, "
+            "RANK, MASTER_ADDR, MASTER_PORT): launch with torchrun "
+            "--nproc-per-node N")
+    world = int(os.environ["WORLD_SIZE"])
+    backend = "gloo"
+    if device_type == "cuda":
+        n_cards = torch.cuda.device_count()
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)) % n_cards)
+        if n_cards >= world:
+            backend = "nccl"
+    dist.init_process_group(backend, init_method="env://")
+    return True
+
+
+def production_mesh_shape(multi_pod: bool = False) -> Dict[str, int]:
+    """The axes of the production mesh: a (16, 16) ("data", "model") pod;
+    multi-pod prepends a pure data-parallel "pod" axis of 2."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The production ``DeviceMesh`` (256 or 512 devices) over the
+    initialised world (the dry-run's fake world of as many ranks)."""
+    if device_type == "cuda":
+        resolve_device("cuda")
+    return make_world_mesh(production_mesh_shape(multi_pod), device_type)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, device=None):
+    """The trainer's plan. (1, 1): one device (``device``, default CUDA),
+    a ``ReadoutMesh``. Larger: a (data, model) ``DeviceMesh`` over the
+    initialised world of ``data * model`` ranks, on ``device``'s type
+    (the CUDA cards, or the CPU with ``device="cpu"``)."""
     if data < 1 or model < 1:
         raise ValueError(f"mesh axes must be >= 1, got data={data} "
                          f"model={model}")
+    dev = resolve_device(device)
     if data * model > 1:
-        raise NotPortedError(f"a (data={data}, model={model}) training mesh "
-                             "shards the params and the batch: ROADMAP "
-                             "A.18")
-    return ReadoutMesh((resolve_device(device),))
+        return make_world_mesh({"data": data, "model": model}, dev.type)
+    return ReadoutMesh((dev,))
 
 
 def local_devices(device=None) -> List[torch.device]:
@@ -118,3 +193,13 @@ def make_fleet_meshes(bucket_chip_counts: Sequence[int],
         meshes.append(ReadoutMesh(tuple(
             slab[: _largest_divisor(n_chips, len(slab))])))
     return meshes
+
+
+# H100 SXM5 80GB (700 W) constants of the roofline terms, a device: dense
+# bf16 tensor-core peak, HBM3 rate, device memory, and one NVLink 4
+# direction (the card's 18 links carry 900 GB/s both ways; 450 GB/s each
+# way)
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s
+HBM_BW = 3.35e12              # B/s
+ICI_BW = 450e9                # B/s a direction, NVLink 4
+HBM_BYTES = 80 * 10**9        # 80 GB

@@ -19,10 +19,22 @@ Examples:
 
 ``TINY`` is also the serving driver's default preset (launch/serve.py).
 The full config path trains float32 parameters in one microbatch, as the
-reference's does. ``--mesh-data``/``--mesh-model`` go through
-``make_host_mesh``: one device; a larger plan raises ``NotPortedError``
-(ROADMAP A.18). Parameters come from a generator on the device seeded
+reference's does. Parameters come from a generator on the device seeded
 with ``--seed``, so they are not the JAX driver's; the batches are.
+
+``--mesh-data``/``--mesh-model`` > 1 train on a (data, model)
+``DeviceMesh`` over a world of data x model ranks, started by torchrun
+(``launch.mesh.init_world``: gloo on the CPU or for ranks sharing a
+card, NCCL otherwise):
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --preset tiny \
+      --device cpu --mesh-data 2
+
+Every rank makes the same params and global batch; params, optimizer
+state and batch are placed as DTensors by the sharding rules
+(``parallel/sharding``), the grads reduce-scattered to their ZeRO-2
+shards. Rank 0 alone logs and writes checkpoints, which every rank
+gathers first (the same files as one device's).
 """
 from __future__ import annotations
 
@@ -32,12 +44,17 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCHS, get_arch, smoke_config
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import ReadoutMesh, init_world, make_host_mesh
 from repro_torch.models import registry
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.transport import transport_for
+from repro_torch.train import elastic
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.train_step import make_opt_init, make_train_step
@@ -85,8 +102,27 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="the CUDA card by default, or 'cpu'")
     args = ap.parse_args(argv)
-    device = make_host_mesh(args.mesh_data, args.mesh_model,
-                            args.device).device
+    own_world = False
+    if args.mesh_data * args.mesh_model > 1:
+        own_world = init_world(resolve_device(args.device).type)
+    try:
+        return _run(args)
+    finally:
+        if own_world:
+            dist.destroy_process_group()
+
+
+def _run(args) -> int:
+    mesh = make_host_mesh(args.mesh_data, args.mesh_model, args.device)
+    sharded = not isinstance(mesh, ReadoutMesh)
+    if sharded:
+        device = torch.device(mesh.device_type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        rank0 = dist.get_rank() == 0
+    else:
+        device, rank0 = mesh.device, True
+    log = print if rank0 else (lambda *a, **k: None)
 
     if args.preset == "tiny" or args.arch is None:
         cfg = TINY
@@ -116,38 +152,71 @@ def main(argv=None) -> int:
     if args.resume and ckpt.latest_step() is not None:
         start_step, state = ckpt.restore({"params": params, "opt": opt_state})
         params, opt_state = state["params"], state["opt"]
-        print(f"[resume] restored step {start_step} from {args.ckpt_dir}")
+        log(f"[resume] restored step {start_step} from {args.ckpt_dir}")
 
-    step_fn = make_train_step(cfg, opt_cfg, donate=True)
+    transport = transport_for(mesh) if sharded else None
+    grad_specs = None
+    if sharded:
+        with transport:
+            host_params = params
+            params = elastic.reshard_params(cfg, mesh, host_params)
+            opt_state = elastic.reshard_opt_state(cfg, mesh, opt_state,
+                                                  host_params)
+        del host_params
+        grad_specs = shd.named(mesh, shd.grad_specs(cfg, mesh, params))
+        batch_sh = shd.named(mesh, shd.batch_specs(
+            cfg, mesh, ShapeSpec("cli", args.seq, args.batch, "train")))
+
+    def save(step, **extra):
+        state = {"params": params, "opt": opt_state}
+        if sharded:
+            with transport:
+                state = elastic.gather_to_host(state)
+        if rank0:
+            ckpt.save(step, state, extra=extra or None)
+
+    step_fn = make_train_step(cfg, opt_cfg, grad_specs=grad_specs,
+                              donate=True)
     t_run = time.time()
     losses = []
     for step in range(start_step, args.steps):
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in data.batch_at(step).items()}
         t0 = time.time()
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if sharded:
+            with transport:
+                batch = {k: shd.distribute(v, batch_sh[k], src_data_rank=None)
+                         for k, v in batch.items()}
+                params, opt_state, metrics = step_fn(params, opt_state,
+                                                     batch)
+        else:
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])
         dt = time.time() - t0
+        if sharded:
+            # one verdict for every rank: the slowest rank's time
+            worst = torch.tensor([dt], dtype=torch.float64, device=device)
+            dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+            dt = float(worst)
         if args.step_timeout and dt > args.step_timeout and step > start_step:
-            print(f"[watchdog] step {step} took {dt:.1f}s > "
-                  f"{args.step_timeout}s — aborting for restart")
-            ckpt.save(step + 1, {"params": params, "opt": opt_state},
-                      extra={"aborted": True})
+            log(f"[watchdog] step {step} took {dt:.1f}s > "
+                f"{args.step_timeout}s — aborting for restart")
+            save(step + 1, aborted=True)
             return 75
         losses.append(loss)
         if step % args.log_every == 0 or step == args.steps - 1:
             tok_s = args.batch * args.seq / max(dt, 1e-9)
-            print(f"step {step:5d}  loss {loss:7.4f}  "
-                  f"gnorm {float(metrics['grad_norm']):7.3f}  "
-                  f"lr {float(metrics['lr']):.2e}  {tok_s:,.0f} tok/s",
-                  flush=True)
+            log(f"step {step:5d}  loss {loss:7.4f}  "
+                f"gnorm {float(metrics['grad_norm']):7.3f}  "
+                f"lr {float(metrics['lr']):.2e}  {tok_s:,.0f} tok/s",
+                flush=True)
         if args.ckpt_every and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(step + 1, {"params": params, "opt": opt_state})
+            save(step + 1)
 
-    ckpt.save(args.steps, {"params": params, "opt": opt_state})
+    save(args.steps)
     bound = data.entropy_bound_nats()
-    print(f"done in {time.time()-t_run:.1f}s; final loss "
-          f"{np.mean(losses[-10:]):.4f} (entropy bound {bound:.4f})")
+    log(f"done in {time.time()-t_run:.1f}s; final loss "
+        f"{np.mean(losses[-10:]):.4f} (entropy bound {bound:.4f})")
     return 0
 
 

@@ -12,7 +12,8 @@ leading layer axis under the same names ({"blocks": {"ln1", "attn",
 "ln2", "mlp"}, "final_norm", "embed"}), so a JAX tree carries across
 (``convert.lm_params_from_numpy``). The layers loop in Python over the
 stacked leaves (``decode_unroll`` has no effect). The KV cache is updated
-in place; its ``pos`` is a Python int.
+in place; its ``pos`` is a Python int. ``layers.act_constraint`` /
+``act_entry`` pin a DTensor residual stream where the reference does.
 """
 from __future__ import annotations
 
@@ -45,10 +46,14 @@ def init(cfg: ArchConfig, generator: torch.Generator) -> Dict:
 
 def _block_apply(cfg: ArchConfig, lp: Dict, x: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
-    h, _ = L.attention(cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x),
+    h, _ = L.attention(cfg, lp["attn"],
+                       L.act_entry(cfg, L.apply_norm(cfg, lp["ln1"], x)),
                        positions)
-    x = x + h
-    return x + L.mlp(cfg, lp["mlp"], L.apply_norm(cfg, lp["ln2"], x))
+    # each branch is pinned before its add (layers.act_constraint)
+    x = L.act_constraint(cfg, x + L.act_constraint(cfg, h))
+    x = x + L.act_constraint(cfg, L.mlp(
+        cfg, lp["mlp"], L.act_entry(cfg, L.apply_norm(cfg, lp["ln2"], x))))
+    return L.act_constraint(cfg, x)
 
 
 def _inputs(cfg: ArchConfig, params: Dict, tokens_or_embeds: torch.Tensor):
@@ -69,6 +74,7 @@ def hidden_states(
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
+    x = L.act_constraint(cfg, x)
     block = L.remat(cfg.remat, functools.partial(_block_apply, cfg))
     for lp in L.layer_params(params["blocks"], cfg.n_layers):
         x = block(lp, x, positions)

@@ -83,11 +83,12 @@ def hidden_states(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
     if positions is None:
         positions = torch.arange(Ssz, dtype=torch.int32,
                                  device=x.device).expand(B, Ssz)
+    x = L.act_constraint(cfg, x)
     shared = L.remat("none" if cfg.remat == "none" else "full",
                      functools.partial(_shared_out, cfg))
     blocks = L.layer_params(params["blocks"], cfg.n_layers)
     for _, layers in _segments(cfg):
-        x = shared(params["shared"], x, positions)
+        x = L.act_constraint(cfg, shared(params["shared"], x, positions))
         x = S.run_blocks(cfg, blocks[layers.start:layers.stop], x)
     return L.apply_norm(cfg, params["final_norm"], x)
 

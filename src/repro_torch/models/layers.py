@@ -21,9 +21,10 @@ The matrix products are plain ``@``/``einsum``: none of them is a Pallas
 kernel in the reference. ``scaled_dot_product_attention`` is not used: it
 does not follow the reference's casts (f32 scores, -1e30 masking,
 probabilities cast to v's dtype before the second product).
-The sharding constraints of the reference (``act_constraint``,
-``act_entry``) are the identity without a mesh and are not carried
-(ROADMAP A.18).
+The reference's sharding constraints (``act_constraint``,
+``act_entry``) redistribute a DTensor activation to the reference's spec
+and are the identity on a plain tensor, so one device computes what it
+computed without them.
 
 Training: ``softmax_xent`` and ``chunked_xent`` (the LM head folded into
 a cross entropy chunked over the sequence, each chunk recomputed in
@@ -44,6 +45,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.parallel.sharding import is_dtensor
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -172,12 +174,126 @@ def _gqa_scores_softmax_v(q, k, v, mask, scale):
     entry) or broadcastable (B,1,1,S,T).
 
     Returns (B,S,KV,G,hd). Scores and softmax in f32, masked entries at
-    -1e30, probabilities cast to v's dtype before the second product."""
+    -1e30, probabilities cast to v's dtype before the second product.
+    DTensor q/k/v: ``_sharded_attention``."""
+    if is_dtensor(q):
+        return _sharded_attention(q, k, v, mask, scale)
     scores = torch.einsum("bskgd,btkd->bkgst", q, k).float() * scale
     if mask is not None:
         scores = scores.masked_fill(~mask, MASKED)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+
+
+def _sharded_attention(q, k, v, mask, scale):
+    """Attention of DTensors, shard by shard: every (batch row, KV head)
+    is independent, so each rank runs the plain body on its local rows
+    and heads (DTensor cannot propagate the einsums, whose flattened batch
+    dim would mix two sharded dims). q keeps its batch (dim 0), KV-head
+    (2) and group (3) shards, k/v take q's batch and KV-head shards (the
+    rest gathered), and the mask its batch rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    q_pl = [p if isinstance(p, Shard) and p.dim in (0, 2, 3) else Replicate()
+            for p in q.placements]
+    kv_pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+             for p in q_pl]
+    # k/v replicated where q splits its query groups: their grads are
+    # partial sums there
+    kv_grad = [Partial() if isinstance(p, Shard) and p.dim == 3 else k_
+               for p, k_ in zip(q_pl, kv_pl)]
+    m_pl = [p if mask is not None and mask.shape[0] > 1 and p.is_shard(0)
+            else Replicate() for p in q_pl]
+    return local_map(
+        lambda q_, k_, v_, m_: _gqa_scores_softmax_v(q_, k_, v_, m_, scale),
+        q.device_mesh, [(q, q_pl, q_pl), (k, kv_pl, kv_grad),
+                        (v, kv_pl, kv_grad), (mask, m_pl, m_pl)],
+        q_pl, q.shape)
+
+
+class _LocalShard(torch.autograd.Function):
+    """DTensor x redistributed to ``placements``, as this rank's local
+    tensor. Backward reads the local grad as ``grad_placements`` and
+    reduces it at once to x's own layout."""
+
+    @staticmethod
+    def forward(ctx, x, placements, grad_placements):
+        ctx.spec = (x.device_mesh, tuple(x.placements), grad_placements,
+                    x.shape, x.stride())
+        return x.redistribute(x.device_mesh, placements).to_local()
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        mesh, pl, grad_pl, shape, stride = ctx.spec
+        d = DTensor.from_local(g.contiguous(), mesh, grad_pl,
+                               run_check=False, shape=shape, stride=stride)
+        return d.redistribute(mesh, pl), None, None
+
+
+def local_map(fn, mesh, args, out_placements, out_shape):
+    """The plain body ``fn`` on this rank's shards: the one place where
+    the models leave DTensor, for ops whose DTensor rules would refuse
+    the layout (a flattened batch dim mixing two sharded dims).
+
+    ``args``: one ``(x, placements, grad_placements)`` a positional
+    argument of ``fn``; x is a tensor, a dict of them, or None. A DTensor
+    x (a plain tensor counts as replicated on ``mesh``) is redistributed
+    to ``placements`` and handed on as its local tensor. In backward its
+    local grad, read as ``grad_placements`` (partial sums where ranks do
+    different work on the same data), is reduced at once to x's own
+    layout, so the op before sees its grad laid out as its output was
+    (DTensor would otherwise pick a layout for a partial grad, a strided
+    shard its product rules refuse). ``fn``'s local result becomes a
+    DTensor of ``out_placements`` and global ``out_shape``."""
+    from torch._prims_common import make_contiguous_strides_for
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def local(x, pl, grad_pl):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: local(v, pl, grad_pl) for k, v in x.items()}
+        if not is_dtensor(x):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return _LocalShard.apply(x, tuple(pl), tuple(grad_pl))
+
+    out = fn(*(local(*a) for a in args))
+    # the einsums leave their outputs permuted: made contiguous
+    return DTensor.from_local(out.contiguous(), mesh, out_placements,
+                              run_check=False, shape=out_shape,
+                              stride=make_contiguous_strides_for(out_shape))
+
+
+def batch_sharded_only(x):
+    """DTensor x with every shard but its batch dim's (dim 0) gathered."""
+    from torch.distributed.tensor import Replicate
+
+    pl = [p if p.is_shard(0) else Replicate() for p in x.placements]
+    if tuple(pl) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+class _GradLayout(torch.autograd.Function):
+    """The identity on a DTensor whose backward lays its grad out as
+    ``placements`` (a grad that reaches a reshape sharded on two of the
+    dims it merges would become a strided shard)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None
+
+
+def grad_layout(x, placements):
+    return _GradLayout.apply(x, tuple(placements))
 
 
 def _attn_chunked(cfg: ArchConfig, q, k, v, positions, scale):
@@ -452,8 +568,24 @@ def init_embed(cfg: ArchConfig, generator: torch.Generator) -> Dict:
 def embed_tokens(p: Dict, tokens: torch.Tensor) -> torch.Tensor:
     """Rows ``tokens`` of the table. ``F.embedding`` rather than indexing:
     the same rows, and its backward adds a repeated token's grads in a
-    fixed order (indexing's, on the CPU, depends on the threads)."""
-    return F.embedding(tokens.long(), p["tok"])
+    fixed order (indexing's, on the CPU, depends on the threads).
+
+    A DTensor table sharded over its vocab rows is first gathered over
+    those mesh dims (DTensor's backward of a vocab-sharded lookup fails
+    in its partial-sum bookkeeping); its grad goes back to the table's
+    placements through the gather's backward."""
+    table = p["tok"]
+    if is_dtensor(table):
+        from torch.distributed.tensor import Replicate
+
+        mesh = table.device_mesh
+        gather = [pl.is_shard(0) and mesh.size(i) > 1
+                  for i, pl in enumerate(table.placements)]
+        if any(gather):
+            table = table.redistribute(mesh, [
+                Replicate() if g else pl
+                for g, pl in zip(gather, table.placements)])
+    return F.embedding(tokens.long(), table)
 
 
 def lm_logits(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -474,9 +606,70 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def _xent_sum(cfg: ArchConfig, embed_p: Dict, x: torch.Tensor,
               labels: torch.Tensor) -> torch.Tensor:
     logits = lm_logits(cfg, embed_p, x).to(torch.float32)
+    if is_dtensor(logits):
+        return _xent_sum_sharded(logits, labels)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.sum(logz - gold)
+
+
+def _xent_sum_sharded(logits, labels):
+    """``_xent_sum``'s sum for DTensor logits (B, chunk, V), without a
+    full-vocab row on any rank. Where V is sharded, the log-sum-exp comes
+    from each shard's max and sum of exponentials (``torch.logsumexp``
+    would gather V). Every per-token term is laid out on its rows alone,
+    and so is its grad: the scalar sum's grad arrives replicated, and
+    redistributing it after its broadcast over V, one mesh dim at a time,
+    made a copy of every rank's rows of the pod at full vocab (31 GiB a
+    device on gemma-7b's multi-pod train cell); a term left partial over
+    V would be reduce-scattered over the sequence instead, a layout the
+    head's weight-grad product refuses."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = logits.device_mesh
+    rows = [p if p.is_shard(0) else Replicate() for p in logits.placements]
+    if any(p.is_shard(logits.ndim - 1) for p in logits.placements):
+        m = torch.amax(logits.detach(), dim=-1, keepdim=True).redistribute(
+            mesh, rows)
+        s = torch.sum(torch.exp(logits - m), dim=-1).redistribute(mesh, rows)
+        logz = torch.log(s) + m[..., 0]
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+    gold = _gold_sharded(logits, labels).redistribute(mesh, rows)
+    return torch.sum(grad_layout(logz - gold, rows))
+
+
+def _gold_sharded(logits, labels):
+    """The label's logit of DTensor logits (B, chunk, V) whose vocab dim
+    may be sharded (DTensor has no sharded ``gather``), shard by shard:
+    a rank gathers the labels that fall in its vocab slice and gives 0
+    for the rest, a partial sum over the mesh dims that split V. (A
+    one-hot of the labels against vocab ids, DTensor's broadcast
+    compare, came out at full vocab under torch 2.11: 4.9 GiB a device
+    on gemma-7b's single-pod train cell.)"""
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh, d = logits.device_mesh, logits.ndim - 1
+    pl = [p if p.is_shard(0) or p.is_shard(d) else Replicate()
+          for p in logits.placements]
+    lo, n = 0, logits.shape[d]       # this rank's vocab slice, as chunked
+    for i, p in enumerate(pl):
+        if p.is_shard(d):
+            size = -(-n // mesh.size(i))
+            r = mesh.get_local_rank(i)
+            lo, n = lo + r * size, max(0, min(size, n - r * size))
+
+    def body(lg, lab):
+        idx = lab.long() - lo
+        mine = (idx >= 0) & (idx < lg.shape[-1])
+        g = torch.gather(lg, -1, idx.clamp(0, max(lg.shape[-1] - 1, 0))
+                         [..., None])[..., 0]
+        return torch.where(mine, g, torch.zeros_like(g))
+
+    rows = [p if p.is_shard(0) else Replicate() for p in pl]
+    out = [Partial() if p.is_shard(d) else q for p, q in zip(pl, rows)]
+    return local_map(body, mesh, [(logits, pl, pl), (labels, rows, rows)],
+                     out, logits.shape[:-1])
 
 
 def chunked_xent(cfg: ArchConfig, embed_p: Dict, x: torch.Tensor,
@@ -490,9 +683,60 @@ def chunked_xent(cfg: ArchConfig, embed_p: Dict, x: torch.Tensor,
     chunk = min(cfg.loss_chunk, S)
     if S % chunk != 0:
         chunk = S
+    if is_dtensor(x):
+        # the head's product flattens (B, chunk): a sequence-sharded x is
+        # gathered first, as Megatron-SP gathers before the head
+        x = batch_sharded_only(x)
     body = remat("full", functools.partial(_xent_sum, cfg))
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, S, chunk):
         total = total + body(embed_p, x[:, lo:lo + chunk],
                              labels[:, lo:lo + chunk])
     return total / (B * S)
+
+
+# --------------------------------------------------- activation sharding
+def _act_spec(cfg: ArchConfig, seq_axis):
+    dp = cfg.act_dp_axes
+    bdim = dp if len(dp) > 1 else dp[0]
+    return (bdim, seq_axis, None)
+
+
+def _constrain(x, spec):
+    from repro_torch.parallel.sharding import placements
+
+    pl = placements(x.device_mesh, spec)
+    if tuple(x.placements) == pl:
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def act_constraint(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Residual-stream sharding between blocks (cfg.act_shard), for a
+    DTensor x; a plain tensor passes through. The models also pin each
+    branch's output before adding it to the residual: its redistribute's
+    backward then gathers the sequence of the branch's grad, where an
+    add's own resharding would hand the branch's weight-grad product a
+    grad sharded on batch and sequence at once, which DTensor's product
+    rules refuse.
+
+    "seq":   batch -> act_dp_axes, sequence -> "model" (Megatron-style
+             sequence parallelism; the >=7B archs).
+    "batch": batch -> act_dp_axes (re-pins pure-DP sharding; the
+             dp-profile archs with all-axis DP)."""
+    if x.ndim != 3 or cfg.act_shard == "none" or not is_dtensor(x):
+        return x
+    if cfg.act_shard == "seq":
+        return _constrain(x, _act_spec(cfg, "model"))
+    if cfg.act_shard == "batch":
+        return _constrain(x, _act_spec(cfg, None))
+    return x
+
+
+def act_entry(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Megatron-SP entry: all-gather the sequence dim at the attention/MLP
+    input, for a DTensor x under ``act_shard == "seq"``; a plain tensor
+    passes through."""
+    if x.ndim != 3 or cfg.act_shard != "seq" or not is_dtensor(x):
+        return x
+    return _constrain(x, _act_spec(cfg, None))

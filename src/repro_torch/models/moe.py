@@ -19,8 +19,8 @@ Attention, norms and embeddings are the dense model's (``layers``); the
 KV cache is the dense cache, int8 included. ``loss_fn`` is the chunked
 cross entropy plus 0.01 times the aux loss, each block under the
 config's remat policy. The reference's sharding
-hints (``moe_token_axes``, ``act_constraint``) are the identity on one
-card and are not carried (ROADMAP A.18). The router and its softmax are
+hints (``moe_token_axes``, ``act_constraint``) redistribute DTensor
+activations and are the identity on plain tensors. The router and its softmax are
 float32, as the reference's promotion makes them: x is cast to float32
 before the router product (torch does not promote a bf16 @ f32 product).
 Top-k breaks ties toward the lower expert index, as ``lax.top_k`` does.
@@ -134,6 +134,61 @@ def _expert_act(cfg: ArchConfig, p: Dict, h_in: torch.Tensor
     return torch.einsum("gecf,efd->gecd", h, p["w_down"])
 
 
+def _experts_sharded(cfg: ArchConfig, p: Dict, xg, dispatch, combine):
+    """The dispatch, expert MLPs and combine of DTensor token groups, shard
+    by shard (DTensor cannot propagate these einsums, whose flattened
+    batch dims mix sharded dims). Each rank takes its own groups (dim 0
+    stays sharded as xg's, everything else gathered). Where the experts
+    shard over "model" (expert parallelism), a rank runs its own experts
+    and its combine is a partial sum over "model"; where they do not
+    divide (intra-expert TP on the FFN dim) it runs every expert on its
+    FFN slice, again a partial sum; a weight sharded on any other dim
+    (FSDP) is gathered first."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = xg.device_mesh
+    g_pl = [p_ if isinstance(p_, Shard) and p_.dim == 0 else Replicate()
+            for p_ in xg.placements]
+    names = mesh.mesh_dim_names
+    m = names.index("model") if "model" in names else None
+    split = None      # the weight dim sharded over "model" (E or the FFN)
+    if m is not None and not isinstance(g_pl[m], Shard):
+        pl = p["w_up"].placements[m]
+        if isinstance(pl, Shard) and pl.dim in (0, 2):
+            split = pl.dim
+    # a replicated input whose ranks do different work gets partial
+    # grads: the groups' over "model" where the experts split there, a
+    # weight's over every dim that splits the groups
+    g_grad = [Partial() if i == m and split is not None else p_
+              for i, p_ in enumerate(g_pl)]
+    keys = [k for k in ("w_up", "w_gate", "w_down") if k in p]
+    args = [(t, g_pl, g_grad) for t in (
+        xg, dispatch.to(xg.dtype), combine.to(xg.dtype))]
+    for k in keys:
+        pl = [Replicate()] * mesh.ndim
+        if split is not None:
+            # E stays E; the FFN dim is 2 in w_up/w_gate, 1 in w_down
+            pl[m] = Shard(split if split == 0 or k != "w_down" else 1)
+        args.append((p[k], pl, [Partial() if isinstance(g, Shard) else q
+                                for g, q in zip(g_pl, pl)]))
+
+    def body(x_l, disp_l, comb_l, *ws):
+        w = dict(zip(keys, ws))
+        h_in = torch.einsum("gtec,gtd->gecd", disp_l, x_l)
+        if split == 0:
+            # this rank's experts
+            e_loc = w["w_up"].shape[0]
+            lo = mesh.get_local_rank(m) * e_loc
+            h_in, comb_l = h_in[:, lo:lo + e_loc], comb_l[:, :, lo:lo + e_loc]
+        return torch.einsum("gtec,gecd->gtd", comb_l,
+                            _expert_act(cfg, w, h_in))
+
+    out_pl = list(g_pl)
+    if split is not None:
+        out_pl[m] = Partial()
+    return L.local_map(body, mesh, args, out_pl, xg.shape)
+
+
 def moe_mlp(cfg: ArchConfig, p: Dict, x: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y (B, S, D), aux loss, a float32 scalar)."""
@@ -143,9 +198,21 @@ def moe_mlp(cfg: ArchConfig, p: Dict, x: torch.Tensor
     if T_all % Tg:
         raise ValueError(f"{T_all} tokens do not split into groups of {Tg}")
     G = T_all // Tg
+    if L.is_dtensor(x):
+        # a group is a run of the flattened (B, S) tokens: a sequence
+        # -sharded x is gathered first
+        x = L.batch_sharded_only(x)
     xg = x.reshape(G, Tg, D)
+    if cfg.moe_token_axes and L.is_dtensor(xg):
+        # few-expert models: token groups shard over every requested axis
+        # (divisibility checked by launch.dryrun._adjust_cfg)
+        xg = L._constrain(xg, (tuple(cfg.moe_token_axes), None, None))
 
     gates, idx, probs = _route(cfg, p["router"], xg)
+    if L.is_dtensor(probs):
+        # the aux loss's mean hands probs a grad partial over the groups
+        # and sharded over the experts' axis: back to probs' own layout
+        probs = L.grad_layout(probs, probs.placements)
     s = max(cfg.expert_slices, 1)
     if s > 1:
         # a token routed to expert e visits every slice e*s+j with the same
@@ -156,9 +223,12 @@ def moe_mlp(cfg: ArchConfig, p: Dict, x: torch.Tensor
     C = moe_capacity(cfg, Tg)
     dispatch, combine, _ = _dispatch_tensors(cfg, gates, idx, C)
 
-    h_in = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)
-    h_out = _expert_act(cfg, p, h_in)
-    y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), h_out)
+    if L.is_dtensor(xg):
+        y = _experts_sharded(cfg, p, xg, dispatch, combine)
+    else:
+        h_in = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)
+        h_out = _expert_act(cfg, p, h_in)
+        y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), h_out)
 
     # Switch-style aux loss: E * sum_e(frac_tokens_e * mean_prob_e); with
     # expert slices the first slot's index is a slice index, and indices
@@ -170,7 +240,15 @@ def moe_mlp(cfg: ArchConfig, p: Dict, x: torch.Tensor
 
     if cfg.n_shared_experts:
         y = y + L.mlp(cfg, p["shared"], xg)
-    return y.reshape(Bsz, S, D), aux
+    out = y.reshape(Bsz, S, D)
+    if L.is_dtensor(out):
+        # the grad reaches the (G, T) -> (B, S) reshape as its groups are
+        from torch.distributed.tensor import Replicate, Shard
+
+        out = L.grad_layout(out, [
+            p_ if isinstance(p_, Shard) and p_.dim == 0 else Replicate()
+            for p_ in xg.placements])
+    return out, aux
 
 
 # ----------------------------------------------------------------- blocks
@@ -198,6 +276,7 @@ def hidden_states(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
+    x = L.act_constraint(cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     block = L.remat(cfg.remat, functools.partial(_block_apply, cfg))
     for lp in L.layer_params(params["blocks"], cfg.n_layers):
@@ -208,11 +287,13 @@ def hidden_states(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
 def _block_apply(cfg: ArchConfig, lp: Dict, x: torch.Tensor,
                  aux: torch.Tensor, positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    h, _ = L.attention(cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x),
+    h, _ = L.attention(cfg, lp["attn"],
+                       L.act_entry(cfg, L.apply_norm(cfg, lp["ln1"], x)),
                        positions)
-    x = x + h
+    # each branch is pinned before its add (layers.act_constraint)
+    x = L.act_constraint(cfg, x + L.act_constraint(cfg, h))
     m, a = moe_mlp(cfg, lp["moe"], L.apply_norm(cfg, lp["ln2"], x))
-    return x + m, aux + a
+    return L.act_constraint(cfg, x + L.act_constraint(cfg, m)), aux + a
 
 
 def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,

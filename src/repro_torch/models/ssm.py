@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.train import tree as T
 
 
 def _dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
@@ -180,7 +181,10 @@ def ssm_block_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     y = y + p["D_skip"][None, None, :, None] * x_ssm.to(torch.float32)
     y = y.reshape(B, S, d_in).to(x.dtype)
     y = L.rms_norm(y * F.silu(z), p["gate_norm"]["scale"])
-    return x + y @ p["out_proj"], new_state
+    out = x + y @ p["out_proj"]
+    if state is None:  # training/prefill path only
+        out = L.act_constraint(cfg, out)
+    return out, new_state
 
 
 def init(cfg: ArchConfig, generator: torch.Generator) -> Dict:
@@ -192,7 +196,28 @@ def init(cfg: ArchConfig, generator: torch.Generator) -> Dict:
 
 
 def _block_out(cfg: ArchConfig, lp: Dict, x: torch.Tensor) -> torch.Tensor:
+    if L.is_dtensor(x) and all(
+            not any(p.is_shard() for p in w.placements)
+            for w in T.leaves(lp)):
+        return _block_out_rows(cfg, lp, x)
     return ssm_block_apply(cfg, lp, x)[0]
+
+
+def _block_out_rows(cfg: ArchConfig, lp: Dict, x):
+    """A block of a DTensor x with replicated weights (the data-parallel
+    profile), shard by shard: the rows of a batch are independent, so
+    each rank runs the plain block on its own rows (its weights' grads
+    are partial sums over the batch's mesh dims). DTensor's own ops would
+    reshard x, sharded on one dim over several mesh dims, at every
+    pad and scan step."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    rows = [p if p.is_shard(0) else Replicate() for p in x.placements]
+    w_grad = [Partial() if p.is_shard() else Replicate() for p in rows]
+    return L.local_map(
+        lambda lp_, x_: ssm_block_apply(cfg, lp_, x_)[0], x.device_mesh,
+        [(lp, [Replicate()] * len(rows), w_grad), (x, rows, rows)],
+        rows, x.shape)
 
 
 def run_blocks(cfg: ArchConfig, layers: List[Dict], x: torch.Tensor
@@ -223,7 +248,7 @@ def hidden_states(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
                   positions=None) -> torch.Tensor:
     """Full-sequence forward -> final hidden states (B, S, D) (positions
     are not used: the model has no attention)."""
-    x = L.embed_tokens(params["embed"], tokens)
+    x = L.act_constraint(cfg, L.embed_tokens(params["embed"], tokens))
     x = run_blocks(cfg, L.layer_params(params["blocks"], cfg.n_layers), x)
     return L.apply_norm(cfg, params["final_norm"], x)
 

@@ -1,10 +1,17 @@
-"""Sparse trigger readout: the at-source reduction on the server's host link.
+"""At-source compression before the expensive link: the sparse trigger
+readout on the server's host link, and the int8 gradient reduction across
+pods (the port of the JAX package's parallel/compression.py).
 
-The trigger half of the JAX package's parallel/compression.py, and the
-int8 quantizers of its other half (``quantize_int8`` / ``dequantize_int8``,
-``quantize_kv`` / ``dequantize_kv``); its collectives
-(``quantized_psum``, ``make_compressed_value_and_grad``) come with the
-training slice (ROADMAP A.17). The keep/drop cut runs on
+Gradients: ``quantized_psum`` sums each rank's partial over a process
+group with an int8 wire format: every rank's absmax-quantized int8 leaf
+and its one float32 scale are all-gathered, then dequantized and summed
+locally in rank order (an int8 sum would overflow).
+``make_compressed_value_and_grad`` runs it over the "pod" dim of a
+``DeviceMesh``: each pod computes the grads of its own slice of the
+batch, and the pods' grads cross the pod link as int8. Error: absmax
+int8 has per-element error <= scale/2 = max|g| / 254 a pod.
+
+Trigger: the keep/drop cut runs on
 the device; instead of shipping the dense (chips, events) score + keep
 tensors across the host link, only keep-flagged events cross it, as a
 packed (flat index, score) pair, so the bytes on the wire scale with the
@@ -17,7 +24,7 @@ CUDA tensors and run its plain twin on CPU tensors.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Callable, Tuple
 
 import numpy as np
 import torch
@@ -148,3 +155,139 @@ def quantize_kv(kv: torch.Tensor, axis: int = -1
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
                   dtype=torch.bfloat16) -> torch.Tensor:
     return (q.to(torch.float32) * scale).to(dtype)
+
+
+# ------------------------------------------- int8 gradient all-reduce
+# elements of a leaf that one slice of the int8 sum dequantizes
+_SLICE = 1 << 24
+
+
+def quantized_psum_leaf(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``x`` (this rank's partial, a plain tensor) over the ranks of
+    ``group`` (a ProcessGroup) with an int8 wire format: the int8 leaves
+    and the float32 scales are all-gathered, then dequantized and added
+    in rank order in float32 and cast back to x's dtype. The sum walks
+    the leaf in slices of ``_SLICE`` elements, so its float32 transients
+    stay a slice in size."""
+    import torch.distributed._functional_collectives as funcol
+
+    q, s = quantize_int8(x)
+    qs = funcol.all_gather_tensor(q.reshape(1, -1), 0, group)
+    ss = funcol.all_gather_tensor(s.reshape(1), 0, group)
+    del q
+    acc = torch.empty(x.numel(), dtype=torch.float32, device=x.device)
+    for lo in range(0, max(x.numel(), 1), _SLICE):
+        sl = slice(lo, lo + _SLICE)
+        acc[sl] = qs[0, sl].to(torch.float32) * ss[0]
+        for r in range(1, qs.shape[0]):
+            acc[sl] += qs[r, sl].to(torch.float32) * ss[r]
+    return acc.reshape(x.shape).to(x.dtype)
+
+
+def quantized_psum(tree: Any, group) -> Any:
+    """``quantized_psum_leaf`` over every leaf of a dict tree."""
+    from repro_torch.train import tree as T
+
+    return T.map_leaves(lambda x: quantized_psum_leaf(x, group), tree)
+
+
+def _strip_pod(spec):
+    parts = []
+    for s in spec:
+        if isinstance(s, (tuple, list)):
+            kept = tuple(a for a in s if a != "pod")
+            parts.append(kept if len(kept) > 1 else (kept[0] if kept
+                                                     else None))
+        else:
+            parts.append(None if s == "pod" else s)
+    return tuple(parts)
+
+
+def make_compressed_value_and_grad(loss_fn: Callable, mesh,
+                                   batch_spec_tree: Any,
+                                   grad_specs: Any = None) -> Callable:
+    """``vag(params, batch) -> (loss, grads)`` with the grads reduced over
+    the mesh's "pod" dim in int8 (``quantized_psum``), then divided by the
+    pod count; the loss is the pods' mean.
+
+    ``params`` are DTensors on ``mesh`` replicated over "pod" (or plain
+    tensors, the same on every rank), ``batch`` DTensors placed by
+    ``batch_spec_tree``, whose batch dim must include "pod". Each pod
+    computes ``value_and_grad`` of its own slice of the batch on the
+    intra-pod dims ("data", "model"); ``grad_specs`` (the ZeRO-2 specs,
+    "pod" stripped) pin the pod's partial grads to their shards before
+    they cross the pod link, else they are reduced to the params'
+    placements. The results are DTensors on ``mesh``, replicated over
+    "pod"."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import tree as T
+    from repro_torch.train.train_step import value_and_grad
+
+    names = shd.axis_names(mesh)
+    if "pod" not in names:
+        raise ValueError("compressed grad reduction needs a 'pod' mesh axis")
+    n_pod = shd.axis_sizes(mesh)["pod"]
+    pod_dim = names.index("pod")
+    inner = tuple(a for a in names if a != "pod")
+    inner_mesh = mesh[inner] if inner else None
+    pod_group = mesh.get_group("pod")
+    vag = value_and_grad(loss_fn)
+
+    def to_inner(x):
+        """This rank's pod slice of x: a DTensor on the intra-pod mesh (a
+        plain tensor is replicated there), or its local tensor when the
+        mesh has no other dim."""
+        if isinstance(x, DTensor):
+            local = x.to_local()
+            pl = [p for i, p in enumerate(x.placements) if i != pod_dim]
+        else:
+            local, pl = x, [Replicate()] * len(inner)
+        if inner_mesh is None:
+            return local
+        return DTensor.from_local(local, inner_mesh, pl, run_check=False)
+
+    def pin(g, p, spec):
+        """The pod's partial grad reduced inside the pod to its shard."""
+        if inner_mesh is None:
+            return g
+        pl = (shd.placements(inner_mesh, _strip_pod(spec))
+              if spec is not None else p.placements)
+        return g.redistribute(inner_mesh, pl)
+
+    def to_outer(summed, g):
+        if inner_mesh is None:
+            pl = [Replicate()]
+        else:
+            pl = list(g.placements)
+            pl.insert(pod_dim, Replicate())
+        return DTensor.from_local(summed, mesh, pl, run_check=False,
+                                  shape=g.shape, stride=g.stride())
+
+    def vag_pod(params, batch):
+        p_in = T.map_leaves(to_inner, params)
+        loss, grads = vag(p_in, T.map_leaves(to_inner, batch))
+        keys, parts = zip(*T.items(grads))
+        del grads
+        parts = list(parts)
+        specs = (T.leaves(grad_specs) if grad_specs is not None
+                 else [None] * len(parts))
+        out = []
+        for i, (p, spec) in enumerate(zip(T.leaves(p_in), specs)):
+            # a leaf at a time, its pod partial dropped once reduced
+            g = pin(parts[i], p, spec)
+            parts[i] = None
+            local = g.to_local() if isinstance(g, DTensor) else g
+            summed = quantized_psum_leaf(local, pod_group)  # int8 on the wire
+            out.append(to_outer(summed.div_(n_pod), g))     # pod mean
+            del g, local, summed
+        grads = T.unflatten(keys, out)
+        if isinstance(loss, DTensor):
+            loss = loss.full_tensor()
+        loss = funcol.all_reduce(loss, "sum", pod_group) / n_pod
+        return DTensor.from_local(loss, mesh, [Replicate()] * len(names),
+                                  run_check=False), grads
+
+    return vag_pod

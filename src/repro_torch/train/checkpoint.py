@@ -19,10 +19,14 @@ Guarantees:
 Leaves are saved through ``.cpu().numpy()`` (numpy arrays and Python
 numbers as they are). torch's bfloat16 has no numpy dtype, so a bf16 leaf
 raises ``CheckpointError`` naming its key instead of being cast; the
-trainer makes none (float32 params and moments). ``restore(template,
-step=None, device=None)`` checks every key and shape against the template
-and puts each leaf on ``device``, or where the template's leaf is (a
-template leaf that is not a tensor: the default device, CUDA).
+trainer makes none (float32 params and moments). A DTensor leaf is saved
+whole (gathered: every rank calls ``save``, see launch/train.py).
+``restore(template, step=None, device=None, shardings=None)`` checks
+every key and shape against the template and puts each leaf on
+``device``, or where the template's leaf is (a template leaf that is not
+a tensor: the default device, CUDA); with ``shardings`` (a tree of
+``parallel.sharding.NamedSharding`` matching the template, the elastic
+reshard path) each leaf is placed as a DTensor under its sharding.
 """
 from __future__ import annotations
 
@@ -47,6 +51,10 @@ class CheckpointError(RuntimeError):
 
 
 def _as_numpy(key: str, leaf) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if torch.is_tensor(leaf):
         if leaf.dtype == torch.bfloat16:
             raise CheckpointError(
@@ -155,10 +163,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template: PyTree, step: Optional[int] = None,
-                device=None) -> Tuple[int, PyTree]:
+                device=None, shardings: Optional[PyTree] = None
+                ) -> Tuple[int, PyTree]:
         """(step, the checkpoint in the structure of ``template``), each
         leaf on ``device`` or, by default, where the template's leaf is
-        (CUDA for a template leaf that is not a tensor)."""
+        (CUDA for a template leaf that is not a tensor); with
+        ``shardings``, each leaf a DTensor under its ``NamedSharding``
+        (every rank reads the same files and takes its own shards)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -171,4 +182,12 @@ class CheckpointManager:
             raise CheckpointError(f"integrity failure (sha256) in {d}")
         with np.load(npz_path) as z:
             flat = {k: z[k] for k in z.files}
-        return step, _unflatten_like(template, flat, device)
+        if shardings is None:
+            return step, _unflatten_like(template, flat, device)
+        from repro_torch.parallel.sharding import distribute
+
+        host = _unflatten_like(template, flat, torch.device("cpu"))
+        return step, T.map_leaves(
+            lambda x, sh: distribute(
+                x.to(torch.device(sh.mesh.device_type)), sh,
+                src_data_rank=None), host, shardings)

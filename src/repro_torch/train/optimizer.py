@@ -26,6 +26,15 @@ whole leaf's), so the float32 transients stay a slice in size.
 old tensors and returns them, the port's form of the reference driver's
 ``jax.jit(donate_argnums=(0, 1))``; by default the inputs are left as
 they are.
+
+DTensor leaves (a sharded plan): the global norm reduces each leaf's sum
+of squares across the mesh. AdamW updates a leaf in its moments'
+(ZeRO-1) placements: the grad is redistributed there (a reduce-scatter
+of partial grads), the param sliced there, the 64 MB slices walk the
+local shards, and the new param is all-gathered back to its own
+placements (written into the old local tensors with ``donate=True``).
+Adafactor runs its ops on the DTensors as they are (DTensor inserts the
+collectives) and returns new tensors, donated or not.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.parallel.sharding import is_dtensor
 from repro_torch.train import tree as T
 
 PyTree = Any
@@ -69,12 +79,21 @@ def schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
+def _full(x: torch.Tensor) -> torch.Tensor:
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 def global_norm(tree: PyTree) -> torch.Tensor:
     """sqrt of the sum over the leaves (in sorted key order) of each leaf's
-    float32 sum of squares."""
-    sums = [torch.sum(torch.square(x.to(torch.float32)))
+    sum of squares, accumulated in float64 and returned as float32. A
+    DTensor leaf's sum is its shards' partial sums reduced over the mesh:
+    in float64 the order of that reduction does not reach the float32
+    result, so a sharded step clips by the norm one device computes (the
+    int8 pod reduction would turn a clip one ulp off into whole quanta)."""
+    sums = [_full(torch.sum(torch.square(x.to(torch.float32)),
+                            dtype=torch.float64))
             for x in T.leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    return torch.sqrt(torch.sum(torch.stack(sums))).to(torch.float32)
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -105,7 +124,8 @@ def _out(x: torch.Tensor, donate: bool) -> torch.Tensor:
 # ------------------------------------------------------------------ AdamW
 def adamw_init(cfg: OptimizerConfig, params: PyTree) -> Dict:
     mdt = getattr(torch, cfg.moment_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=mdt,
+                                       memory_format=torch.contiguous_format)
     dev = T.leaves(params)[0].device
     return {"m": T.map_leaves(zeros, params),
             "v": T.map_leaves(zeros, params),
@@ -127,9 +147,7 @@ def adamw_update(cfg: OptimizerConfig, grads: PyTree, state: Dict,
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                      device=t.device), t)
 
-    def upd(p, g, m, v):
-        out_p, out_m, out_v = (_out(x, donate) for x in (p, m, v))
-        decay = p.ndim >= 2     # decoupled weight decay on matrices only
+    def slices(p, g, m, v, out_p, out_m, out_v, decay):
         pf, gf, mf, vf = (x.view(-1) for x in (p, g, m, v))
         op, om, ov = (x.view(-1) for x in (out_p, out_m, out_v))
         for lo in range(0, max(pf.numel(), 1), _SLICE):
@@ -143,6 +161,13 @@ def adamw_update(cfg: OptimizerConfig, grads: PyTree, state: Dict,
             op[s] = (pf[s].to(torch.float32) - lr * update).to(p.dtype)
             om[s] = m32.to(m.dtype)
             ov[s] = v32.to(v.dtype)
+
+    def upd(p, g, m, v):
+        decay = p.ndim >= 2     # decoupled weight decay on matrices only
+        if is_dtensor(p):
+            return _adamw_sharded(p, g, m, v, decay, slices, donate)
+        out_p, out_m, out_v = (_out(x, donate) for x in (p, m, v))
+        slices(p, g, m, v, out_p, out_m, out_v, decay)
         return out_p, out_m, out_v
 
     out = T.map_leaves(upd, params, grads, state["m"], state["v"])
@@ -152,6 +177,33 @@ def adamw_update(cfg: OptimizerConfig, grads: PyTree, state: Dict,
         "grad_norm": gnorm, "lr": lr}
 
 
+def _adamw_sharded(p, g, m, v, decay, slices, donate):
+    """One DTensor leaf of AdamW in the moments' placements: ``slices``
+    walks the local shards, the new param goes back to p's placements."""
+    from torch.distributed.tensor import DTensor
+
+    mesh, pl = m.device_mesh, tuple(m.placements)
+    g = g if tuple(g.placements) == pl else g.redistribute(mesh, pl)
+    p_sh = p if tuple(p.placements) == pl else p.redistribute(mesh, pl)
+    # a slice of a replicated param, or a reduce-scattered grad, may be a
+    # strided view: the slices walk contiguous shards
+    pl_l, gl = p_sh.to_local().contiguous(), g.to_local().contiguous()
+    ml, vl = m.to_local(), v.to_local()
+    out_p = torch.empty_like(pl_l)
+    out_m, out_v = (_out(x, donate) for x in (ml, vl))
+    slices(pl_l, gl, ml, vl, out_p, out_m, out_v, decay)
+    new_p = DTensor.from_local(out_p, mesh, pl, run_check=False,
+                               shape=p.shape, stride=p.stride())
+    if tuple(p.placements) != pl:
+        new_p = new_p.redistribute(mesh, p.placements)
+    wrap = lambda x, ref: DTensor.from_local(
+        x, mesh, pl, run_check=False, shape=ref.shape, stride=ref.stride())
+    if donate:
+        p.to_local().copy_(new_p.to_local())
+        return p, m, v
+    return new_p, wrap(out_m, m), wrap(out_v, v)
+
+
 # -------------------------------------------------------------- Adafactor
 def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
@@ -159,6 +211,12 @@ def _factored(shape) -> bool:
 
 def adafactor_init(cfg: OptimizerConfig, params: PyTree) -> Dict:
     def make(p):
+        if is_dtensor(p):
+            # a DTensor leaf's stats take the layout of its row/column sums
+            z = torch.zeros_like(p, dtype=torch.float32)
+            if _factored(p.shape):
+                return {"vr": z.sum(dim=-1), "vc": z.sum(dim=-2)}
+            return {"v": z}
         f32 = dict(dtype=torch.float32, device=p.device)
         if _factored(p.shape):
             return {"vr": torch.zeros(p.shape[:-1], **f32),      # row stats
@@ -205,6 +263,16 @@ def adafactor_update(cfg: OptimizerConfig, grads: PyTree, state: Dict,
     beta2t = 1.0 - t ** (-0.8)  # Adafactor's step-dependent decay
 
     def upd(p, g, v):
+        if is_dtensor(p) and p.ndim >= 3 and _factored(p.shape) \
+                and p.shape[0] > 1:
+            # a stacked DTensor leaf: the layers' results stacked
+            outs = [_adafactor_one(cfg, p[i], g[i],
+                                   {k: x[i] for k, x in v.items()}, scale,
+                                   lr, beta2t) for i in range(p.shape[0])]
+            return (torch.stack([o[0] for o in outs]),
+                    {k: torch.stack([o[1][k] for o in outs]) for k in v})
+        if is_dtensor(p):
+            return _adafactor_one(cfg, p, g, v, scale, lr, beta2t)
         if p.ndim >= 3 and _factored(p.shape) and p.shape[0] > 1:
             # a stacked leaf: one layer at a time (per-layer RMS clip and
             # row factor, and layer-sized float32 transients)

@@ -10,8 +10,10 @@ training half of train/elastic.py and launch/mesh.py, on the CPU.
   and with the same keys;
 * a bf16 leaf is refused with its key, and nothing is written;
 * ``gather_to_host`` / ``reshard_params`` / ``reshard_opt_state`` on a
-  plan of one device; a plan over more, and ``make_host_mesh`` over more
-  than one device, raise ``NotPortedError`` naming ROADMAP A.18.
+  plan of one device; a readout plan of several devices is refused
+  (sharded state goes on a ``DeviceMesh``: tests/test_torch_distributed.py),
+  and ``make_host_mesh`` over more than one device without a process
+  group of that many ranks raises ``MeshUnavailableError``.
 """
 import json
 import os
@@ -30,8 +32,8 @@ from repro.models import registry as jax_registry  # noqa: E402
 from repro.train import optimizer as jopt  # noqa: E402
 from repro.train.checkpoint import CheckpointManager as JaxManager  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.device import NotPortedError  # noqa: E402
-from repro_torch.launch.mesh import ReadoutMesh, make_host_mesh  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    MeshUnavailableError, ReadoutMesh, make_host_mesh)
 from repro_torch.launch.train import TINY  # noqa: E402
 from repro_torch.train import elastic  # noqa: E402
 from repro_torch.train import tree as T  # noqa: E402
@@ -212,12 +214,12 @@ def test_gather_and_reshard_on_one_device(train_states):
 
 def test_plans_over_several_devices_name_a18():
     two = ReadoutMesh((CPU, CPU))
-    with pytest.raises(NotPortedError, match="A.18"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         elastic.reshard_params(TINY, two, {"w": np.zeros(2, np.float32)})
-    with pytest.raises(NotPortedError, match="A.18"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         elastic.reshard_opt_state(TINY, two, {}, {})
     for data, model in ((2, 1), (1, 4)):
-        with pytest.raises(NotPortedError, match="A.18"):
+        with pytest.raises(MeshUnavailableError, match="ranks"):
             make_host_mesh(data, model, device="cpu")
     with pytest.raises(ValueError):
         make_host_mesh(0, 1, device="cpu")

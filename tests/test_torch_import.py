@@ -83,7 +83,12 @@ REQUIRED_MODULES = ("repro_torch.parallel.compression",
                     "repro_torch.train.tree",
                     "repro_torch.train.optimizer",
                     "repro_torch.train.train_step",
-                    "repro_torch.train.checkpoint")
+                    "repro_torch.train.checkpoint",
+                    "repro_torch.parallel.sharding",
+                    "repro_torch.parallel.hlo_analysis",
+                    "repro_torch.parallel.transport",
+                    "repro_torch.launch.specs",
+                    "repro_torch.launch.dryrun")
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -128,7 +133,7 @@ def _entry_points():
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.core.nn_baseline import MLPSpec, init_mlp, train_mlp
     from repro_torch.launch import serve, train
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     from repro_torch.launch.train import TINY
     from repro_torch.configs import smoke_config
     from repro_torch.models import dense, encdec, hybrid, moe, registry, ssm
@@ -196,6 +201,8 @@ def _entry_points():
         "CheckpointManager.restore": _restore_onto_default_device,
         "example.torch_train_lm": lambda: _run_example(
             "torch_train_lm", ["--steps", "1"]),
+        "make_production_mesh": lambda: make_production_mesh(),
+        "make_host_mesh.sharded": lambda: make_host_mesh(2, 1),
     }
 
 
@@ -249,7 +256,8 @@ def _spec():
     "registry.init_cache", "launch.serve.main.smoke_ssm",
     "example.torch_quickstart", "example.torch_serve_lm",
     "launch.train.main", "make_host_mesh", "CheckpointManager.restore",
-    "example.torch_train_lm"])
+    "example.torch_train_lm", "make_production_mesh",
+    "make_host_mesh.sharded"])
 def test_entry_point_without_cuda_raises_named_error(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

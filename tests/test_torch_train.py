@@ -57,8 +57,8 @@ from repro.train import optimizer as jopt  # noqa: E402
 from repro.train import train_step as jts  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
-from repro_torch.device import NotPortedError  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch.mesh import MeshUnavailableError  # noqa: E402
 from repro_torch.launch.train import TINY  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.train import tree as T  # noqa: E402
@@ -219,10 +219,18 @@ def test_prefill_step_is_the_mean_of_its_waves():
 
 
 def test_grad_specs_and_compress_pod_name_a18():
+    """Both build a step now (tests/test_torch_distributed.py drives them
+    on two ranks); a mesh without a "pod" axis cannot compress across
+    pods."""
     opt_cfg = OptimizerConfig()
-    for kw in ({"grad_specs": {}}, {"compress_pod": ("mesh", {})}):
-        with pytest.raises(NotPortedError, match="A.18"):
-            make_train_step(TINY, opt_cfg, **kw)
+    assert callable(make_train_step(TINY, opt_cfg, grad_specs={}))
+
+    class NoPod:
+        shape = {"data": 2, "model": 1}
+        axis_names = ("data", "model")
+
+    with pytest.raises(ValueError, match="'pod' mesh axis"):
+        make_train_step(TINY, opt_cfg, compress_pod=(NoPod(), {}))
 
 
 # --------------------------------------------------------------- driver
@@ -298,5 +306,7 @@ def test_driver_trains_a_smoke_family(tmp_path, capsys):
 
 
 def test_driver_mesh_over_several_devices_names_a18(tmp_path):
-    with pytest.raises(NotPortedError, match="A.18"):
+    """Without torchrun's environment there is no world to lay the mesh
+    over: the named error, no run on one device."""
+    with pytest.raises(MeshUnavailableError, match="torchrun"):
         train.main(BASE + _ckpt(tmp_path, "m") + ["--mesh-data", "2"])

@@ -7,7 +7,11 @@ carries the ``cuda`` marker and skips without a card; on one:
   batches, f32 with TF32 off, AdamW and Adafactor: the losses within rtol
   1e-5, the params under ``chip_smoke.train_param_diff``'s rule (entries
   outside 1e-6 + 1e-4 |p| under 0.1% of all, each within 2 lr (1 + wd));
-* ``launch.train.main`` trains TINY on the card with no device flag.
+* ``launch.train.main`` trains TINY on the card with no device flag;
+* ``chip_smoke.py`` phase 17's two ranks on cuda:0 at smoke width: the
+  compressed pod step and the data-parallel step against one rank, and
+  TINY resharded onto the (2, 1) plan and back (marked ``slow``: two
+  processes start on the card; ``-m cuda`` still selects it).
 """
 import numpy as np
 import pytest
@@ -68,3 +72,19 @@ def test_driver_trains_on_the_card(card, tmp_path, capsys):
     assert train.main(["--preset", "tiny", "--steps", "3", "--seq", "32",
                        "--batch", "4", "--ckpt-dir", str(tmp_path)]) == 0
     assert "done in" in capsys.readouterr().out
+
+
+@pytest.mark.slow
+def test_two_ranks_on_one_card_at_smoke_width(card):
+    """Phase 17's ranks at smoke width, one step a mesh. Two processes
+    start and reach the card (about 20-40 s in all), hence ``slow``.
+    lm_sharded_ranks raises on any failed check; its results here."""
+    spec = dict(chip_smoke.SHARDED_RANKS, smoke=True, batch=4, seq=32,
+                steps=1)
+    res = chip_smoke.lm_sharded_ranks(spec, timeout=300)
+    pod, data = res["pod"], res["data"]
+    assert pod["int8_wire_bytes"] == pod["int8_wire_formula"]
+    assert not any(pod["grads_vs_one_rank_differ"].values())
+    assert pod["params"]["ok"] and data["params"]["ok"]
+    assert data["reshard_bit_equal"]
+    assert "all_gather_into_tensor" in data["staged_to_host"]
