@@ -221,8 +221,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
                ranks, fake tensors: no device memory), each with FLOPs
                and at least one collective: fits_hbm, peak GiB, wire
                bytes, seconds.
-Then a `kernels` JSON line, the card's name and power limit, and the
-final line {"ok": true, "device": {...}}.
+ 18. slabs  — the readout chip axis split over a device plan
+               (launch.mesh.ReadoutMesh): (a) phase 4's stream (the hot
+               swap at batch 4) on plans of 2 and 4 slabs of cuda:0 (the
+               card named k times), bit-sliced plain and TMR x dense and
+               sparse x frames and features, and matmul dense plain and
+               TMR: every event equal to the oracle (so to the one-slab
+               run, also served), per chip (n_in, n_kept) equal to the
+               one-slab run's, each slab on its device, K1, K2 (or B3)
+               and B6 launched once a slab a dispatch; phase 9's TMR
+               steered scrub on 4 slabs with the upset on the last chip
+               (the last slab): detected and healed once; the stream
+               rebound 1 -> 4 -> 2 slabs before batches 2 and 5, nothing
+               lost; served events/s at 1, 2 and 4 slabs in rotating
+               rounds. (b) With 2+ cards: the stream over 4 (or 2) cards,
+               each slab's stack, plan and staging tensors on its card, a
+               live rebind from cuda:0 to cuda:1, and a fleet over every
+               card whose buckets land on disjoint cards, every event
+               exact; with one card it prints {"phase":
+               "slabs_multi_card", "skipped": "1 card"}.
+Then a `kernels` JSON line (each row with its launches on 2 and 4 slabs,
+`launches_slabs`), the card's name and power limit, and the final line
+{"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -1223,25 +1243,34 @@ FABRIC_KERNEL = {"bitsliced": "eval_words_voted",
 
 
 def serve(torch, np, chips, swap_chip, blocks, want, redundancy, counters,
-          layout=None, sparse=False, features=False):
+          layout=None, sparse=False, features=False, mesh=None, phase=None,
+          rebinds=None):
     """One server run over the pre-generated blocks, raw frames or (with
     ``features``) their features through submit_batch; its results
     checked against the oracle ``want``, with the launch counts of the
     run. With ``sparse`` the drained events must be exactly the oracle's
-    kept set and the link bytes must follow the wire format."""
+    kept set and the link bytes must follow the wire format. ``mesh``
+    serves over that device plan, and ``rebinds`` ({step: plan}) moves
+    the server to another before that step's blocks (the events the
+    rebind flushes are kept)."""
     from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
 
     server = ReadoutServer(
         list(chips), ServerConfig(redundancy=redundancy, layout=layout,
-                                  sparse=sparse), device="cuda")
-    phase = ("serve_features" if features else "serve_sparse" if sparse
-             else "serve" if layout is None else "serve_matmul")
+                                  sparse=sparse), device="cuda", mesh=mesh)
+    phase = phase or ("serve_features" if features else "serve_sparse"
+                      if sparse else "serve" if layout is None
+                      else "serve_matmul")
     what = (f"{server.layout} {redundancy}"
-            f"{' sparse' if sparse else ''}")
+            f"{' sparse' if sparse else ''}"
+            f"{' features' if features else ''}"
+            f"{'' if mesh is None else f' {mesh.size} slabs'}")
     reset(counters)
     where = {}                       # seq -> (step, sensor, row)
     results = []
     for step in range(SERVE_BATCHES):
+        if rebinds and step in rebinds:
+            results += server.rebind_mesh(rebinds[step])
         if step == RECONFIGURE_AT:
             results += server.reconfigure(0, swap_chip)
         for s in range(N_CHIPS):
@@ -1296,6 +1325,7 @@ def serve(torch, np, chips, swap_chip, blocks, want, redundancy, counters,
     return {"layout": rep["layout"], "stack": server._stack.layout,
             "redundancy": redundancy, "sparse": sparse,
             "ingest": "features" if features else "frames",
+            "slabs": rep["slabs"],
             "events": n_in, "drained": len(results),
             "oracle_mismatches": mism,
             "disagreements": rep["seu_disagreement_total"],
@@ -1376,11 +1406,13 @@ def mismatches(want, results, where, steps=None):
 
 
 def serve_scrub(torch, np, chips, blocks, want, flips, counters, layout,
-                redundancy, mode):
+                redundancy, mode, mesh=None, slot=None, phase="serve_scrub"):
     """One scrub run: scrub_interval=1; before batch SEU_AT one
     output-changing bit of the replica frame the round-robin pointer
     samples next is flipped (``flips``, in replica coordinates under
-    TMR), so both scrub modes reach it within the stream. Under TMR every event
+    TMR), so both scrub modes reach it within the stream; with ``slot``,
+    the last replica of that chip (steered TMR finds it). ``mesh`` serves
+    over that device plan. Under TMR every event
     must equal the oracle; without it, every event submitted after the
     heal. Exactly one detection and one healed bit, the upset replica's
     counter climbing and then still after the heal, every frame clean at
@@ -1389,18 +1421,20 @@ def serve_scrub(torch, np, chips, blocks, want, flips, counters, layout,
     from repro_torch.core.tmr import replica_lut_index
     from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
 
-    phase = "serve_scrub"
     server = ReadoutServer(list(chips), ServerConfig(
         redundancy=redundancy, layout=layout, scrub_interval=1,
-        scrub_mode=mode), device="cuda")
-    what = f"{server.layout} {redundancy} {mode}"
+        scrub_mode=mode), device="cuda", mesh=mesh)
+    what = (f"{server.layout} {redundancy} {mode}"
+            f"{'' if mesh is None else f' {mesh.size} slabs'}")
     R = server.n_replicas
     hit = {}
+    at = slot
 
     def inject(step):
         if step != SEU_AT:
             return
-        slot, replica = divmod(server._scrub_rr, R)
+        slot, replica = ((at, R - 1) if at is not None
+                         else divmod(server._scrub_rr, R))
         li, bi, n = flips[slot]
         server.inject_seu(slot, replica,
                           replica_lut_index(chips[slot].config, replica, li)
@@ -1869,21 +1903,25 @@ def found_buckets(fleet, chips, blocks):
 def bucket_state(fleet):
     """Per bucket: the storage of its stack's and fused pass's tensors and
     its copy stream — what a warm admission must leave as it is."""
+    from repro_torch.kernels.lut_eval.ops import slabs_of
+
     out = []
     for b in fleet._buckets:
         srv = b.server
-        st = srv._stack
-        fe = srv._frontend
+        stacks = [st for st, _ in slabs_of(srv._stack)]
+        fes = ([f for f, _ in slabs_of(srv._frontend)]
+               if srv._frontend is not None else [])
         out.append({
-            "stack": [t.data_ptr() for t in (st.tables, st.output_nets,
-                                             st.src if st.bitsliced
-                                             else st.sel)],
-            "plan": ({k: v.data_ptr() for k, v in fe.plan.items()}
-                     if fe is not None else None),
-            "staging": ({str(k): [t.data_ptr() for t in v]
+            "stack": [t.data_ptr() for st in stacks
+                      for t in (st.tables, st.output_nets,
+                                st.src if st.bitsliced else st.sel)],
+            "plan": ([{k: v.data_ptr() for k, v in fe.plan.items()}
+                      for fe in fes] if fes else None),
+            "staging": ({f"{i}:{k}": [t.data_ptr() for t in v]
+                         for i, fe in enumerate(fes)
                          for k, v in fe.staging.items()}
-                        if fe is not None else None),
-            "copy_stream": srv._copy_stream,
+                        if fes else None),
+            "copy_stream": dict(srv._copy_streams),
         })
     return out
 
@@ -2292,6 +2330,7 @@ def fleet_deep(torch, np, counters):
         SmartPixelConfig, generate, train_test_split)
     from repro_torch.kernels import build
     from repro_torch.kernels.lut_eval import bitsliced as bs
+    from repro_torch.kernels.lut_eval import ops as lut_ops
     from repro_torch.kernels.lut_eval.ops import bucket_envelope
     from repro_torch.launch.fleet import TenantFleet
     from repro_torch.launch.readout_server import ServerConfig
@@ -2329,7 +2368,8 @@ def fleet_deep(torch, np, counters):
         fleet = TenantFleet(ServerConfig(redundancy=red), bucket_slots=2,
                             device="cuda")
         fleet.admit("deep", chip)
-        st = fleet._buckets[0].server._stack
+        # the first slab (the whole stack on one card), on cuda:0
+        st = lut_ops.slabs_of(fleet._buckets[0].server._stack)[0][0]
         reset(counters)
         seqs = fleet.submit_batch("deep", X)
         got = {r.seq: r.score_raw for r in fleet.flush()}
@@ -3551,6 +3591,215 @@ def nn_baseline(torch, np, tr, te):
             "dsp_schedule": dsp_schedule(MLPSpec())}
 
 
+# 18: the chip axis split over slabs: every configuration of the served
+# stream on plans of SLAB_PLANS slabs (one device named k times: cuda:0
+# here, the cards where there are several)
+SLAB_PLANS = (2, 4)
+SLAB_CONFIGS = (  # (layout, redundancy, sparse, features)
+    (None, "none", False, False), (None, "tmr", False, False),
+    (None, "none", True, False), (None, "tmr", True, False),
+    (None, "none", False, True), (None, "tmr", False, True),
+    (None, "none", True, True), (None, "tmr", True, True),
+    ("matmul", "none", False, False), ("matmul", "tmr", False, False))
+SLAB_RATE_ROUNDS = 3
+SLAB_REBINDS = {2: 4, 5: 2}   # step -> slabs: 1 -> 4 -> 2 mid-stream
+
+
+def per_dispatch(run):
+    """Launches a dispatch of the run's fused pass (frames) or scoring
+    pass (features): K1, K2 or B3, and B6's entry."""
+    stage = run["stages"]["launch_score" if run["ingest"] == "features"
+                          else "launch_fused"]["calls"]
+    b6 = ("sparse_pack_decode" if run["sparse"] and run["layout"] ==
+          "bitsliced" else "sparse_pack_keep_words" if run["sparse"]
+          else "decode_dense")
+    names = [FABRIC_KERNEL[run["stack"]]]
+    if run["ingest"] == "frames":
+        names.insert(0, "yprofile")
+    if run["layout"] == "bitsliced" or run["sparse"]:
+        names.append(b6)
+    return {k: run["launches"][k] / stage for k in names}
+
+
+def serve_slabs(torch, np, chips, swap_chip, blocks, want, want0, flips,
+                counters, devices):
+    """Phase 18 on ``devices`` (a device named k times makes k slabs on
+    it): every SLAB_CONFIGS run of phase 4's stream on each plan of
+    SLAB_PLANS slabs, every event equal to the oracle (so to the one-slab
+    run) and per chip (n_in, n_kept) equal to the one-slab run's, K1/K2
+    (or B3)/B6 launched once a slab a dispatch; the scrub run of phase 9
+    (TMR, steered) with the upset on the last chip (the last slab), one
+    detection and one healed bit; and the stream rebound 1 -> 4 -> 2
+    slabs mid-stream with nothing lost."""
+    from repro_torch.launch.mesh import ReadoutMesh
+
+    phase = "slabs"
+    out = {"devices": [str(d) for d in devices], "runs": [],
+           "launches": {}}
+    for cfg in SLAB_CONFIGS:
+        layout, red, sparse, features = cfg
+        base = serve(torch, np, chips, swap_chip, blocks, want, red,
+                     counters, layout=layout, sparse=sparse,
+                     features=features, phase=phase)
+        for k in SLAB_PLANS:
+            mesh = ReadoutMesh(tuple(devices[i % len(devices)]
+                                     for i in range(k)))
+            run = serve(torch, np, chips, swap_chip, blocks, want, red,
+                        counters, layout=layout, sparse=sparse,
+                        features=features, mesh=mesh, phase=phase)
+            if run["per_chip"] != base["per_chip"]:
+                fail(phase, f"{k} slabs {cfg}: per-chip (n_in, n_kept) "
+                            f"{run['per_chip']} != one slab's "
+                            f"{base['per_chip']}")
+            if [sl["device"] for sl in run["slabs"]] != [
+                    str(d) for d in mesh.devices]:
+                fail(phase, f"{k} slabs {cfg}: slabs {run['slabs']}")
+            each = per_dispatch(run)
+            if any(v != k for v in each.values()):
+                fail(phase, f"{k} slabs {cfg}: launches a dispatch {each}, "
+                            f"{k} expected")
+            for name, n in run["launches"].items():
+                out["launches"].setdefault(str(k), {}).setdefault(name, 0)
+                out["launches"][str(k)][name] += n
+            out["runs"].append({
+                "layout": run["layout"], "stack": run["stack"],
+                "redundancy": red, "sparse": sparse,
+                "ingest": run["ingest"], "slabs": k,
+                "events": run["events"], "drained": run["drained"],
+                "oracle_mismatches": run["oracle_mismatches"],
+                "launches_a_dispatch": each,
+                "events_per_s": run["events_per_s"],
+                "one_slab_events_per_s": base["events_per_s"]})
+    last = N_CHIPS - 1
+    k = SLAB_PLANS[-1]
+    mesh = ReadoutMesh(tuple(devices[i % len(devices)] for i in range(k)))
+    scrub = serve_scrub(torch, np, chips, blocks, want0, flips, counters,
+                        None, "tmr", "steered", mesh=mesh, slot=last,
+                        phase=phase)
+    if scrub["upset"]["slot"] != last:
+        fail(phase, f"upset on chip {scrub['upset']['slot']}, not {last}")
+    out["scrub"] = {key: scrub[key] for key in (
+        "upset", "healed_after_batch", "oracle_mismatches",
+        "upset_disagreements", "events_per_s")}
+    out["scrub"]["detections"] = scrub["scrub"]["detections"]
+    out["scrub"]["healed_bits"] = scrub["scrub"]["healed_bits"]
+    plans = {step: ReadoutMesh(tuple(devices[i % len(devices)]
+                                     for i in range(n)))
+             for step, n in SLAB_REBINDS.items()}
+    rebind = serve(torch, np, chips, swap_chip, blocks, want, "tmr",
+                   counters, phase=phase,
+                   mesh=ReadoutMesh((devices[0],)), rebinds=plans)
+    if len(rebind["slabs"]) != SLAB_REBINDS[max(SLAB_REBINDS)]:
+        fail(phase, f"rebind ended on {rebind['slabs']}")
+    out["rebind"] = {"plans": [1] + [SLAB_REBINDS[s]
+                                     for s in sorted(SLAB_REBINDS)],
+                     "events": rebind["events"],
+                     "drained": rebind["drained"],
+                     "oracle_mismatches": rebind["oracle_mismatches"]}
+    return out
+
+
+def slab_rates(np, chips, blocks, devices):
+    """Served events/s of phase 4's stream without its hot swap
+    (bit-sliced, plain, frames) on 1, 2 and 4 slabs of ``devices``, in
+    rotating rounds, with each run's host stage seconds."""
+    from repro_torch.launch.mesh import ReadoutMesh
+    from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
+
+    plans = (1,) + SLAB_PLANS
+    rates = {str(k): [] for k in plans}
+    stages = {str(k): [] for k in plans}
+    order = []
+    for r in range(SLAB_RATE_ROUNDS):
+        for k in plans[r % len(plans):] + plans[: r % len(plans)]:
+            order.append(k)
+            server = ReadoutServer(list(chips), ServerConfig(), device="cuda",
+                                   mesh=ReadoutMesh(tuple(
+                                       devices[i % len(devices)]
+                                       for i in range(k))))
+            results, where = [], {}
+            drive_frames(server, blocks, range(SERVE_BATCHES), results,
+                         where)
+            results += server.flush()
+            rep = server.report()
+            if len(results) != len(where):
+                fail("slabs", f"rates {k} slabs: {len(results)} results "
+                              f"for {len(where)} events")
+            rates[str(k)].append(rep["events_per_s"])
+            stages[str(k)].append({key: round(v["seconds"], 6)
+                                   for key, v in rep["stages"].items()})
+    return {"order": order, "events_per_s": rates,
+            "median": {k: float(np.median(v)) for k, v in rates.items()},
+            "stage_seconds": stages}
+
+
+def slabs_multi_card(torch, np, chips, swap_chip, blocks, want,
+                     fleet_chips, fblocks, fwant, counters):
+    """Phase 18(b), over 4 cards (2 where there are 2 or 3): the served
+    stream (plain
+    and TMR) with one slab a card, each slab's stack and encode-plan
+    tensors on its card; a live rebind from cuda:0 to cuda:1 mid-stream;
+    and a fleet over every card whose two buckets land on disjoint
+    cards, every delivered event equal to the oracle."""
+    from repro_torch.launch.fleet import TenantFleet
+    from repro_torch.launch.mesh import ReadoutMesh
+    from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
+
+    phase = "slabs_multi_card"
+    n = max(k for k in (4, 2, 1) if k <= torch.cuda.device_count())
+    cards = tuple(torch.device("cuda", i) for i in range(n))
+    out = {"cards": n, "runs": []}
+    for red in ("none", "tmr"):
+        run = serve(torch, np, chips, swap_chip, blocks, want, red,
+                    counters, mesh=ReadoutMesh(cards), phase=phase)
+        out["runs"].append({k: run[k] for k in (
+            "redundancy", "slabs", "events", "oracle_mismatches",
+            "events_per_s")})
+    server = ReadoutServer(list(chips), ServerConfig(), device="cuda",
+                           mesh=ReadoutMesh(cards))
+    server.submit_frames(0, blocks[0][0]["frames"], blocks[0][0]["y0"])
+    server.flush()
+    for slab, c0 in server._lut_ops.slabs_of(server._frontend):
+        dev = cards[c0 * n // N_CHIPS]
+        placed = [slab.stack.tables, slab.stack.output_nets,
+                  *slab.plan.values(), *[t for bufs in slab.staging.values()
+                                         for t in bufs]]
+        if any(t.device != dev for t in placed):
+            fail(phase, f"slab of chip {c0}: tensors on "
+                        f"{sorted({str(t.device) for t in placed})}, "
+                        f"not {dev}")
+    live = serve(torch, np, chips, swap_chip, blocks, want, "tmr", counters,
+                 mesh=ReadoutMesh(cards[:1]), phase=phase,
+                 rebinds={RECONFIGURE_AT - 1: ReadoutMesh(cards[1:2])})
+    if [sl["device"] for sl in live["slabs"]] != ["cuda:1"]:
+        fail(phase, f"live rebind ended on {live['slabs']}")
+    out["live_rebind"] = {k: live[k] for k in ("slabs", "events",
+                                                "oracle_mismatches")}
+    fleet = TenantFleet(ServerConfig(), bucket_slots=FLEET_SLOTS,
+                        device="cuda")
+    found_buckets(fleet, fleet_chips, fblocks)
+    rep = fleet.report()
+    plans = [sorted(int(d.split(":")[1]) for d in b["devices"])
+             for b in rep["buckets"]]
+    used = [i for p in plans for i in p]
+    if len(rep["buckets"]) <= n and len(set(used)) != len(used):
+        fail(phase, f"fleet buckets share cards: {plans}")
+    got, want_f = {}, {}
+    for t, chip in enumerate(fleet_chips[:FLEET_SLOTS * len(plans)]):
+        fleet.admit(f"t{t}", chip)
+        blk = fblocks[1][t]
+        score, keep = fwant[1][t]
+        for q, sc, kp in zip(fleet.submit_frames(f"t{t}", blk["frames"],
+                                                 blk["y0"]), score, keep):
+            want_f[q] = (f"t{t}", int(sc), bool(kp))
+    got = {r.seq: (r.tenant, r.score_raw, r.keep) for r in fleet.flush()}
+    if got != want_f:
+        fail(phase, f"fleet: {sum(got.get(q) != w for q, w in want_f.items())}"
+                    f" of {len(want_f)} events differ from the oracle")
+    out["fleet"] = {"bucket_cards": plans, "events": len(got)}
+    return out
+
+
 def main():
     import torch
 
@@ -3797,6 +4046,24 @@ def main():
                                        "seconds")}
                  for c, r in sh17["dryrun"].items()})
 
+    # 18. the chip axis split over slabs: (a) 2 and 4 slabs of cuda:0,
+    # every configuration exact, the upset on the last slab healed, a
+    # rebind 1 -> 4 -> 2 mid-stream, events/s at 1, 2 and 4 slabs in turns;
+    # (b) the same over the cards, where there are several
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    slabs = serve_slabs(torch, np, chips, swap_chip, blocks, want, want0,
+                        flips, counters, [torch.device("cuda", 0)])
+    slabs["rates"] = slab_rates(np, chips, blocks, [torch.device("cuda", 0)])
+    emit("slabs", ok=True, card=card, seconds=time.monotonic() - t0,
+         **slabs)
+    if torch.cuda.device_count() >= 2:
+        emit("slabs_multi_card", ok=True, card=card, **slabs_multi_card(
+            torch, np, chips, swap_chip, blocks, want, fleet_chips, fblocks,
+            fwant, counters))
+    else:
+        emit("slabs_multi_card", skipped="1 card")
+
     kernels = []
     # K2's row carries the times of its R=3 (TMR) run; K1, K2 and B6's
     # dense entry count their launches in the default served stream,
@@ -3877,6 +4144,16 @@ def main():
                                  "plain_ms", "bound_ms", "bound_by")}
               if isinstance(r, dict) else r)
         for key, r in k2_depth.items()}
+    # phase 18: each kernel's launches over the runs on 2 and on 4 slabs
+    # (B6's row: its decode-pack and keep-words entries)
+    for row, names in zip(kernels, (
+            ("yprofile",), ("eval_words_voted",), ("lut_eval",),
+            ("lut_eval_banded",), ("bdt_infer",),
+            ("sparse_pack_decode", "sparse_pack_keep_words"),
+            ("decode_dense",))):
+        row["launches_slabs"] = {
+            k: sum(slabs["launches"][k][n] for n in names)
+            for k in slabs["launches"]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,5 @@ each with a plain PyTorch twin that CPU tensors run through.
 """
 from repro_torch.device import (  # noqa: F401
     DeviceUnavailableError,
-    NotPortedError,
     resolve_device,
 )

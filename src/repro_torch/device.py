@@ -16,13 +16,6 @@ class DeviceUnavailableError(RuntimeError):
     """CUDA was asked for (explicitly, or by default) but is not present."""
 
 
-class NotPortedError(NotImplementedError):
-    """A feature of the JAX package that this port does not carry yet.
-
-    The message names the ROADMAP item that will port it. Raised instead of
-    silently ignoring a knob or falling back to another path."""
-
-
 def resolve_device(device: Union[None, str, torch.device] = None) -> torch.device:
     """None -> ``cuda``; "cpu"/"cuda"/"cuda:N"/torch.device pass through.
 

@@ -107,12 +107,13 @@ def _launch(x, featsel, thr, root, left, right, value_hi, value_lo,
     lib = build.load("bdt_infer")
     B, F = x.shape
     P = featsel.shape[1]
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.bdt_infer_launch(
-        x.data_ptr(), featsel.data_ptr(), thr.data_ptr(), root.data_ptr(),
-        left.data_ptr(), right.data_ptr(), value_hi.data_ptr(),
-        value_lo.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, F, P,
-        depth, tile, stream)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.bdt_infer_launch(
+            x.data_ptr(), featsel.data_ptr(), thr.data_ptr(),
+            root.data_ptr(), left.data_ptr(), right.data_ptr(),
+            value_hi.data_ptr(), value_lo.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), B, F, P, depth, tile, stream)
     build.check(lib, code, "bdt_infer kernel")
 
 
@@ -139,7 +140,7 @@ def bdt_traverse(x, featsel, thr, root, left, right, value_hi, value_lo,
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} {tuple(t.shape)} != {shape}")
-    build.note_signature("bdt_infer", (B, F, P, depth))
+    build.note_signature("bdt_infer", (B, F, P, depth), x.device)
     if x.device.type == "cpu":
         return bdt_traverse_plain(x, featsel, thr, root, left, right,
                                   value_hi, value_lo, depth=depth)

@@ -14,9 +14,16 @@ There is no fallback. A missing nvcc or a failed compile raises
 
 ``miss_counts`` reads what a warm fleet admission must not add to: the
 nvcc builds and library loads of this process, and the distinct launch
-signatures (the shape arguments a kernel is launched with) every kernel
-wrapper has recorded through ``note_signature``. A wrapper records its
-signature before it dispatches, so the CPU twins count too.
+signatures (the shape arguments a kernel is launched with, and the
+device it runs on) every kernel wrapper has recorded through
+``note_signature``. A wrapper records its signature before it
+dispatches, so the CPU twins count too, and a kernel's first launch on a
+card it has not run on counts as a new signature: a bucket that moves
+to another card shows as a miss once.
+
+Every wrapper launches under ``torch.cuda.device`` of its tensors'
+card: the ctypes launch, and the ``cudaFuncSetAttribute`` before it, act
+on the host thread's current device, which need not be the tensors'.
 """
 from __future__ import annotations
 
@@ -143,10 +150,12 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def note_signature(kernel: str, signature: Tuple) -> None:
-    """Record one launch signature of ``kernel`` (its wrapper calls this
-    before it dispatches, to the kernel or to its CPU twin)."""
-    _SIGNATURES.setdefault(kernel, set()).add(signature)
+def note_signature(kernel: str, signature: Tuple, device) -> None:
+    """Record one launch signature of ``kernel`` on ``device`` (its
+    wrapper calls this before it dispatches, to the kernel or to its CPU
+    twin)."""
+    _SIGNATURES.setdefault(kernel, set()).add(
+        tuple(signature) + (str(device),))
 
 
 def miss_counts() -> Tuple[int, int]:

@@ -23,12 +23,17 @@ fixed-point spec, the output decode weights, the trigger cut — is a
 (C, ...) tensor row of the encode plan, so a hot-swap is a row update:
 input bit j of chip c is bit ``bit_idx[c, j]`` of feature
 ``feat_idx[c, j]``'s offset-binary pattern (zero where j >= n_inputs_c).
-The chip axis is a leading tensor dimension on one device.
+The chip axis is the leading tensor dimension of one device's tensors;
+on a device plan of several slabs (``pack_frontend(mesh=)``, a
+``SlabFrontend``) each slab is a ``FusedFrontend`` of its own chips on
+its own device: its stack rows, plan rows and staging buffers, and its
+launches, there. The readout server dispatches the slabs one by one and
+merges their results on the host at its drain.
 
 Staging: the (frames, y0) of a dispatch are copied into a preallocated
-device buffer that is reused while the padded shape stays the same (the
-readout server pads batches to powers of two, so the set of shapes is
-small). Reuse is safe across in-flight dispatches because every copy and
+device buffer (a slab's, on its device) that is reused while the padded
+shape stays the same (the readout server pads batches to powers of two,
+so the set of shapes is small). Reuse is safe across in-flight dispatches because every copy and
 kernel runs in order on one stream. The copy is a blocking copy from
 pageable host memory, so it also waits for the batches queued before it:
 device work of one batch overlaps only the host work that follows its
@@ -326,6 +331,114 @@ class FusedFrontend:
         plan["threshold_raw"][slot] = int(threshold_raw)
         return dataclasses.replace(self, plan=plan, chip_specs=tuple(specs))
 
+    def with_stack(self, stack: lut_ops.PackedFabricStack
+                   ) -> "FusedFrontend":
+        """This frontend on ``stack``, the same chips' rows updated (a
+        swapped replica, a healed frame)."""
+        return dataclasses.replace(self, stack=stack)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabFrontend:
+    """A fused frontend split over a device plan: ``slabs[s]`` is the
+    ``FusedFrontend`` of the chips from ``first_chips[s]`` on, on its own
+    device (its stack slab, plan rows and staging buffers). The
+    ``score_frames*`` calls dispatch every slab on its device and merge on
+    the host (``lut_ops.merge_scored`` / ``merge_sparse``), equal to the
+    one-slab frontend's results element for element; ``swap_chip`` and
+    ``set_threshold`` write the owning slab only."""
+
+    slabs: Tuple[FusedFrontend, ...]
+    first_chips: Tuple[int, ...]
+
+    @property
+    def n_chips(self) -> int:
+        return sum(f.n_chips for f in self.slabs)
+
+    @property
+    def stack(self) -> lut_ops.SlabStack:
+        return lut_ops.SlabStack(tuple(f.stack for f in self.slabs),
+                                 self.first_chips)
+
+    @property
+    def batch_tile(self) -> int:
+        return self.slabs[0].batch_tile
+
+    @property
+    def threshold_electrons(self) -> float:
+        return self.slabs[0].threshold_electrons
+
+    def _each(self, method: str, frames, y0, valid):
+        return [(c0, getattr(f, method)(
+                    frames[c0 : c0 + f.n_chips], y0[c0 : c0 + f.n_chips],
+                    None if valid is None else valid[c0 : c0 + f.n_chips]))
+                for f, c0 in zip(self.slabs, self.first_chips)]
+
+    def score_frames_voted(self, frames, y0, valid=None
+                           ) -> Tuple[torch.Tensor, ...]:
+        """``FusedFrontend.score_frames_voted``, a dispatch a slab, merged
+        on the host (CPU tensors)."""
+        return lut_ops.merge_scored(self._each("score_frames_voted",
+                                               frames, y0, valid))
+
+    def score_frames_sparse(self, frames, y0, valid=None
+                            ) -> Tuple[torch.Tensor, ...]:
+        """``FusedFrontend.score_frames_sparse``, a dispatch a slab,
+        merged on the host into the one-slab wire format."""
+        return lut_ops.merge_sparse(
+            self._each("score_frames_sparse", frames, y0, valid),
+            np.shape(frames)[1])
+
+    def _with(self, s: int, fe: FusedFrontend) -> "SlabFrontend":
+        slabs = list(self.slabs)
+        slabs[s] = fe
+        return dataclasses.replace(self, slabs=tuple(slabs))
+
+    def swap_chip(self, slot: int, config: FabricConfig,
+                  chip_spec: ChipFrontendSpec,
+                  stack: Optional[lut_ops.SlabStack] = None
+                  ) -> "SlabFrontend":
+        s, j = lut_ops._slab_index(self.first_chips, self.n_chips, slot)
+        return self._with(s, self.slabs[s].swap_chip(
+            j, config, chip_spec,
+            stack=None if stack is None else stack.slabs[s]))
+
+    def set_threshold(self, slot: int, threshold_raw: int) -> "SlabFrontend":
+        s, j = lut_ops._slab_index(self.first_chips, self.n_chips, slot)
+        return self._with(s, self.slabs[s].set_threshold(j, threshold_raw))
+
+    def with_stack(self, stack: lut_ops.SlabStack) -> "SlabFrontend":
+        return dataclasses.replace(self, slabs=tuple(
+            f.with_stack(st) for f, st in zip(self.slabs, stack.slabs)))
+
+
+def place_frontend(fe, stack):
+    """A fused frontend (split or not) laid out as ``stack``'s slabs
+    (``lut_ops.place_stack``'s result for a plan), each slab on its stack
+    slab: a slab that keeps its chips and its device keeps its plan rows
+    and staging buffers; another takes its plan rows from the slabs that
+    held them (moved with ``.to``) and stages anew."""
+    have = lut_ops.slabs_of(fe)
+    out = []
+    for slab, c0 in lut_ops.slabs_of(stack):
+        parts = lut_ops.overlap(have, c0, slab.n_chips)
+        part, lo, hi = parts[0]
+        if (len(parts) == 1 and (lo, hi) == (0, part.n_chips)
+                and part.device == slab.device):
+            out.append(part.with_stack(slab))
+            continue
+        out.append(FusedFrontend(
+            stack=slab,
+            chip_specs=sum((p.chip_specs[a:b] for p, a, b in parts), ()),
+            plan={k: torch.cat([p.plan[k][a:b].to(slab.device)
+                                for p, a, b in parts]) for k in _PLAN_KEYS},
+            batch_tile=fe.batch_tile,
+            threshold_electrons=fe.threshold_electrons))
+    if len(out) == 1:
+        return out[0]
+    return SlabFrontend(tuple(out), tuple(c0 for _, c0 in
+                                          lut_ops.slabs_of(stack)))
+
 
 def pack_frontend(
     configs: Sequence[FabricConfig],
@@ -336,12 +449,17 @@ def pack_frontend(
     layout: str = "matmul",
     batch_tile: int = 128,
     threshold_electrons: float = 800.0,
-    stack: Optional[lut_ops.PackedFabricStack] = None,
+    stack=None,
     geometry: Optional[StackGeometry] = None,
     device=None,
-) -> FusedFrontend:
+    mesh=None,
+):
     """Pack N (config, frontend-spec) pairs into one fused dispatch on
-    ``device`` (default: CUDA).
+    ``device`` (default: CUDA), or, given a device plan ``mesh``
+    (launch.mesh.ReadoutMesh), split over its slabs (``device`` is then
+    not consulted): a ``FusedFrontend`` for a plan of one, else a
+    ``SlabFrontend``. A split ``stack`` (``lut_ops.SlabStack``) splits
+    the frontend the same way.
 
     ``band``/``layout``/``redundancy``/``geometry`` feed the fabric stage
     as in ``pack_fabrics``: a pinned ``geometry`` sizes the stack and the
@@ -358,7 +476,8 @@ def pack_frontend(
     if stack is None:
         stack = lut_ops.pack_fabrics(
             list(configs), band=band, redundancy=redundancy, layout=layout,
-            geometry=geometry, device=device)
+            geometry=geometry,
+            device=device if mesh is None else mesh.device)
     elif redundancy != "none" and stack.n_replicas == 1:
         raise ValueError(
             f"redundancy={redundancy!r} but the shared stack is not "
@@ -370,18 +489,27 @@ def pack_frontend(
             geometry.n_levels, -(-geometry.max_level_size // 128) * 128,
             geometry.n_inputs, geometry.n_outputs):
         raise ValueError(f"the shared stack is not packed to {geometry}")
-    if device is not None and resolve_device(device).type != stack.device.type:
-        raise ValueError(f"stack lives on {stack.device}, not {device}")
     assert stack.n_chips == len(configs), (stack.n_chips, len(configs))
-    rows = [
-        _plan_row(c, cs, stack.n_inputs, stack.n_outputs)
-        for c, cs in zip(configs, chip_specs)
-    ]
-    return FusedFrontend(
-        stack=stack,
-        chip_specs=tuple(chip_specs),
-        plan={k: torch.as_tensor(np.stack([r[k] for r in rows]),
-                                 device=stack.device) for k in _PLAN_KEYS},
-        batch_tile=batch_tile,
-        threshold_electrons=float(threshold_electrons),
-    )
+    if mesh is not None:
+        stack = lut_ops.place_stack(stack, mesh.slabs(len(configs)))
+    elif device is not None and (resolve_device(device).type
+                                 != lut_ops.slabs_of(stack)[0][0].device.type):
+        raise ValueError(f"stack lives on {lut_ops.slabs_of(stack)[0][0].device}"
+                         f", not {device}")
+    slabs = []
+    for slab, c0 in lut_ops.slabs_of(stack):
+        specs = tuple(chip_specs[c0 : c0 + slab.n_chips])
+        rows = [_plan_row(c, cs, stack.n_inputs, stack.n_outputs)
+                for c, cs in zip(configs[c0 : c0 + slab.n_chips], specs)]
+        slabs.append(FusedFrontend(
+            stack=slab,
+            chip_specs=specs,
+            plan={k: torch.as_tensor(np.stack([r[k] for r in rows]),
+                                     device=slab.device) for k in _PLAN_KEYS},
+            batch_tile=batch_tile,
+            threshold_electrons=float(threshold_electrons),
+        ))
+    if len(slabs) == 1:
+        return slabs[0]
+    return SlabFrontend(tuple(slabs), tuple(
+        c0 for _, c0 in lut_ops.slabs_of(stack)))

@@ -242,18 +242,22 @@ def _launch(src, tables, output_nets, seg, scratch, voted, dis, R,
     lib = build.load("bitsliced")
     C, W, in_seg = seg.shape
     L, M, O = src.shape[1], src.shape[2], output_nets.shape[1]
-    stream = torch.cuda.current_stream(seg.device).cuda_stream
     ptrs = (seg.data_ptr(), src.data_ptr(), tables.data_ptr(),
             output_nets.data_ptr(), scratch.data_ptr())
-    if walk_path(R, in_seg, L, M) == "staged":
-        code = lib.eval_words_voted_launch(
-            *ptrs, voted.data_ptr(), dis.data_ptr(), C, R, W, in_seg, L, M,
-            O, tile, stream)
-    else:
+    staged = walk_path(R, in_seg, L, M) == "staged"
+    if not staged:
         rep = rep or split_buffers(C, R, W, O, seg.device)
-        code = lib.eval_words_split_launch(
-            *ptrs, rep[0].data_ptr(), rep[1].data_ptr(), voted.data_ptr(),
-            dis.data_ptr(), C, R, W, in_seg, L, M, O, tile, stream)
+    with torch.cuda.device(seg.device):
+        stream = torch.cuda.current_stream(seg.device).cuda_stream
+        if staged:
+            code = lib.eval_words_voted_launch(
+                *ptrs, voted.data_ptr(), dis.data_ptr(), C, R, W, in_seg, L,
+                M, O, tile, stream)
+        else:
+            code = lib.eval_words_split_launch(
+                *ptrs, rep[0].data_ptr(), rep[1].data_ptr(),
+                voted.data_ptr(), dis.data_ptr(), C, R, W, in_seg, L, M, O,
+                tile, stream)
     build.check(lib, code, "bitsliced eval_words_voted kernel")
 
 
@@ -289,7 +293,8 @@ def eval_seg_voted(
             f"stack rows {src.shape[0]}/{tables.shape[0]}/"
             f"{output_nets.shape[0]} != n_replicas*chips = {R * C}")
     L, M, O = src.shape[1], src.shape[2], output_nets.shape[1]
-    build.note_signature("eval_words_voted", (C, R, W, in_seg, L, M, O))
+    build.note_signature("eval_words_voted", (C, R, W, in_seg, L, M, O),
+                         seg.device)
     if seg.device.type == "cpu":
         return eval_seg_voted_plain(src, tables, output_nets, seg, R)
     if any(t.device != seg.device for t in (src, tables, output_nets)):

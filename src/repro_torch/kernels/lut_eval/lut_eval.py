@@ -134,13 +134,14 @@ def _launch(bits_ext, sel, tables, level_base, win_base, out, tile) -> None:
                         device=bits_ext.device)
     counts = torch.empty((C, L, 4 * M), dtype=torch.int32,
                          device=bits_ext.device)
-    stream = torch.cuda.current_stream(bits_ext.device).cuda_stream
-    code = lib.lut_eval_launch(
-        bits_ext.data_ptr(), sel.data_ptr(), tables.data_ptr(),
-        level_base.data_ptr(),
-        None if win_base is None else win_base.data_ptr(),
-        lists.data_ptr(), counts.data_ptr(), out.data_ptr(), C, B, in_seg,
-        L, rows, M, out.shape[2], tile, LIST_CAP, stream)
+    with torch.cuda.device(bits_ext.device):
+        stream = torch.cuda.current_stream(bits_ext.device).cuda_stream
+        code = lib.lut_eval_launch(
+            bits_ext.data_ptr(), sel.data_ptr(), tables.data_ptr(),
+            level_base.data_ptr(),
+            None if win_base is None else win_base.data_ptr(),
+            lists.data_ptr(), counts.data_ptr(), out.data_ptr(), C, B,
+            in_seg, L, rows, M, out.shape[2], tile, LIST_CAP, stream)
     build.check(lib, code, "lut_eval kernel")
 
 
@@ -171,7 +172,8 @@ def _run(bits_ext, sel, tables, level_base, win_base, n_nets_pad):
     kernel = "lut_eval" if win_base is None else "lut_eval_banded"
     C, B, in_seg = bits_ext.shape
     L, rows, M = sel.shape[1], sel.shape[2], sel.shape[3] // 4
-    build.note_signature(kernel, (C, B, in_seg, L, rows, M, n_nets_pad))
+    build.note_signature(kernel, (C, B, in_seg, L, rows, M, n_nets_pad),
+                         bits_ext.device)
     if bits_ext.device.type == "cpu":
         return lut_eval_plain(bits_ext, sel, tables, level_base, win_base,
                               n_nets_pad=n_nets_pad)

@@ -13,7 +13,7 @@ The JAX package's kernels/lut_eval/ops.py, both device layouts:
 ``ReadoutChip.verify_vs_golden`` through ``KernelBackend``).
 ``pack_fabrics`` stacks N bitstreams into one ``PackedFabricStack``
 sharing a padded geometry (the chip axis is the leading tensor dimension
-on one device) — the union of the configs, or a given envelope:
+of one device's tensors) — the union of the configs, or a given envelope:
 ``bucket_envelope`` snaps a config onto a coarse grid of envelopes and
 ``pack_fabric_pool`` packs one stack a bucket, the geometry pool of the
 multi-tenant fleet (launch/fleet.py) —, ``swap_chip`` hot-swaps one
@@ -24,6 +24,15 @@ back (the scrub loop's ports), and
 frontend: ``fabric_eval_bits_voted`` + ``decode_scores_device`` on a
 matmul stack, the bit-sliced walk + kernel B6 (kernels/sparse_pack) on a
 bit-sliced one.
+
+Slabs: ``place_stack`` lays a stack out on a device plan
+(launch.mesh.ReadoutMesh.slabs), a ``SlabStack`` of one
+``PackedFabricStack`` a device, each holding a contiguous run of chips.
+``scored_slabs`` launches every slab's dispatch on its own device, and
+``merge_scored`` / ``merge_sparse`` join the slabs' results on the host,
+equal to the one-slab dispatch's element for element (the reference
+``shard_map``s the chip axis and compacts the sparse pairs after the
+manual region, over one ascending flat index space).
 
 Routing is packed *banded* whenever it is cheaper: level l's selection
 rows cover only [input segment | window of the K preceding levels], K the
@@ -39,6 +48,7 @@ votes inside the launch.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
@@ -269,6 +279,11 @@ class PackedFabricStack:
             self, tables=row(self.tables, 1),
             output_nets=row(self.output_nets, 2), **routing)
 
+    def replica_tables(self, slot: int, replica: int = 0) -> torch.Tensor:
+        """The live (n_levels, m_pad, 16) tables row of one replica, on
+        the stack's device (the scrub loop's readback source)."""
+        return self.tables[slot * self.n_replicas + replica]
+
     def readback_replica(self, slot: int, replica: int = 0) -> np.ndarray:
         """ONE replica's live truth tables as the (n_levels, m_pad, 16)
         uint8 scrub-loop image (core.fabric.packed_table_image): what the
@@ -288,6 +303,157 @@ class PackedFabricStack:
         return np.stack([
             self.readback_replica(slot, r) for r in range(self.n_replicas)
         ])
+
+
+# the geometry a SlabStack's slabs share, read from its first slab
+_SHARED = ("n_inputs", "n_outputs", "n_nets_pad", "m_pad", "n_levels",
+           "in_seg", "band_k", "n_replicas", "banded", "bitsliced",
+           "layout")
+# a stack's tensors with a row a (chip, replica), and those it shares
+_CHIP_ROWS = ("tables", "output_nets", "sel", "src")
+_COMMON = ("level_base", "win_base")
+
+
+def _slab_index(first_chips: Sequence[int], n_chips: int,
+                slot: int) -> Tuple[int, int]:
+    """(slab, slot within it) of chip ``slot``."""
+    if not 0 <= slot < n_chips:
+        raise ValueError(f"slot must be in [0, {n_chips}), got {slot!r}")
+    s = bisect.bisect_right(first_chips, slot) - 1
+    return s, slot - first_chips[s]
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabStack:
+    """A stack split over a device plan: ``slabs[s]`` is the
+    ``PackedFabricStack`` of the chips from ``first_chips[s]`` on, on its
+    own device, every slab of one geometry (``place_stack`` builds it).
+    The cut falls on chip boundaries, so a chip's replica rows, and its
+    TMR vote, stay inside one slab. The geometry attributes read the
+    first slab's; ``swap_chip``, ``swap_replica``, ``readback_replica``,
+    ``readback_chip`` and ``replica_tables`` route a slot to its slab."""
+
+    slabs: Tuple[PackedFabricStack, ...]
+    first_chips: Tuple[int, ...]
+
+    def __getattr__(self, name):
+        if name in _SHARED:
+            return getattr(self.slabs[0], name)
+        raise AttributeError(name)
+
+    @property
+    def n_chips(self) -> int:
+        return sum(s.n_chips for s in self.slabs)
+
+    @property
+    def n_inputs_each(self) -> Tuple[int, ...]:
+        return sum((s.n_inputs_each for s in self.slabs), ())
+
+    def slab_of(self, slot: int) -> Tuple[int, int]:
+        return _slab_index(self.first_chips, self.n_chips, slot)
+
+    def _with(self, s: int, slab: PackedFabricStack) -> "SlabStack":
+        slabs = list(self.slabs)
+        slabs[s] = slab
+        return dataclasses.replace(self, slabs=tuple(slabs))
+
+    def swap_chip(self, slot: int, config: FabricConfig, *,
+                  in_place: bool = False) -> "SlabStack":
+        s, j = self.slab_of(slot)
+        return self._with(s, self.slabs[s].swap_chip(j, config,
+                                                     in_place=in_place))
+
+    def swap_replica(self, slot: int, replica: int,
+                     config: FabricConfig) -> "SlabStack":
+        s, j = self.slab_of(slot)
+        return self._with(s, self.slabs[s].swap_replica(j, replica, config))
+
+    def replica_tables(self, slot: int, replica: int = 0) -> torch.Tensor:
+        s, j = self.slab_of(slot)
+        return self.slabs[s].replica_tables(j, replica)
+
+    def readback_replica(self, slot: int, replica: int = 0) -> np.ndarray:
+        s, j = self.slab_of(slot)
+        return self.slabs[s].readback_replica(j, replica)
+
+    def readback_chip(self, slot: int) -> np.ndarray:
+        s, j = self.slab_of(slot)
+        return self.slabs[s].readback_chip(j)
+
+
+def slabs_of(x) -> List[Tuple[object, int]]:
+    """[(slab, its first chip)] of a stack or a fused frontend: the one
+    whole slab ``(x, 0)`` unless ``x`` is split (``SlabStack``,
+    ``kernels.frontend.SlabFrontend``)."""
+    first = getattr(x, "first_chips", None)
+    return [(x, 0)] if first is None else list(zip(x.slabs, first))
+
+
+def overlap(have: Sequence[Tuple[object, int]], c0: int,
+            n: int) -> List[Tuple[object, int, int]]:
+    """(slab, first row, end row) of every slab of ``have`` ([(slab, its
+    first chip)]) that holds chips of [c0, c0 + n), rows local to it."""
+    out = []
+    for part, a in have:
+        lo, hi = max(c0, a), min(c0 + n, a + part.n_chips)
+        if lo < hi:
+            out.append((part, lo - a, hi - a))
+    return out
+
+
+def _rows(stack: PackedFabricStack, lo: int, hi: int) -> PackedFabricStack:
+    """Chips [lo, hi) of a stack as views of its tensors (the stack
+    itself when that is all of it)."""
+    if (lo, hi) == (0, stack.n_chips):
+        return stack
+    R = stack.n_replicas
+    return dataclasses.replace(
+        stack, n_inputs_each=stack.n_inputs_each[lo:hi],
+        n_outputs_each=stack.n_outputs_each[lo:hi],
+        **{k: None if getattr(stack, k) is None
+           else getattr(stack, k)[lo * R : hi * R] for k in _CHIP_ROWS})
+
+
+def _stack_on(stack: PackedFabricStack, dev) -> PackedFabricStack:
+    """The stack on ``dev``: itself when it is there, else every tensor
+    moved (``.to``: a peer copy between cards)."""
+    if stack.device == dev:
+        return stack
+    return dataclasses.replace(stack, **{
+        k: None if getattr(stack, k) is None else getattr(stack, k).to(dev)
+        for k in _CHIP_ROWS + _COMMON})
+
+
+def _join(parts: Sequence[PackedFabricStack]) -> PackedFabricStack:
+    """Stacks of one geometry on one device, their chips in order."""
+    if len(parts) == 1:
+        return parts[0]
+    return dataclasses.replace(
+        parts[0],
+        n_inputs_each=sum((p.n_inputs_each for p in parts), ()),
+        n_outputs_each=sum((p.n_outputs_each for p in parts), ()),
+        **{k: None if getattr(parts[0], k) is None
+           else torch.cat([getattr(p, k) for p in parts]) for k in _CHIP_ROWS})
+
+
+def place_stack(stack, slabs: Sequence[Tuple[torch.device, int, int]]):
+    """A stack (split or not) laid out as ``slabs``, the (device, first
+    chip, chips) of a plan (launch.mesh.ReadoutMesh.slabs): one
+    ``PackedFabricStack`` for one slab, else a ``SlabStack``. A slab that
+    already holds its chips on its device is kept as it is, so an equal
+    plan copies nothing; a slab whose chips sit in one slab of ``stack``
+    is a view of those rows, moved only if its device changed; one whose
+    chips sit in several is joined on its device."""
+    if sum(n for _, _, n in slabs) != stack.n_chips:
+        raise ValueError(f"the slabs hold {sum(n for _, _, n in slabs)} "
+                         f"chips, the stack {stack.n_chips}")
+    have = slabs_of(stack)
+    out = [_join([_stack_on(_rows(p, lo, hi), dev)
+                  for p, lo, hi in overlap(have, c0, n)])
+           for dev, c0, n in slabs]
+    if len(out) == 1:
+        return out[0]
+    return SlabStack(tuple(out), tuple(c0 for _, c0, _ in slabs))
 
 
 def _win_base(L: int, band_k: int, m_pad: int, in_seg: int) -> np.ndarray:
@@ -963,7 +1129,13 @@ def fabric_eval_multi_scored(
     """Score (chips, events) input bits in one voted dispatch: (score
     (C, B) int32, keep (C, B) bool, dis (C, R) int32), with the decode
     weights of ``decode_plan`` and the integer cuts applied on the
-    device. Nothing synchronises with the host."""
+    device. Nothing synchronises with the host. A ``SlabStack`` runs one
+    dispatch a slab on the slab's device and merges them on the host
+    (``merge_scored``)."""
+    if isinstance(stack, SlabStack):
+        return merge_scored(scored_slabs(stack, bits, out_weight,
+                                         threshold_raw, valid,
+                                         batch_tile=batch_tile))
     b, w, t, v, B, _ = _scored_args(stack, bits, out_weight, threshold_raw,
                                     valid, batch_tile)
     score, keep, dis = _eval_stack_scored(stack, b, w, t, v)
@@ -984,7 +1156,13 @@ def fabric_eval_multi_scored_sparse(
     padded, vals (C*B,) int32 kept scores 0 padded, dis (C, R) int32).
     The keep cut, SEU counters and compaction run in kernel B6 on the
     fabric kernel's words; dropped events never leave the word domain.
-    Bit-sliced stacks only."""
+    Bit-sliced stacks only. A ``SlabStack`` runs one dispatch a slab on
+    the slab's device and merges them on the host (``merge_sparse``)."""
+    if isinstance(stack, SlabStack):
+        return merge_sparse(scored_slabs(stack, bits, out_weight,
+                                         threshold_raw, valid,
+                                         batch_tile=batch_tile, sparse=True),
+                            bits.shape[1])
     if stack.src is None:
         raise ValueError(
             "fabric_eval_multi_scored_sparse needs layout='bitsliced' "
@@ -1005,3 +1183,70 @@ def restride(idx: torch.Tensor, vals: torch.Tensor, C: int, B: int,
     keeps ascending order and fits the packed vectors in C*B slots."""
     idx = torch.where(idx >= 0, (idx // Bp) * B + idx % Bp, -1)
     return idx[: C * B].to(torch.int32), vals[: C * B]
+
+
+def _cut(x, c0: int, n: int):
+    """Chips [c0, c0 + n) of a per-chip array (None stays None)."""
+    if x is None:
+        return None
+    return (x if torch.is_tensor(x) else np.asarray(x))[c0 : c0 + n]
+
+
+def scored_slabs(stack, bits, out_weight, threshold_raw, valid=None, *,
+                 batch_tile: int = 128, sparse: bool = False) -> List:
+    """One scored dispatch a slab of ``stack`` (split or not), each
+    launched on its slab's device and left there, unmerged: [(first
+    chip, result)], a result as ``fabric_eval_multi_scored`` (or, with
+    ``sparse``, ``fabric_eval_multi_scored_sparse``: flat indices over
+    the slab's own (chips, B)) returns it for the slab's chips. The
+    slabs share nothing."""
+    fn = (fabric_eval_multi_scored_sparse if sparse
+          else fabric_eval_multi_scored)
+    return [(c0, fn(slab, _cut(bits, c0, slab.n_chips),
+                    _cut(out_weight, c0, slab.n_chips),
+                    _cut(threshold_raw, c0, slab.n_chips),
+                    _cut(valid, c0, slab.n_chips), batch_tile=batch_tile))
+            for slab, c0 in slabs_of(stack)]
+
+
+def merge_scored(parts) -> Tuple[torch.Tensor, ...]:
+    """Dense results of the slabs ([(first chip, (score, keep, dis))], in
+    slab order) joined on the host along the chip axis."""
+    return tuple(torch.cat([r[k].cpu() for _, r in parts])
+                 for k in range(3))
+
+
+def merge_kept(kept, B: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The kept prefixes of a dispatch's slabs ([(first chip, idx, vals)]
+    in slab order, each slab's flat indices over its own (chips, B)) as
+    one (idx, vals) pair over the whole (C, B), int64: every index
+    offset by its slab's first chip x B, the slabs concatenated. Each
+    prefix ascends and the slabs' index ranges follow one another, so
+    the result ascends, as the one-slab compaction's does."""
+    if not kept:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    return (np.concatenate([np.asarray(i, np.int64) + c0 * B
+                            for c0, i, _ in kept]),
+            np.concatenate([np.asarray(v, np.int64) for _, _, v in kept]))
+
+
+def merge_sparse(parts, B: int) -> Tuple[torch.Tensor, ...]:
+    """Sparse results of the slabs ([(first chip, (count, idx, vals,
+    dis))] in slab order, as ``scored_slabs(..., sparse=True)`` gives
+    them for a batch of ``B`` events a chip) merged on the host into the
+    one-slab wire format: (count (), idx (C*B,) ascending flat indices -1
+    padded, vals (C*B,) 0 padded, dis (C, R)), all int32. The count is
+    the slabs' sum."""
+    dis = torch.cat([r[3].cpu() for _, r in parts])
+    C = dis.shape[0]
+    kept = []
+    for c0, (count, idx, vals, _) in parts:
+        n = int(count)
+        kept.append((c0, idx[:n].cpu(), vals[:n].cpu()))
+    k_idx, k_vals = merge_kept(kept, B)
+    n = len(k_idx)
+    idx = torch.full((C * B,), -1, dtype=torch.int32)
+    vals = torch.zeros((C * B,), dtype=torch.int32)
+    idx[:n] = torch.from_numpy(k_idx)
+    vals[:n] = torch.from_numpy(k_vals)
+    return torch.tensor(n, dtype=torch.int32), idx, vals, dis

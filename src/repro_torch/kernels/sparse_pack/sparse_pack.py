@@ -190,14 +190,15 @@ def launch_pack(voted, dis_w, out_weight, threshold, valid, keep_in,
     lib = build.load("sparse_pack")
     ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
     dev = idx.device
-    stream = _stream(dev)
-    st = _state(dev, stream,
-                state_words(C, R if voted is not None else 0, W))
-    code = lib.sparse_pack_launch(
-        ptr(voted), ptr(dis_w), ptr(out_weight), ptr(threshold), ptr(valid),
-        ptr(keep_in), ptr(scores_in), st.data_ptr(), count.data_ptr(),
-        idx.data_ptr(), vals.data_ptr(), ptr(dis), C, W, O, R, B,
-        st.numel(), stream)
+    with torch.cuda.device(dev):
+        stream = _stream(dev)
+        st = _state(dev, stream,
+                    state_words(C, R if voted is not None else 0, W))
+        code = lib.sparse_pack_launch(
+            ptr(voted), ptr(dis_w), ptr(out_weight), ptr(threshold),
+            ptr(valid), ptr(keep_in), ptr(scores_in), st.data_ptr(),
+            count.data_ptr(), idx.data_ptr(), vals.data_ptr(), ptr(dis), C,
+            W, O, R, B, st.numel(), stream)
     build.check(lib, code, "sparse_pack kernel")
 
 
@@ -205,13 +206,14 @@ def launch_dense(voted, dis_w, out_weight, threshold, valid, score, keep,
                  dis, C, W, O, R, B) -> None:
     """One launch of the dense entry into the given outputs."""
     lib = build.load("sparse_pack")
-    stream = _stream(voted.device)
-    st = _state(voted.device, stream, state_words(C, R, W))
-    code = lib.decode_dense_launch(
-        voted.data_ptr(), dis_w.data_ptr(), out_weight.data_ptr(),
-        threshold.data_ptr(), valid.data_ptr(), st.data_ptr(),
-        score.data_ptr(), keep.data_ptr(), dis.data_ptr(), C, W, O, R, B,
-        st.numel(), stream)
+    with torch.cuda.device(voted.device):
+        stream = _stream(voted.device)
+        st = _state(voted.device, stream, state_words(C, R, W))
+        code = lib.decode_dense_launch(
+            voted.data_ptr(), dis_w.data_ptr(), out_weight.data_ptr(),
+            threshold.data_ptr(), valid.data_ptr(), st.data_ptr(),
+            score.data_ptr(), keep.data_ptr(), dis.data_ptr(), C, W, O, R,
+            B, st.numel(), stream)
     build.check(lib, code, "sparse_pack dense kernel")
 
 
@@ -236,7 +238,8 @@ def decode_pack(
     tensors launch B6; CPU tensors run ``decode_pack_plain``."""
     C, W, O, R, B = _decode_inputs(voted_w, dis_w, out_weight,
                                    threshold_raw, valid, "decode_pack")
-    build.note_signature("sparse_pack_decode", (C, W, O, R, B))
+    build.note_signature("sparse_pack_decode", (C, W, O, R, B),
+                         voted_w.device)
     if voted_w.device.type == "cpu":
         return decode_pack_plain(voted_w, dis_w, out_weight, threshold_raw,
                                  valid)
@@ -261,7 +264,7 @@ def pack_keep_words(keep_w: torch.Tensor, scores: torch.Tensor) -> Packed:
     if tuple(scores.shape) != (C, W, WORD):
         raise ValueError(f"scores {tuple(scores.shape)} != (C, W, 32) = "
                          f"{(C, W, WORD)}")
-    build.note_signature("sparse_pack_keep_words", (C, W))
+    build.note_signature("sparse_pack_keep_words", (C, W), keep_w.device)
     if keep_w.device.type == "cpu":
         return pack_words_plain(keep_w, scores)
     _check_cuda((keep_w, scores), (torch.int32, torch.int32),
@@ -293,7 +296,7 @@ def decode_dense(
     entry; CPU tensors run ``decode_dense_plain``."""
     C, W, O, R, B = _decode_inputs(voted_w, dis_w, out_weight,
                                    threshold_raw, valid, "decode_dense")
-    build.note_signature("decode_dense", (C, W, O, R, B))
+    build.note_signature("decode_dense", (C, W, O, R, B), voted_w.device)
     if voted_w.device.type == "cpu":
         return decode_dense_plain(voted_w, dis_w, out_weight, threshold_raw,
                                   valid)

@@ -46,10 +46,11 @@ def yprofile_plain(frames: torch.Tensor, y0: torch.Tensor,
 def _launch(frames: torch.Tensor, y0: torch.Tensor, threshold: float,
             out: torch.Tensor) -> None:
     lib = build.load("yprofile")
-    stream = torch.cuda.current_stream(frames.device).cuda_stream
-    code = lib.yprofile_launch(
-        frames.data_ptr(), y0.data_ptr(), out.data_ptr(),
-        frames.shape[0] * frames.shape[1], float(threshold), stream)
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream(frames.device).cuda_stream
+        code = lib.yprofile_launch(
+            frames.data_ptr(), y0.data_ptr(), out.data_ptr(),
+            frames.shape[0] * frames.shape[1], float(threshold), stream)
     build.check(lib, code, "yprofile kernel")
 
 
@@ -67,7 +68,7 @@ def yprofile_traced(frames: torch.Tensor, y0: torch.Tensor, *,
     if tuple(y0.shape) != tuple(frames.shape[:2]):
         raise ValueError(f"y0 {tuple(y0.shape)} != frames (C, B) "
                          f"{tuple(frames.shape[:2])}")
-    build.note_signature("yprofile", tuple(frames.shape[:2]))
+    build.note_signature("yprofile", tuple(frames.shape[:2]), frames.device)
     if frames.device.type == "cpu":
         return yprofile_plain(frames, y0, threshold)
     if frames.device.type != "cuda" or y0.device != frames.device:

@@ -36,10 +36,12 @@ exists:
 * **Grow/shrink** (launch.mesh.make_fleet_meshes): buckets are created
   on demand (``admit`` / ``prewarm``) and retired when empty
   (``shrink``); after every resize the per-bucket device plans are
-  re-made and every bucket rebinds to its plan
-  (``ReadoutServer.rebind_mesh``). The port plans every bucket on the
-  fleet's one device, so a rebind only flushes and copies nothing;
-  each bucket server keeps its own copy stream on that device.
+  re-made over the fleet's cards (disjoint slices where there are
+  enough) and every bucket rebinds to its plan
+  (``ReadoutServer.rebind_mesh``): a bucket whose plan did not change
+  only flushes and copies nothing, one whose slab moved copies its
+  stack and encode-plan rows to its new cards. Each bucket server keeps
+  a copy stream on each of its cards.
 
 Per-tenant accounting (``report()["tenants"]``) closes the identity::
 
@@ -66,7 +68,6 @@ import time
 from typing import Callable, Deque, Dict, Hashable, List, Optional
 
 import numpy as np
-import torch
 
 from repro_torch.core.bitstream import GoldenImageStore, encode
 from repro_torch.core.fabric import StackGeometry
@@ -161,9 +162,10 @@ class TenantFleet:
     bucket server — the residency capacity per envelope; vacant slots
     hold a clone of the bucket's founding chip and receive no traffic.
     ``clock`` is injectable for deterministic tests, exactly like
-    ``ReadoutServer``. ``device`` is every bucket server's device and
-    the one device the buckets are planned on (None: the current CUDA
-    card; without a card only ``device="cpu"`` is accepted).
+    ``ReadoutServer``. ``device`` names the devices the buckets are
+    planned on (launch.mesh.make_fleet_meshes): None or "cuda" every
+    card, "cuda:N" that card alone (every bucket on it), "cpu" the CPU;
+    without a card only ``device="cpu"`` is accepted.
 
     Lifecycle: ``admit`` seats a tenant (creating its bucket cold if no
     warm one matches), ``submit``/``submit_batch``/``submit_frames``
@@ -182,8 +184,6 @@ class TenantFleet:
         device=None,
     ):
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
         if not (isinstance(bucket_slots, int) and bucket_slots >= 1):
             raise ValueError(
                 f"bucket_slots must be an int >= 1, got {bucket_slots!r}")
@@ -302,9 +302,14 @@ class TenantFleet:
         return idx
 
     def _grow_bucket(self, env: StackGeometry, chip: ReadoutChip) -> int:
+        # the new bucket starts on the plan the re-plan below gives it
+        plan = (make_fleet_meshes(
+            [b.server.n_chips for b in self._buckets] + [self.bucket_slots],
+            device=self.device)[-1]
+            if self.config.backend == "kernel" else None)
         srv = ReadoutServer(
             [chip] * self.bucket_slots, self.config, self._clock,
-            envelope=env, device=self.device)
+            envelope=env, device=self.device, mesh=plan)
         self._buckets.append(_Bucket(env, srv))
         idx = len(self._buckets) - 1
         self._by_envelope[env] = idx
@@ -449,7 +454,8 @@ class TenantFleet:
         many were dropped. The SHRINK half of the fleet's elasticity:
         surviving buckets' device plans are re-made
         (make_fleet_meshes) and each rebinds to its plan
-        (``rebind_mesh``: on the fleet's one device, a flush)."""
+        (``rebind_mesh``: a flush, then a move of the buckets whose slab
+        moved)."""
         keep = [b for b in self._buckets
                 if any(s is not None for s in b.slots)]
         dropped = len(self._buckets) - len(keep)
@@ -587,8 +593,9 @@ class TenantFleet:
         """Fleet-level accounting. ``"tenants"`` maps every tenant (also
         evicted/retired ones — history is part of the ledger) to its
         per-tenant trigger / SEU-disagreement / scrub / shed section;
-        ``"buckets"`` carries each bucket's envelope, seating and full
-        per-server report. Top-level counters aggregate over tenants and
+        ``"buckets"`` carries each bucket's envelope, seating, devices
+        (one a slab; empty on the host backend) and full per-server
+        report. Top-level counters aggregate over tenants and
         close the same accounting identity the per-tenant ledgers do;
         ``admission_misses`` counts the warm admissions after which, up to
         the admitted tenant's first result, the bucket's swap or a launch
@@ -620,6 +627,7 @@ class TenantFleet:
         buckets = []
         for b in self._buckets:
             env = b.envelope
+            srv_rep = b.server.report()
             buckets.append({
                 "envelope": {
                     "n_levels": env.n_levels,
@@ -630,7 +638,8 @@ class TenantFleet:
                 },
                 "slots": list(b.slots),
                 "n_resident": sum(s is not None for s in b.slots),
-                "server": b.server.report(),
+                "devices": [sl["device"] for sl in srv_rep["slabs"]],
+                "server": srv_rep,
             })
         ts = self._tenants.values()
         return {

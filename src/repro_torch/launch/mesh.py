@@ -2,14 +2,16 @@
 trainer and the dry-run (the port of the JAX package's launch/mesh.py).
 
 A plan is a ``ReadoutMesh``: a frozen tuple of devices under one "chips"
-axis. Two plans over the same devices compare equal, so the fleet can
-re-plan after every grow or shrink and a bucket whose plan did not change
-rebinds for free (``ReadoutServer.rebind_mesh``). The slab arithmetic is
-the reference's, over the ``torch.cuda.device_count()`` cards (or the one
-device asked for). The port's server keeps its whole chip axis on one
-device, the plan's first, and the port's fleet asks for its one device,
-so every bucket gets it: ``cuda:0`` on a card, the CPU with
-``device="cpu"``.
+axis. A server on a plan of d devices splits its C chips into d
+contiguous slabs of C/d chips (``ReadoutMesh.slabs``), each slab's rows
+and launches on its own device, where the reference ``shard_map``s the
+chip axis over the mesh. Two plans over the same devices compare equal,
+so the fleet can re-plan after every grow or shrink and a bucket whose
+plan did not change rebinds for free (``ReadoutServer.rebind_mesh``).
+The slab arithmetic is the reference's, over the
+``torch.cuda.device_count()`` cards for ``device=None`` or ``"cuda"`` (as
+``jax.local_devices()``), over one card for ``"cuda:N"``, or the CPU for
+``"cpu"``.
 
 The trainer's plan (``make_host_mesh``) is one device for a (1, 1) mesh;
 a larger one, and the production meshes (``make_production_mesh``: a
@@ -37,15 +39,29 @@ class MeshUnavailableError(RuntimeError):
     of that many ranks to lay it over."""
 
 
+def _indexed(device) -> torch.device:
+    """``device`` as tensors report it: a CUDA device with its index."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 @dataclasses.dataclass(frozen=True)
 class ReadoutMesh:
-    """The devices of one readout "chips" axis (at least one)."""
+    """The devices of one readout "chips" axis (at least one), in slab
+    order. A plan may name one device more than once: its slabs then
+    share that device. That is the port's stand-in for the JAX package's
+    forced host devices, with which the CPU tests and the one-card smoke
+    drive a split of several slabs on one device."""
 
     devices: Tuple[torch.device, ...]
 
     def __post_init__(self):
         if not self.devices:
             raise ValueError("a readout mesh needs at least one device")
+        object.__setattr__(self, "devices",
+                           tuple(_indexed(d) for d in self.devices))
 
     @property
     def size(self) -> int:
@@ -53,8 +69,20 @@ class ReadoutMesh:
 
     @property
     def device(self) -> torch.device:
-        """Where the port's server keeps the chip axis."""
+        """The first slab's device (the whole axis on a plan of one)."""
         return self.devices[0]
+
+    def slabs(self, n_chips: int) -> List[Tuple[torch.device, int, int]]:
+        """The split of ``n_chips`` chips over the plan: one (device,
+        first chip, chips) a device, contiguous and equal. ValueError
+        when the plan's size does not divide ``n_chips`` (the
+        reference's plans always divide)."""
+        if n_chips < 1 or n_chips % self.size:
+            raise ValueError(
+                f"a plan of {self.size} devices does not split {n_chips} "
+                "chips into equal slabs")
+        n = n_chips // self.size
+        return [(d, i * n, n) for i, d in enumerate(self.devices)]
 
 
 def make_world_mesh(shape: Dict[str, int], device_type: str):

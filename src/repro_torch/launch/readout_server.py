@@ -41,13 +41,24 @@ oracle (featurize on the device, then numpy quantize + pack + FabricSim
 per replica + vote), bit-identical to the kernel path given the same
 features.
 
-Pipelining: every launch enqueues its work on the current CUDA stream,
-copies its small results (dense score/keep/disagree, or the sparse count
-and disagree counts) into pinned host memory without blocking, and
-records a CUDA event behind them; ``poll`` retires a batch only once its
-event has completed, and up to ``pipeline_depth`` batches stay in flight.
-A sparse batch's kept prefix ``idx[:count]``, ``vals[:count]`` is copied
-at the drain, on a side stream, so it waits for no later batch. A scrub
+Slabs: the kernel backend serves over a device plan
+(launch.mesh.ReadoutMesh, by default ``make_readout_mesh`` over every
+card): C chips in d contiguous slabs of C/d chips, each slab's stack
+rows, encode-plan rows and staging buffers on its own device, and its
+launches there (K1 -> quantize/encode -> K2 -> B6, or B3 on a matmul
+stack). The slabs share nothing during a dispatch; their results are
+merged on the host at the drain, bit-identical to one slab's. Hot swaps,
+fault injection, readbacks and heals go to the slab that owns the chip,
+and ``rebind_mesh`` moves the slabs to another plan.
+
+Pipelining: every launch enqueues its work on its device's current CUDA
+stream, copies its small results (dense score/keep/disagree, or the
+sparse count and disagree counts) into pinned host memory without
+blocking, and records a CUDA event a slab behind them; ``poll`` retires a
+batch only once every one of its events has completed, and up to
+``pipeline_depth`` batches stay in flight. A sparse batch's kept prefix
+``idx[:count]``, ``vals[:count]`` is copied at the drain, on a side
+stream of the slab's device, so it waits for no later batch. A scrub
 readback is the same kind of copy: the replica's row of ``tables`` goes
 to pinned memory behind a CUDA event and is verified on a later scrub
 step, once the event has completed.
@@ -58,8 +69,8 @@ The multi-tenant fleet (launch/fleet.py) drives one server a geometry
 bucket through three hooks: ``envelope=`` pins the server's geometry to
 the bucket's (kernels.lut_eval.ops.bucket_envelope), ``cancel_queued``
 drops an evicted tenant's queued events, and ``rebind_mesh`` binds the
-server to the plan the fleet re-makes after a grow or shrink (one
-device: a flush). The fleet, not the server, reads
+server to the plan the fleet re-makes after a grow or shrink (a flush,
+then the slabs whose device changed move). The fleet, not the server, reads
 ``ServerConfig.tenant_quota_queued``; its admission misses read the
 server's ``shape_misses``.
 """
@@ -95,8 +106,9 @@ from repro_torch.core.tmr import (
 )
 from repro_torch.data.smartpixel import N_FEATURES as _N_FEATURES
 from repro_torch.data.smartpixel import N_T, N_X, N_Y
-from repro_torch.device import NotPortedError, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.kernels import build
+from repro_torch.kernels.lut_eval.ops import merge_kept
 from repro_torch.parallel.compression import (
     DENSE_BYTES_PER_EVENT,
     SPARSE_BYTES_PER_EVENT,
@@ -397,11 +409,12 @@ class ChipStreamStats:
 # (seq, chip, kind, payload, t_enqueue): kind "frames" carries
 # (frame, y0), kind "features" a (n_features,) float64 row
 _Event = Tuple[int, int, str, object, float]
-# (kind, pending, per_chip_seq, counts, ready, meta): kind "scored" holds
-# (score (C, B), keep (C, B), disagree (C, R)), kind "sparse" holds
-# (count, idx, vals, disagree (C, R), B); ready is the CUDA event behind
-# the batch's pinned copies, or None for results already on the host;
-# meta = {"t_enq": per-chip enqueue times (the latency ledger), "trace":
+# (kind, slabs, per_chip_seq, counts, ready, meta): slabs is [(first
+# chip, pending)] in slab order, a pending of kind "scored" (score
+# (C_s, B), keep (C_s, B), disagree (C_s, R)), of kind "sparse" (count,
+# idx, vals, disagree (C_s, R), B) with flat indices over the slab's own
+# (C_s, B); ready holds the CUDA events behind the slabs' pinned copies
+# (none for results already on the host); meta = {"t_enq": per-chip enqueue times (the latency ledger), "trace":
 # the batch's stage timestamps}. A batch keeps the egress kind it was
 # launched with, whatever the ladder does before it drains.
 _Inflight = Tuple[str, Tuple, List[List[int]], List[int], object, Dict]
@@ -435,10 +448,16 @@ class ReadoutServer:
         envelope: Optional[StackGeometry] = None,
         *,
         device=None,
+        mesh=None,
     ):
         """``device`` is where the fused pass (kernel backend) or the
         featurizer (host backend) runs: None means CUDA, and without CUDA
-        only an explicit ``device="cpu"`` is accepted.
+        only an explicit ``device="cpu"`` is accepted. The kernel backend
+        serves over ``make_readout_mesh(len(chips), device)``: the chips
+        split over every card for None or "cuda", one card for "cuda:N",
+        the CPU for "cpu"; a given ``mesh`` (launch.mesh.ReadoutMesh)
+        replaces that plan, and ``rebind_mesh`` moves the server to
+        another.
 
         ``envelope`` pins the server's fixed geometry to a given
         StackGeometry in place of the chips' union (the fleet's bucket,
@@ -500,8 +519,8 @@ class ReadoutServer:
             [c.score_threshold_raw for c in self.chips], np.int32)
         self._stack = None
         self._frontend = None  # fused frames pass, built on first use
-        # side stream of the drain's kept-prefix copies (CUDA only)
-        self._copy_stream = None
+        # a side stream a card for the drain's kept-prefix copies
+        self._copy_streams: Dict[torch.device, object] = {}
         # the pinned envelope as the stack and the encode plan take it
         self._pinned = (None if envelope is None else
                         dataclasses.replace(self.geometry, frontend=None))
@@ -511,16 +530,16 @@ class ReadoutServer:
             from repro_torch.launch.mesh import make_readout_mesh
 
             self._lut_ops = lut_ops
-            self._stack = lut_ops.pack_fabrics(
+            self._mesh = (make_readout_mesh(self.n_chips, device=self.device)
+                          if mesh is None else mesh)
+            self._stack = lut_ops.place_stack(lut_ops.pack_fabrics(
                 [c.config for c in self.chips], band=config.band,
                 redundancy=config.redundancy, layout=self.layout,
-                geometry=self._pinned, device=self.device,
-            )
-            self._mesh = make_readout_mesh(self.n_chips, device=self.device)
+                geometry=self._pinned, device=self._mesh.device,
+            ), self._mesh.slabs(self.n_chips))
             self._out_weight = lut_ops.decode_plan(
                 [c.config for c in self.chips], self._stack.n_outputs)
-            if self.device.type == "cuda":
-                self._copy_stream = torch.cuda.Stream(self.device)
+            self._bind_copy_streams()
         else:
             self._multisim = MultiFabricSim(
                 self._replica_configs, geometry=self.geometry)
@@ -914,17 +933,19 @@ class ReadoutServer:
             self._stage("stack_frames", t0)
             meta["trace"]["t_encoded"] = self._clock()
             t0 = self._clock()
-            fe = self._get_frontend()
-            if self._word_sparse_active():
-                count, idx, vals, dis = fe.score_frames_sparse(
-                    frames, y0, valid=valid)
-                self._stage("launch_fused", t0)
-                return self._finish_launch_sparse(
-                    count, idx, vals, dis, B, per_chip_seq, counts, meta)
-            score, keep, dis = fe.score_frames_voted(frames, y0, valid=valid)
+            sparse = self._word_sparse_active()
+            parts = []
+            for fe, c0 in self._lut_ops.slabs_of(self._get_frontend()):
+                rows = slice(c0, c0 + fe.n_chips)
+                score_fn = (fe.score_frames_sparse if sparse
+                            else fe.score_frames_voted)
+                parts.append((c0, score_fn(frames[rows], y0[rows],
+                                           valid=valid[rows])))
             self._stage("launch_fused", t0)
-            return self._finish_launch(score, keep, dis, per_chip_seq,
-                                       counts, meta)
+            if sparse:
+                return self._finish_launch_sparse(parts, B, per_chip_seq,
+                                                  counts, meta)
+            return self._finish_launch(parts, per_chip_seq, counts, meta)
 
         from repro_torch.kernels.yprofile import ops as yp_ops
 
@@ -963,15 +984,16 @@ class ReadoutServer:
             self._stage("staged_score", t0)
         keep = (score <= self._thr_raw[:, None]) & valid
         dis = (disagree & valid[:, None, :]).sum(-1).astype(np.int64)
-        return self._finish_launch(score, keep, dis, per_chip_seq, counts,
-                                   meta)
+        return self._finish_launch([(0, (score, keep, dis))], per_chip_seq,
+                                   counts, meta)
 
     def _launch_features(self, events: List[_Event]) -> _Inflight:
         """Features path: host encoding (quantize + offset-binary bits,
         timed ``encode_host``), then ONE chip-batched scoring pass (timed
         ``launch_score``): fabric evaluation of every replica, vote, score
         decode and trigger cut on the device (``fabric_eval_multi_scored``,
-        or its word-domain sparse form with kernel B6)."""
+        or its word-domain sparse form with kernel B6), a dispatch a
+        slab."""
         per_chip_seq, per_chip_X, counts, per_chip_t = self._group(events)
         meta = self._meta(events, per_chip_t)
         t0 = self._clock()
@@ -997,24 +1019,21 @@ class ReadoutServer:
             valid = self._valid_mask(counts, B)
             stacked = self._lut_ops.stack_input_bits(self._stack,
                                                      per_chip_bits)
-            args = (self._stack, stacked, self._out_weight, self._thr_raw)
-            kw = dict(valid=valid, batch_tile=self.config.batch_tile)
-            if self._word_sparse_active():
-                count, idx, vals, dis = (
-                    self._lut_ops.fabric_eval_multi_scored_sparse(*args,
-                                                                  **kw))
-                self._stage("launch_score", t0)
-                return self._finish_launch_sparse(
-                    count, idx, vals, dis, B, per_chip_seq, counts, meta)
-            score, keep, dis = self._lut_ops.fabric_eval_multi_scored(*args,
-                                                                      **kw)
-        else:
-            valid = self._valid_mask(counts, B)
-            stacked = stack_event_bits(per_chip_bits, self.geometry.n_inputs)
-            score, keep, dis = self._score_bits_host(stacked, valid)
+            sparse = self._word_sparse_active()
+            parts = self._lut_ops.scored_slabs(
+                self._stack, stacked, self._out_weight, self._thr_raw,
+                valid, batch_tile=self.config.batch_tile, sparse=sparse)
+            self._stage("launch_score", t0)
+            if sparse:
+                return self._finish_launch_sparse(parts, B, per_chip_seq,
+                                                  counts, meta)
+            return self._finish_launch(parts, per_chip_seq, counts, meta)
+        valid = self._valid_mask(counts, B)
+        stacked = stack_event_bits(per_chip_bits, self.geometry.n_inputs)
+        score, keep, dis = self._score_bits_host(stacked, valid)
         self._stage("launch_score", t0)
-        return self._finish_launch(score, keep, dis, per_chip_seq, counts,
-                                   meta)
+        return self._finish_launch([(0, (score, keep, dis))], per_chip_seq,
+                                   counts, meta)
 
     def _score_bits_host(
         self, stacked: np.ndarray, valid: np.ndarray
@@ -1042,54 +1061,75 @@ class ReadoutServer:
         dis = (disagree & valid[:, None, :]).sum(-1).astype(np.int64)
         return score, keep, dis
 
-    def _finish_launch(self, score, keep, dis, per_chip_seq,
-                       counts, meta) -> _Inflight:
-        """Output stage of a dense pass: the dense (score, keep) or, with
-        sparse egress on, its packed (count, idx, vals) — on the kernel
-        backend through ``compression.sparse_trigger_pack`` (kernel B6 on
-        the card, still asynchronous), on the host backend with numpy
-        (timed ``sparse_pack``)."""
+    def _finish_launch(self, parts, per_chip_seq, counts,
+                       meta) -> _Inflight:
+        """Output stage of a dense pass, a slab at a time ([(first chip,
+        (score, keep, dis))]): the dense (score, keep) or, with sparse
+        egress on, its packed (count, idx, vals) — on the kernel backend
+        through ``compression.sparse_trigger_pack`` (kernel B6 on the
+        card, still asynchronous), on the host backend with numpy (timed
+        ``sparse_pack``)."""
         meta["trace"]["t_launched"] = self._clock()
         if not self._sparse_active():
-            return self._enqueue("scored", (score, keep, dis), (0, 1, 2),
-                                 per_chip_seq, counts, meta)
+            return self._enqueue("scored", parts, (0, 1, 2), per_chip_seq,
+                                 counts, meta)
         t0 = self._clock()
-        B = int(keep.shape[1])
-        if self.config.backend == "kernel":
-            count, idx, vals = sparse_trigger_pack(score, keep)
-        else:
-            idx = np.flatnonzero(np.asarray(keep).ravel()).astype(np.int32)
-            vals = np.asarray(score).ravel()[idx].astype(np.int32)
-            count = len(idx)
+        packed = []
+        for c0, (score, keep, dis) in parts:
+            if self.config.backend == "kernel":
+                count, idx, vals = sparse_trigger_pack(score, keep)
+            else:
+                idx = np.flatnonzero(np.asarray(keep).ravel()).astype(
+                    np.int32)
+                vals = np.asarray(score).ravel()[idx].astype(np.int32)
+                count = len(idx)
+            packed.append((c0, (count, idx, vals, dis, int(keep.shape[1]))))
         self._stage("sparse_pack", t0)
-        return self._enqueue("sparse", (count, idx, vals, dis, B), (0, 3),
-                             per_chip_seq, counts, meta)
+        return self._enqueue("sparse", packed, (0, 3), per_chip_seq, counts,
+                             meta)
 
-    def _finish_launch_sparse(self, count, idx, vals, dis, B, per_chip_seq,
-                              counts, meta) -> _Inflight:
-        """Output stage of a word-domain sparse pass (its pack ran in the
-        pass itself): the count and the disagree counts go to pinned
-        memory behind the batch's event; the padded (idx, vals) stay on
-        the device until the drain copies their kept prefix."""
+    def _finish_launch_sparse(self, parts, B, per_chip_seq, counts,
+                              meta) -> _Inflight:
+        """Output stage of a word-domain sparse pass, a slab at a time
+        ([(first chip, (count, idx, vals, dis))]; the pack ran in the pass
+        itself): the counts and the disagree counts go to pinned memory
+        behind the slabs' events; the padded (idx, vals) stay on their
+        devices until the drain copies their kept prefixes."""
         meta["trace"]["t_launched"] = self._clock()
-        return self._enqueue("sparse", (count, idx, vals, dis, int(B)),
-                             (0, 3), per_chip_seq, counts, meta)
+        return self._enqueue(
+            "sparse", [(c0, (*p, int(B))) for c0, p in parts], (0, 3),
+            per_chip_seq, counts, meta)
 
-    def _enqueue(self, kind: str, parts: Tuple, to_host: Tuple[int, ...],
+    def _enqueue(self, kind: str, parts, to_host: Tuple[int, ...],
                  per_chip_seq, counts, meta) -> _Inflight:
-        """Start the device->host copies of ``parts[i]`` for i in
-        ``to_host`` into pinned memory and record the batch's CUDA event
-        after them, so a completed event means the copies landed. Results
-        already on the host (host backend, CPU tensors) need no event."""
-        if not any(torch.is_tensor(p) and p.is_cuda for p in parts):
-            return kind, parts, per_chip_seq, counts, None, meta
-        parts = tuple(
-            torch.empty(p.shape, dtype=p.dtype, pin_memory=True).copy_(
-                p, non_blocking=True) if i in to_host else p
-            for i, p in enumerate(parts))
-        ready = torch.cuda.Event()
-        ready.record()
-        return kind, parts, per_chip_seq, counts, ready, meta
+        """Per slab ([(first chip, parts)]): start the device->host copies
+        of ``parts[i]`` for i in ``to_host`` into pinned memory and record
+        a CUDA event after them on the slab's device, so a completed event
+        means the slab's copies landed. Results already on the host (host
+        backend, CPU tensors) need no event."""
+        slabs, ready = [], []
+        for c0, p in parts:
+            dev = next((x.device for x in p
+                        if torch.is_tensor(x) and x.is_cuda), None)
+            if dev is not None:
+                with torch.cuda.device(dev):
+                    p = tuple(
+                        torch.empty(x.shape, dtype=x.dtype,
+                                    pin_memory=True).copy_(
+                            x, non_blocking=True) if i in to_host else x
+                        for i, x in enumerate(p))
+                    ev = torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(dev))
+                ready.append(ev)
+            slabs.append((c0, p))
+        return kind, slabs, per_chip_seq, counts, ready, meta
+
+    def _bind_copy_streams(self) -> None:
+        """A side stream for every card of the plan (kept across
+        rebinds)."""
+        for dev in self._mesh.devices:
+            if dev.type == "cuda" and dev not in self._copy_streams:
+                self._copy_streams[dev] = torch.cuda.Stream(dev)
 
     def _get_frontend(self):
         if self._frontend is None:
@@ -1109,12 +1149,11 @@ class ReadoutServer:
         return self._frontend
 
     def _head_ready(self) -> bool:
-        """Non-blocking probe: has the OLDEST in-flight batch's event
-        completed (results already on the host always have)?"""
+        """Non-blocking probe: has every event of the OLDEST in-flight
+        batch completed (results already on the host always have)?"""
         if not self._inflight:
             return False
-        ready = self._inflight[0][4]
-        return ready is None or ready.query()
+        return all(ev.query() for ev in self._inflight[0][4])
 
     def _drain_ready(self) -> List[ScoredEvent]:
         """Retire every finished in-flight batch, oldest first, never
@@ -1126,11 +1165,11 @@ class ReadoutServer:
 
     def _kept_prefix(self, t, n: int) -> np.ndarray:
         """The first ``n`` entries of a packed vector on the host, int64.
-        A CUDA vector is copied on the side stream: its batch has
+        A CUDA vector is copied on its card's side stream: its batch has
         finished, and the copy must not wait for the batches queued on
         the main stream behind it."""
         if torch.is_tensor(t) and t.is_cuda:
-            with torch.cuda.stream(self._copy_stream):
+            with torch.cuda.stream(self._copy_streams[t.device]):
                 t = t[:n].cpu()
         return np.asarray(t[:n]).astype(np.int64)
 
@@ -1138,22 +1177,30 @@ class ReadoutServer:
         """Materialize the OLDEST in-flight batch and fold it into the
         reports (``drain_wait`` is the host-visible blocking time). With
         sparse egress only the count prefix of the packed (idx, score)
-        pair crosses the host link: the measured wire bytes."""
+        pair crosses the host link: the measured wire bytes. The slabs'
+        results are merged here, in slab order: a sparse batch is one
+        packet of ascending flat indices over the whole (C, B)."""
         if not self._inflight:
             return []
-        (kind, pending, per_chip_seq, counts, ready,
+        (kind, slabs, per_chip_seq, counts, ready,
          meta) = self._inflight.popleft()
         t0 = self._clock()
-        if ready is not None:
-            ready.synchronize()                         # blocks here
+        for ev in ready:
+            ev.synchronize()                            # blocks here
         results: List[ScoredEvent] = []
         n_events = int(sum(counts))
         self._link_bytes_dense += DENSE_BYTES_PER_EVENT * n_events
+        dis = np.concatenate([np.asarray(p[3 if kind == "sparse" else 2])
+                              for _, p in slabs])
         if kind == "sparse":
-            count, idx, vals, dis, B = pending
-            n_kept = int(count)
-            idx_h = self._kept_prefix(idx, n_kept)
-            vals_h = self._kept_prefix(vals, n_kept)
+            B = slabs[0][1][4]
+            kept = []
+            for c0, (count, idx, vals, _, _) in slabs:
+                n = int(count)
+                kept.append((c0, self._kept_prefix(idx, n),
+                             self._kept_prefix(vals, n)))
+            idx_h, vals_h = merge_kept(kept, B)
+            n_kept = len(idx_h)
             self._link_bytes_wire += (
                 SPARSE_HEADER_BYTES + SPARSE_BYTES_PER_EVENT * n_kept)
             chip_of = idx_h // max(B, 1)
@@ -1166,7 +1213,9 @@ class ReadoutServer:
                     seq=per_chip_seq[c][k % B], chip=int(c),
                     score_raw=int(v), keep=True))
         else:
-            score, keep, dis = (np.asarray(x) for x in pending)
+            score, keep = (np.concatenate([np.asarray(p[k])
+                                           for _, p in slabs])
+                           for k in (0, 1))
             self._link_bytes_wire += DENSE_BYTES_PER_EVENT * n_events
             for i in range(self.n_chips):
                 n = counts[i]
@@ -1410,21 +1459,27 @@ class ReadoutServer:
     def rebind_mesh(self, mesh) -> List[ScoredEvent]:
         """Bind the server to a device plan (launch.mesh.ReadoutMesh),
         the fleet's grow/shrink port. Pending work is flushed first and
-        returned, as ``reconfigure`` does. The port serves a whole chip
-        axis on one device, the one its stack lives on: a plan of that
-        device binds without copying anything, and a plan of another
-        device raises NotPortedError (moving a live server to another
-        card is not ported). A no-op on the host backend."""
+        returned, as ``reconfigure`` does; then the stack and the fused
+        pass take the plan's slabs (``train.elastic.reshard_replicated``):
+        a plan equal to the current one copies nothing, and a move copies
+        only the slabs whose chips or device changed. The first dispatch
+        after a move launches at new slab shapes or on a new card, which
+        counts once in ``shape_misses`` (the reference retraces once).
+        ValueError, before anything is flushed, for a plan whose size
+        does not divide the chips. A no-op on the host backend."""
         if self.config.backend != "kernel":
             return []
-        if mesh.device != self._stack.device:
-            raise NotPortedError(
-                f"the server's stack lives on {self._stack.device}; "
-                f"rebinding it to {mesh.device} (a multi-card plan) is not "
-                "ported (ROADMAP A.15): plan every bucket on the server's "
-                "device")
+        mesh.slabs(self.n_chips)        # raises before the flush
         done = self.flush()
-        self._mesh = mesh
+        if mesh != self._mesh:
+            from repro_torch.kernels.frontend import place_frontend
+            from repro_torch.train.elastic import reshard_replicated
+
+            self._stack = reshard_replicated(self._stack, mesh)
+            if self._frontend is not None:
+                self._frontend = place_frontend(self._frontend, self._stack)
+            self._mesh = mesh
+            self._bind_copy_streams()
         return done
 
     # ----------------------------------------------------- fault injection
@@ -1458,8 +1513,7 @@ class ReadoutServer:
     def _refresh_frontend(self) -> None:
         """Point the fused frames pass at the current stack."""
         if self._frontend is not None:
-            self._frontend = dataclasses.replace(self._frontend,
-                                                 stack=self._stack)
+            self._frontend = self._frontend.with_stack(self._stack)
 
     # ----------------------------------------------------------- scrubbing
     def _register_golden(self, slot: int) -> None:
@@ -1584,13 +1638,15 @@ class ReadoutServer:
                 self._multisim.readback_tables(
                     fi, self._img_levels, self._img_m_pad),
                 prev_pass)
-        row = self._stack.tables[fi]
+        row = self._stack.replica_tables(slot, replica)
         image, ready = row, None
         if row.is_cuda:
-            image = torch.empty(row.shape, dtype=row.dtype, pin_memory=True)
-            image.copy_(row, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
+            with torch.cuda.device(row.device):
+                image = torch.empty(row.shape, dtype=row.dtype,
+                                    pin_memory=True)
+                image.copy_(row, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(row.device))
         self._scrub_pending.append(_Readback(
             fi, self._frame_gen[fi], image, ready, row, prev_pass,
             self._dispatch_idx))
@@ -1672,7 +1728,9 @@ class ReadoutServer:
         stage; the fused pass is one ``launch_fused`` entry, the staged
         host path itemizes it), and the network front door's accounting
         (``net``: the attached door's ``stats()``, else ``{"attached":
-        False}``). The same keys as the JAX package's report."""
+        False}``). The same keys as the JAX package's report, and
+        ``slabs``: each slab's device and chips [first, end) (kernel
+        backend; empty on the host backend)."""
         cfg = self.config
         per_chip = []
         for i, st in enumerate(self._stats):
@@ -1706,6 +1764,10 @@ class ReadoutServer:
         return {
             "backend": cfg.backend,
             "device": str(self.device),
+            "slabs": ([{"device": str(slab.device),
+                        "chips": [c0, c0 + slab.n_chips]}
+                       for slab, c0 in self._lut_ops.slabs_of(self._stack)]
+                      if self._stack is not None else []),
             "layout": self.layout,
             "redundancy": cfg.redundancy,
             "n_replicas": self.n_replicas,

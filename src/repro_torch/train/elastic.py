@@ -15,11 +15,16 @@ first. ``gather_to_host`` gathers DTensor leaves (``full_tensor``, a
 collective every rank calls). Batches need no migration: they are pure
 functions of (seed, step, shard) (data/pipeline.py).
 
-Serving: a packed stack is replicated state (the chip axis is a tensor dimension,
-not a split), so any device plan (launch.mesh.ReadoutMesh) will take it.
-The port's fleet plans every bucket on its one device, so no live server
-moves yet (``ReadoutServer.rebind_mesh`` refuses a plan of another
-device); this places a stack, or any tree of tensors, on a plan's device.
+Serving: ``reshard_replicated`` places a readout server's serving state
+on a device plan (launch.mesh.ReadoutMesh), as ``ReadoutServer.
+rebind_mesh`` and the fleet's re-plans need it. The reference replicates
+the packed stack onto every device of the mesh and ``shard_map``s the
+chip axis over it; the port splits the stack instead, one contiguous slab
+of chips a device (kernels.lut_eval.ops.place_stack), because a slab's
+kernels read only their own chips' rows: a replica elsewhere would be
+memory and copies that nothing reads. Rows already where the plan puts
+them are not copied (an equal plan copies nothing), and a move copies
+only the slabs whose device changed.
 """
 from __future__ import annotations
 
@@ -107,13 +112,24 @@ def gather_to_host(tree: Any) -> Any:
 
 
 def reshard_replicated(tree: Any, mesh: ReadoutMesh) -> Any:
-    """``tree`` with every tensor on the plan's device: the fields of a
-    dataclass, the values of a dict and the items of a list or tuple are
-    mapped; ``None`` and every other (static) value pass through. A
-    tensor already there is not copied."""
+    """``tree`` placed on the plan. A packed readout stack (split or not)
+    takes the plan's slab placement (``ops.place_stack`` over
+    ``mesh.slabs``), and a fused frontend its stack's
+    (``frontend.place_frontend``); any other tensor goes to the plan's
+    first device. The fields of a dataclass, the values of a dict and
+    the items of a list or tuple are mapped; ``None`` and every other
+    (static) value pass through. A tensor already where it goes is not
+    copied."""
+    from repro_torch.kernels import frontend as fe
+    from repro_torch.kernels.lut_eval import ops
+
     dev = mesh.device
 
     def move(x):
+        if isinstance(x, (ops.PackedFabricStack, ops.SlabStack)):
+            return ops.place_stack(x, mesh.slabs(x.n_chips))
+        if isinstance(x, (fe.FusedFrontend, fe.SlabFrontend)):
+            return fe.place_frontend(x, move(x.stack))
         if torch.is_tensor(x):
             return x.to(dev)
         if dataclasses.is_dataclass(x) and not isinstance(x, type):

@@ -39,7 +39,6 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core.bitstream import (  # noqa: E402
     BitstreamError, GoldenImageStore, GoldenSlotError)
 from repro_torch.core.tmr import replica_table_images  # noqa: E402
-from repro_torch.device import NotPortedError  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.lut_eval import ops as port_ops  # noqa: E402
 from repro_torch.launch import mesh as port_mesh  # noqa: E402
@@ -660,8 +659,9 @@ def test_cancel_queued_drops_one_chips_queue_like_jax(farm, backend):
 def test_rebind_mesh_to_an_equal_plan_copies_nothing(farm):
     """The fleet re-plans after every grow: on one device every plan is
     equal, and rebinding flushes (returning the results) and keeps the
-    stack's and the fused pass's tensors where they are; the port serves
-    a chip axis on one device, so a plan of another is refused."""
+    stack's and the fused pass's tensors where they are. A plan of two
+    slabs moves the server: the queued events are flushed first, and
+    the split server serves every event exactly as the one-slab one."""
     _, pc, X = farm
     fr, y0 = frames(16)
     srv = ReadoutServer(pc[:2], _cfg(ServerConfig, "kernel"), device="cpu")
@@ -676,20 +676,32 @@ def test_rebind_mesh_to_an_equal_plan_copies_nothing(farm):
     assert srv._stack is stack and srv._frontend.plan is plan
     host = ReadoutServer(pc[:2], _cfg(ServerConfig, "host"), device="cpu")
     assert host.rebind_mesh(plan_) == [] and host._mesh is None
-    # a plan of another device is refused, and the queue is left alone
-    srv.submit_batch(1, X[:2])
-    with pytest.raises(NotPortedError, match="cuda:1"):
-        srv.rebind_mesh(port_mesh.ReadoutMesh((torch.device("cuda", 1),)))
-    assert srv._stack is stack and srv.queue_depth == 2
     moved = reshard_replicated(stack, plan_)
     assert moved.tables is stack.tables and moved.n_levels == stack.n_levels
+    # a plan of two slabs: the queue is flushed, then the slabs serve
+    one = ReadoutServer(pc[:2], _cfg(ServerConfig, "kernel"), device="cpu")
+    want = []
+    for server in (one, srv):
+        server.submit_batch(1, X[:2])
+    pending = srv.rebind_mesh(port_mesh.ReadoutMesh(
+        (torch.device("cpu"),) * 2))
+    events = lambda rs: [(r.chip, r.score_raw, r.keep)  # noqa: E731
+                         for r in rs]
+    assert events(pending) == events(one.flush()) and srv.queue_depth == 0
+    assert [s["chips"] for s in srv.report()["slabs"]] == [[0, 1], [1, 2]]
+    for server in (one, srv):
+        server.submit_frames(0, fr, y0)
+        server.submit_batch(1, X[3:40])
+        want.append(events(server.flush()))
+    assert want[1] == want[0] and len(want[0]) == 16 + 37
 
 
-def test_make_fleet_meshes_slab_arithmetic(monkeypatch):
+def test_make_fleet_meshes_slab_arithmetic(farm, monkeypatch):
     """On the CPU every bucket gets the CPU, and plans of one device
     compare equal; over four cards the reference's proportional slices
     (the largest divisor of a bucket's chips inside its slice), over two
-    cards for three buckets the wrap."""
+    cards for three buckets the wrap; a server serves over every device
+    its plan names."""
     cpu = torch.device("cpu")
     plans = port_mesh.make_fleet_meshes([4, 2, 1], device="cpu")
     assert [p.devices for p in plans] == [(cpu,)] * 3
@@ -711,3 +723,22 @@ def test_make_fleet_meshes_slab_arithmetic(monkeypatch):
     assert idx(port_mesh.make_fleet_meshes([2, 2, 2], device="two")) == [
         (0,), (1,), (0,)]
     assert port_mesh.make_readout_mesh(6).size == 3
+    # a server plans over every device local_devices gives (every card
+    # for device=None), here four CPU entries: four slabs, serving
+    # exactly as one
+    _, pc, X = farm
+    one = ReadoutServer(pc, _cfg(ServerConfig, "kernel"), device="cpu",
+                        mesh=port_mesh.ReadoutMesh((cpu,)))
+    monkeypatch.setattr(port_mesh, "local_devices",
+                        lambda device=None: [cpu] * 4)
+    assert port_mesh.make_readout_mesh(4).devices == (cpu,) * 4
+    split = ReadoutServer(pc, _cfg(ServerConfig, "kernel"), device="cpu")
+    assert [s["chips"] for s in split.report()["slabs"]] == [
+        [0, 1], [1, 2], [2, 3], [3, 4]]
+    got = []
+    for server in (one, split):
+        for c in range(4):
+            server.submit_batch(c, X[8 * c : 8 * c + 8])
+        got.append([(r.seq, r.chip, r.score_raw, r.keep)
+                    for r in server.flush()])
+    assert got[1] == got[0] and len(got[0]) == 32

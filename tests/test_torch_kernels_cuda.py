@@ -18,7 +18,11 @@ on chip_smoke's synthetic words, keep fractions and decode rows; each one
 kernel and no memset a call, by the profiler; its look-back state across
 graph replays and shape changes) and the fused frontend downstream of
 identical features are exact. A TCP replay through the port's front door
-over a card server verifies every trigger against the host oracle.
+over a card server verifies every trigger against the host oracle. A
+server split into two and four slabs on ``cuda:0`` serves exactly as one
+slab does, and as the CPU from identical features; every kernel wrapper
+launched on ``cuda:1`` tensors while ``cuda:0`` is current is exact (that
+case skips below two cards).
 """
 import numpy as np
 import pytest
@@ -750,14 +754,14 @@ def test_warm_fleet_admission_on_card_adds_no_build_or_signature(card):
     from repro_torch.launch.readout_server import ServerConfig
 
     chips, frames, y0 = card
-    fleet = TenantFleet(ServerConfig(), bucket_slots=2, device="cuda")
+    fleet = TenantFleet(ServerConfig(), bucket_slots=2, device="cuda:0")
     fleet.admit("a", chips[1])
     fleet.submit_frames("a", frames[1][:128], y0[1][:128])
     fleet.flush()
     torch.cuda.synchronize()
     srv = fleet._buckets[0].server
     keep = (srv._stack.src.data_ptr(), srv._stack.tables.data_ptr(),
-            srv._frontend.plan["feat_idx"].data_ptr(), srv._copy_stream)
+            srv._frontend.plan["feat_idx"].data_ptr(), srv._copy_streams)
     misses = build.miss_counts()
     sa = fleet.submit_frames("a", frames[1][:128], y0[1][:128])
     assert fleet.admit("b", chips[1])["cold"] is False
@@ -768,7 +772,7 @@ def test_warm_fleet_admission_on_card_adds_no_build_or_signature(card):
     assert fleet.report()["admission_misses"] == 0
     assert keep == (srv._stack.src.data_ptr(), srv._stack.tables.data_ptr(),
                     srv._frontend.plan["feat_idx"].data_ptr(),
-                    srv._copy_stream)
+                    srv._copy_streams)
     for seqs, lo in ((sa, 0), (sb, 128)):
         score, kp = _card_oracle(chips[1], frames[1][lo:lo + 128],
                                  y0[1][lo:lo + 128])
@@ -850,3 +854,110 @@ def test_k2_at_the_deep_padded_envelope(card, redundancy, upset):
         assert x.shape == y.shape and torch.equal(x, y)
     if upset and R > 1:
         assert bool((got[1] != 0).any())
+
+
+def _slab_serve(chips, frames, y0, feats, mesh, device="cuda", **kw):
+    """Frames then their features, 128 events a chip each, through a
+    server over ``mesh`` (None: one slab on ``device``); {seq: (chip,
+    score, keep)}."""
+    from repro_torch.launch.readout_server import (ReadoutServer,
+                                                   ServerConfig)
+
+    server = ReadoutServer(chips, ServerConfig(**kw), clock=lambda: 0.0,
+                           device=device, mesh=mesh)
+    for c in range(len(chips)):
+        server.submit_frames(c, frames[c % 2][:128], y0[c % 2][:128])
+        server.submit_batch(c, feats[c % 2][128:])
+    out = {r.seq: (r.chip, r.score_raw, r.keep) for r in server.flush()}
+    if server.config.backend == "kernel" and mesh is not None:
+        assert [s["device"] for s in server.report()["slabs"]] == [
+            str(d) for d in mesh.devices]
+    return out
+
+
+def _cut_at_median(chips, feats):
+    """The chips with their cut at the median raw score of their
+    features: about half the events kept (the fixture's chips are not
+    calibrated)."""
+    import dataclasses
+
+    return [dataclasses.replace(c, score_threshold_raw=int(np.median(
+        c.infer_raw(feats[i % 2], backend="host"))))
+        for i, c in enumerate(chips)]
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("layout,redundancy,sparse", [
+    ("bitsliced", "none", False), ("bitsliced", "tmr", False),
+    ("bitsliced", "none", True), ("bitsliced", "tmr", True),
+    ("matmul", "tmr", False)])
+def test_slab_servers_on_card_equal_one_slab_and_cpu(card, k, layout,
+                                                     redundancy, sparse):
+    """Four chips split into k slabs on cuda:0 serve every event exactly
+    as one slab on the card does; the features half equals the CPU's."""
+    from repro_torch.launch.mesh import ReadoutMesh
+
+    chips, frames, y0 = card
+    feats = [yp.yprofile(frames[i], y0[i], device="cuda").cpu().numpy()
+             .astype(np.float64) for i in range(2)]
+    chips4 = _cut_at_median(list(chips) * 2, feats)
+    kw = dict(layout=layout, redundancy=redundancy, sparse=sparse)
+    dev = torch.device("cuda", 0)
+    one = _slab_serve(chips4, frames, y0, feats, ReadoutMesh((dev,)), **kw)
+    got = _slab_serve(chips4, frames, y0, feats, ReadoutMesh((dev,) * k),
+                      **kw)
+    assert got == one and 0 < len(got) <= 4 * 256
+    assert sparse or len(got) == 4 * 256
+    cpu = _slab_serve(chips4, frames, y0, feats, None, device="cpu", **kw)
+    features = {q for q in cpu if q % 256 >= 128}
+    assert {q: got[q] for q in features if q in got} == {
+        q: cpu[q] for q in features}
+
+
+def test_each_wrapper_on_a_second_card_while_the_first_is_current(card):
+    """Every kernel wrapper launched on cuda:1 tensors while cuda:0 is
+    the host thread's current device equals its plain twin: K1, K2 and
+    B6's entries through servers on a cuda:1 plan (bit-sliced, dense and
+    sparse), B2/B3 through matmul servers, B4 on its own."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the launch under the tensor's "
+                    "device shows only on a card other than the current")
+    from repro_torch.launch.mesh import ReadoutMesh
+
+    chips, frames, y0 = card
+    feats = [yp.yprofile(frames[i], y0[i], device="cuda:0").cpu().numpy()
+             .astype(np.float64) for i in range(2)]
+    chips = _cut_at_median(chips, feats)
+    counters = (yp.yprofile_traced, bs.eval_seg_voted, sp.decode_pack,
+                sp.decode_dense, sp.pack_keep_words, le.lut_eval_stacked,
+                le.lut_eval_banded_stacked, bdt.bdt_traverse)
+    n0 = [f.launches for f in counters]
+    with torch.cuda.device(0):
+        for layout, sparse, band in (("bitsliced", False, None),
+                                     ("bitsliced", True, None),
+                                     ("matmul", False, None),
+                                     ("matmul", True, False)):
+            kw = dict(layout=layout, sparse=sparse, band=band,
+                      redundancy="tmr")
+            on1 = _slab_serve(chips, frames, y0, feats,
+                              ReadoutMesh((torch.device("cuda", 1),)), **kw)
+            on0 = _slab_serve(chips, frames, y0, feats,
+                              ReadoutMesh((torch.device("cuda", 0),)), **kw)
+            cpu = _slab_serve(chips, frames, y0, feats, None, device="cpu",
+                              **kw)
+            assert on1 == on0 and len(on1) > 0
+            assert {q: on1[q] for q in on1 if q % 256 >= 128} == {
+                q: cpu[q] for q in cpu if q % 256 >= 128}
+        tr, _ = train_test_split(generate(SmartPixelConfig(n_events=12_000,
+                                                           seed=5)))
+        ens = GradientBoostedClassifier(n_estimators=3, max_depth=5).fit(
+            tr["features"], tr["label"]).quantized()
+        packed = bdt_ops.pack_ensemble(ens, 14, device="cuda:1")
+        x = np.random.default_rng(0).integers(ens.spec.raw_min,
+                                              ens.spec.raw_max, (1000, 14))
+        got = bdt_ops.bdt_infer(packed, x)
+        assert got.device == torch.device("cuda", 1)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      ens.decision_function_raw(x))
+        assert torch.cuda.current_device() == 0
+    assert all(f.launches > n for f, n in zip(counters, n0))
