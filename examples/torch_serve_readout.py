@@ -234,7 +234,8 @@ def main(argv=None):
     dt = time.monotonic() - t0
     print(f"\ndone in {dt:.1f}s — {r['n_in']:,} events through "
           f"{r['n_chips']} chips ({r['n_in']/dt:,.0f} ev/s incl. host sim)")
-    print("per-stage timing (host-visible seconds / calls):")
+    print("per-stage timing (seconds / calls; dispatch_device is device "
+          "time, the rest host time):")
     for stage, t in r["stages"].items():
         print(f"  {stage:18s} {t['seconds']:8.3f}s  x{t['calls']}")
     for pc in r["per_chip"]:

@@ -23,6 +23,7 @@ from repro_torch.core.bitstream import decode, encode
 from repro_torch.core.fabric import FABRICS, FabricConfig, FabricSim, place_and_route
 from repro_torch.core.quantize import AP_FIXED_28_19, FixedSpec
 from repro_torch.core.synth import SynthResult, synth_ensemble
+from repro_torch.stages import SPANS
 
 
 # --------------------------------------------------------------------------
@@ -160,9 +161,10 @@ class KernelBackend(ScoringBackend):
     def score_bits(self, config: FabricConfig, bits: np.ndarray) -> np.ndarray:
         from repro_torch.kernels.lut_eval import ops as lut_ops
 
-        return lut_ops.fabric_eval(
-            self._packed.get(config), bits, batch_tile=self.batch_tile
-        ).cpu().numpy()
+        out = lut_ops.fabric_eval(
+            self._packed.get(config), bits, batch_tile=self.batch_tile)
+        with SPANS.time("check.d2h"):
+            return out.cpu().numpy()
 
     def score_frames(
         self,
@@ -254,10 +256,14 @@ class ReadoutChip:
     def infer_raw(
         self, X: np.ndarray, backend: Union[str, ScoringBackend] = "host"
     ) -> np.ndarray:
-        """features (n, 14) float -> raw integer scores, via the fabric."""
-        bits = self.encode_features(X)
+        """features (n, 14) float -> raw integer scores, via the fabric.
+        While a profiler records, the host encode and decode are the
+        spans ``readout.check.encode`` and ``readout.check.decode``."""
+        with SPANS.time("check.encode"):
+            bits = self.encode_features(X)
         outs = get_backend(backend).score_bits(self.config, bits)
-        return self.synth.decode_outputs(outs)
+        with SPANS.time("check.decode"):
+            return self.synth.decode_outputs(outs)
 
     def frontend_spec(self):
         """This chip's fused-frontend encode/decode contract

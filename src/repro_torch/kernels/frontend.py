@@ -57,6 +57,7 @@ from repro_torch.data.smartpixel import N_T, N_X, N_Y
 from repro_torch.device import resolve_device
 from repro_torch.kernels.lut_eval import ops as lut_ops
 from repro_torch.kernels.yprofile import ops as yp_ops
+from repro_torch.stages import SPANS, Stages
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,20 +232,21 @@ class FusedFrontend:
         return score, keep
 
     def score_frames_voted(
-        self, frames, y0, valid=None
+        self, frames, y0, valid=None, *, stages: Stages = SPANS
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Like ``score_frames`` plus disagree_counts (C, n_replicas) int32:
         events (among ``valid`` rows; None = all rows) where that replica's
-        output word was voted against."""
+        output word was voted against. The staging copies are timed as
+        ``launch_fused.h2d`` on ``stages``."""
         C, B = np.shape(frames)[0], np.shape(frames)[1]
-        f, z, v = self._stage(frames, y0, valid)
+        f, z, v = self._stage(frames, y0, valid, stages)
         score, keep, dis = _score_frames_impl(
             f, z, self.stack, self.plan, v,
             threshold_electrons=self.threshold_electrons)
         return score[:, :B], keep[:, :B], dis
 
     def score_frames_sparse(
-        self, frames, y0, valid=None
+        self, frames, y0, valid=None, *, stages: Stages = SPANS
     ) -> Tuple[torch.Tensor, ...]:
         """Word-domain sparse egress form of ``score_frames_voted``
         (bit-sliced stacks only): the trigger cut, SEU counters and the
@@ -256,13 +258,14 @@ class FusedFrontend:
         ``chip*B + event`` -1 padded, vals (C*B,) int32 kept scores 0
         padded, dis (C, R) int32), the ``parallel.compression`` wire
         format. Nothing synchronises: slice ``idx[:count]`` after the
-        pass has finished to ship exactly the kept events."""
+        pass has finished to ship exactly the kept events. The staging
+        copies are timed as ``launch_fused.h2d`` on ``stages``."""
         if self.stack.src is None:
             raise ValueError(
                 "sparse frame scoring needs the word domain: pack the "
                 "frontend with layout='bitsliced'")
         C, B = np.shape(frames)[0], np.shape(frames)[1]
-        f, z, v = self._stage(frames, y0, valid)
+        f, z, v = self._stage(frames, y0, valid, stages)
         count, idx, vals, dis = _score_frames_impl(
             f, z, self.stack, self.plan, v,
             threshold_electrons=self.threshold_electrons, sparse=True)
@@ -271,31 +274,33 @@ class FusedFrontend:
             idx, vals = lut_ops.restride(idx, vals, C, B, Bp)
         return count, idx, vals, dis
 
-    def _stage(self, frames, y0, valid):
+    def _stage(self, frames, y0, valid, stages: Stages):
         """Copy one dispatch's inputs into the (reused) padded device
         staging buffers; rows past B are zero and invalid."""
         C, B = np.shape(frames)[0], np.shape(frames)[1]
         assert C == self.n_chips, (C, self.n_chips)
         Bp = -(-max(B, 1) // self.batch_tile) * self.batch_tile
-        bufs = self.staging.get((C, Bp))
-        if bufs is None:
-            dev = self.device
-            bufs = (torch.zeros((C, Bp, N_T, N_Y, N_X), dtype=torch.float32,
-                                device=dev),
-                    torch.zeros((C, Bp), dtype=torch.float32, device=dev),
-                    torch.zeros((C, Bp), dtype=torch.bool, device=dev))
-            self.staging[(C, Bp)] = bufs
-        f, z, v = bufs
-        f[:, :B].copy_(torch.as_tensor(frames, dtype=torch.float32))
-        z[:, :B].copy_(torch.as_tensor(y0, dtype=torch.float32))
-        if Bp != B:
-            f[:, B:].zero_()
-            z[:, B:].zero_()
-            v[:, B:].fill_(False)
-        if valid is None:
-            v[:, :B].fill_(True)
-        else:
-            v[:, :B].copy_(torch.as_tensor(valid, dtype=torch.bool))
+        with stages.time("launch_fused.h2d"):
+            bufs = self.staging.get((C, Bp))
+            if bufs is None:
+                dev = self.device
+                bufs = (torch.zeros((C, Bp, N_T, N_Y, N_X),
+                                    dtype=torch.float32, device=dev),
+                        torch.zeros((C, Bp), dtype=torch.float32,
+                                    device=dev),
+                        torch.zeros((C, Bp), dtype=torch.bool, device=dev))
+                self.staging[(C, Bp)] = bufs
+            f, z, v = bufs
+            f[:, :B].copy_(torch.as_tensor(frames, dtype=torch.float32))
+            z[:, :B].copy_(torch.as_tensor(y0, dtype=torch.float32))
+            if Bp != B:
+                f[:, B:].zero_()
+                z[:, B:].zero_()
+                v[:, B:].fill_(False)
+            if valid is None:
+                v[:, :B].fill_(True)
+            else:
+                v[:, :B].copy_(torch.as_tensor(valid, dtype=torch.bool))
         return f, z, v
 
     def swap_chip(

@@ -70,6 +70,7 @@ from repro_torch.kernels.lut_eval.lut_eval import (
     lut_eval_stacked,
 )
 from repro_torch.kernels.sparse_pack import sparse_pack as _sparse_pack
+from repro_torch.stages import SPANS
 
 LAYOUTS = ("matmul", "bitsliced")
 
@@ -843,20 +844,24 @@ def fabric_eval(
     bits: (B, n_inputs) 0/1 -> (B, n_outputs) uint8 on the packed
     fabric's device. B is padded up to a ``batch_tile`` multiple, as the
     reference pads it. ``band``/``layout``/``device`` apply when packing a
-    raw config (ignored for an already-packed fabric)."""
+    raw config (ignored for an already-packed fabric). While a profiler
+    records, the bits' copy and the evaluation are the spans
+    ``readout.check.h2d`` and ``readout.check.eval``."""
     packed = (
         config_or_packed
         if isinstance(config_or_packed, PackedFabric)
         else pack_fabric(config_or_packed, band=band, layout=layout,
                          device=device)
     )
-    b = torch.as_tensor(np.asarray(bits), dtype=torch.int32,
-                        device=packed.device)
-    B = b.shape[0]
-    Bp = _round_up(max(B, 1), batch_tile)
-    if Bp != B:
-        b = torch.nn.functional.pad(b, (0, 0, 0, Bp - B))
-    return _eval_packed(packed, b)[:B]
+    with SPANS.time("check.h2d"):
+        b = torch.as_tensor(np.asarray(bits), dtype=torch.int32,
+                            device=packed.device)
+        B = b.shape[0]
+        Bp = _round_up(max(B, 1), batch_tile)
+        if Bp != B:
+            b = torch.nn.functional.pad(b, (0, 0, 0, Bp - B))
+    with SPANS.time("check.eval"):
+        return _eval_packed(packed, b)[:B]
 
 
 def fabric_eval_bits(

@@ -115,6 +115,7 @@ from repro_torch.parallel.compression import (
     SPARSE_HEADER_BYTES,
     sparse_trigger_pack,
 )
+from repro_torch.stages import Stages
 
 # The degrade ladder's rungs, in the default order (cheapest concession
 # first). None changes the keep/drop of an admitted event:
@@ -437,6 +438,16 @@ class _Readback:
     issue_idx: int
 
 
+def _device_mark(device: torch.device):
+    """A timed CUDA event recorded now on ``device``'s current stream (a
+    dispatch's start on the device); None off CUDA."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
 class ReadoutServer:
     """Serves N configured ReadoutChips from one micro-batched event loop."""
 
@@ -554,8 +565,9 @@ class ReadoutServer:
             ChipStreamStats(disagreements=[0] * self.n_replicas)
             for _ in self.chips
         ]
-        self._stage_s: Dict[str, float] = collections.defaultdict(float)
-        self._stage_n: Dict[str, int] = collections.defaultdict(int)
+        # per-stage host seconds and calls (report()["stages"]); spans
+        # while a profiler records
+        self._stages = Stages(clock)
         self._t_start: Optional[float] = None
         self._t_last: Optional[float] = None
         self._n_scored = 0
@@ -698,7 +710,8 @@ class ReadoutServer:
     def submit_batch(self, chip: int, X: np.ndarray) -> List[Optional[int]]:
         """Enqueue a block of pre-featurized events (rows of X); shed rows
         yield None."""
-        return [self.submit(chip, row) for row in np.asarray(X)]
+        with self._stages.time("submit"):
+            return [self.submit(chip, row) for row in np.asarray(X)]
 
     def cancel_queued(self, chip: int) -> int:
         """Drop every QUEUED (admitted, not yet coalesced) event of one
@@ -722,35 +735,38 @@ class ReadoutServer:
         follow the passes, not the global seq order (every event stays
         seq-tagged)."""
         self._check_chip(chip)
-        frames = np.asarray(frames, np.float32)
-        y0 = np.asarray(y0, np.float32)
-        if frames.ndim != 4 or frames.shape[1:] != (N_T, N_Y, N_X) \
-                or y0.shape != (len(frames),):
-            raise ValueError(
-                f"need frames (n, {N_T}, {N_Y}, {N_X}) and y0 (n,), got "
-                f"{frames.shape} and {y0.shape}")
-        seqs: List[Optional[int]] = []
-        now = self._clock()
-        for i in range(len(frames)):
-            if not self._admit(chip, now):
-                seqs.append(None)
-                continue
-            seq = self._seq
-            self._seq += 1
-            self._queue.append(
-                (seq, chip, "frames", (frames[i], float(y0[i])), now))
-            seqs.append(seq)
-        return seqs
+        with self._stages.time("submit"):
+            frames = np.asarray(frames, np.float32)
+            y0 = np.asarray(y0, np.float32)
+            if frames.ndim != 4 or frames.shape[1:] != (N_T, N_Y, N_X) \
+                    or y0.shape != (len(frames),):
+                raise ValueError(
+                    f"need frames (n, {N_T}, {N_Y}, {N_X}) and y0 (n,), "
+                    f"got {frames.shape} and {y0.shape}")
+            seqs: List[Optional[int]] = []
+            now = self._clock()
+            for i in range(len(frames)):
+                if not self._admit(chip, now):
+                    seqs.append(None)
+                    continue
+                seq = self._seq
+                self._seq += 1
+                self._queue.append(
+                    (seq, chip, "frames", (frames[i], float(y0[i])), now))
+                seqs.append(seq)
+            return seqs
 
     # ------------------------------------------------------------ the loop
     def poll(self) -> List[ScoredEvent]:
         """One turn of the event loop: retire finished in-flight batches,
         dispatch if a micro-batch is due and the pipeline has room, and
         return completed results. Never blocks."""
-        out = self._drain_ready()
-        if self._due() and len(self._inflight) <= self.config.pipeline_depth:
-            out.extend(self._dispatch(self._coalesce()))
-        return out
+        with self._stages.time("poll"):
+            out = self._drain_ready()
+            if (self._due()
+                    and len(self._inflight) <= self.config.pipeline_depth):
+                out.extend(self._dispatch(*self._coalesce()))
+            return out
 
     def flush(self) -> List[ScoredEvent]:
         """Force out everything: queued events and in-flight results.
@@ -759,17 +775,16 @@ class ReadoutServer:
         that folded only during this drain."""
         out: List[ScoredEvent] = []
         while self._queue:
-            out.extend(self._dispatch(self._coalesce()))
+            out.extend(self._dispatch(*self._coalesce()))
             while len(self._inflight) > self.config.pipeline_depth:
                 out.extend(self._drain_one())       # flush MAY block
         out.extend(self._drain_all())
         if self.config.scrub_interval is not None:
-            t0 = self._clock()
-            self.scrub_flush()
-            if self.config.scrub_mode == "steered":
-                self._scrub_steered_check()
-                self.scrub_flush()      # device idle: resolve it now
-            self._stage("scrub", t0)
+            with self._stages.time("scrub"):
+                self.scrub_flush()
+                if self.config.scrub_mode == "steered":
+                    self._scrub_steered_check()
+                    self.scrub_flush()      # device idle: resolve it now
         return out
 
     def score_stream(
@@ -800,26 +815,26 @@ class ReadoutServer:
         oldest = self._queue[0][4]
         return (self._clock() - oldest) >= self._eff_max_latency_s
 
-    def _coalesce(self) -> List[_Event]:
-        take = min(len(self._queue), self._eff_max_batch)
-        return [self._queue.popleft() for _ in range(take)]
+    def _coalesce(self) -> Tuple[List[_Event], List[_Event]]:
+        """The next micro-batch off the queue, split by kind: (frame
+        events, feature events)."""
+        with self._stages.time("coalesce"):
+            take = min(len(self._queue), self._eff_max_batch)
+            events = [self._queue.popleft() for _ in range(take)]
+            return ([e for e in events if e[2] == "frames"],
+                    [e for e in events if e[2] == "features"])
 
-    def _stage(self, key: str, t0: float) -> None:
-        self._stage_s[key] += self._clock() - t0
-        self._stage_n[key] += 1
-
-    def _dispatch(self, events: List[_Event]) -> List[ScoredEvent]:
+    def _dispatch(self, frame_events: List[_Event],
+                  feat_events: List[_Event]) -> List[ScoredEvent]:
         """Launch one micro-batch (frames and features as two passes),
         retire whatever finished, then run the background scrub step when
         it is due: after the drain, so freshly folded disagreement
         counters can steer it, while the batch just launched is still on
         the device."""
-        if not events:
+        if not frame_events and not feat_events:
             return []
         if self._t_start is None:
             self._t_start = self._clock()
-        frame_events = [e for e in events if e[2] == "frames"]
-        feat_events = [e for e in events if e[2] == "features"]
         if frame_events:
             self._inflight.append(self._launch_counted(
                 "frames", self._launch_frames, frame_events))
@@ -914,8 +929,10 @@ class ReadoutServer:
         Host backend: the same pipeline STAGED, each stage materialized
         and timed (``staged_featurize`` / ``staged_encode`` /
         ``staged_score``)."""
-        per_chip_seq, per_chip_fy, counts, per_chip_t = self._group(events)
-        meta = self._meta(events, per_chip_t)
+        with self._stages.time("coalesce"):
+            per_chip_seq, per_chip_fy, counts, per_chip_t = self._group(
+                events)
+            meta = self._meta(events, per_chip_t)
         cfg = self.config
         B = max(counts) if counts else 0
         if cfg.backend == "kernel":
@@ -923,25 +940,28 @@ class ReadoutServer:
         valid = self._valid_mask(counts, B)
 
         if cfg.backend == "kernel":
-            t0 = self._clock()
-            frames = np.zeros((self.n_chips, B, N_T, N_Y, N_X), np.float32)
-            y0 = np.zeros((self.n_chips, B), np.float32)
-            for i, rows in enumerate(per_chip_fy):
-                if rows:  # one vectorized copy per chip, not per event
-                    frames[i, : len(rows)] = np.stack([fr for fr, _ in rows])
-                    y0[i, : len(rows)] = [z for _, z in rows]
-            self._stage("stack_frames", t0)
+            with self._stages.time("stack_frames"):
+                frames = np.zeros((self.n_chips, B, N_T, N_Y, N_X),
+                                  np.float32)
+                y0 = np.zeros((self.n_chips, B), np.float32)
+                for i, rows in enumerate(per_chip_fy):
+                    if rows:  # one vectorized copy per chip, not per event
+                        frames[i, : len(rows)] = np.stack(
+                            [fr for fr, _ in rows])
+                        y0[i, : len(rows)] = [z for _, z in rows]
             meta["trace"]["t_encoded"] = self._clock()
-            t0 = self._clock()
-            sparse = self._word_sparse_active()
-            parts = []
-            for fe, c0 in self._lut_ops.slabs_of(self._get_frontend()):
-                rows = slice(c0, c0 + fe.n_chips)
-                score_fn = (fe.score_frames_sparse if sparse
-                            else fe.score_frames_voted)
-                parts.append((c0, score_fn(frames[rows], y0[rows],
-                                           valid=valid[rows])))
-            self._stage("launch_fused", t0)
+            with self._stages.time("launch_fused"):
+                sparse = self._word_sparse_active()
+                parts, starts = [], []
+                for fe, c0 in self._lut_ops.slabs_of(self._get_frontend()):
+                    rows = slice(c0, c0 + fe.n_chips)
+                    score_fn = (fe.score_frames_sparse if sparse
+                                else fe.score_frames_voted)
+                    starts.append(_device_mark(fe.device))
+                    parts.append((c0, score_fn(frames[rows], y0[rows],
+                                               valid=valid[rows],
+                                               stages=self._stages)))
+            meta["dispatch_starts"] = starts
             if sparse:
                 return self._finish_launch_sparse(parts, B, per_chip_seq,
                                                   counts, meta)
@@ -958,30 +978,27 @@ class ReadoutServer:
             n = counts[i]
             frames_i = np.stack([fr for fr, _ in per_chip_fy[i]])
             y0_i = np.asarray([z for _, z in per_chip_fy[i]], np.float32)
-            t0 = self._clock()
-            feats = yp_ops.yprofile(
-                frames_i, y0_i, threshold_electrons=cfg.threshold_electrons,
-                device=self.device).cpu().numpy()
-            self._stage("staged_featurize", t0)
-            t0 = self._clock()
-            bits = chip.encode_features(feats)
-            self._stage("staged_encode", t0)
-            t0 = self._clock()
-            if self._frame_sims[i] is None:
-                self._frame_sims[i] = [
-                    FabricSim(self._replica_configs[i * R + r])
-                    for r in range(R)
-                ]
-            g = np.stack(
-                [np.asarray(sim.run(bits)[0]) for sim in self._frame_sims[i]]
-            )                                           # (R, n, O_i)
-            if R > 1:
-                voted = majority_vote(g[0], g[1], g[2])
-                disagree[i, :, :n] = (g != voted[None]).any(-1)
-            else:
-                voted = g[0]
-            score[i, :n] = chip.synth.decode_outputs(voted)
-            self._stage("staged_score", t0)
+            with self._stages.time("staged_featurize"):
+                feats = yp_ops.yprofile(
+                    frames_i, y0_i,
+                    threshold_electrons=cfg.threshold_electrons,
+                    device=self.device).cpu().numpy()
+            with self._stages.time("staged_encode"):
+                bits = chip.encode_features(feats)
+            with self._stages.time("staged_score"):
+                if self._frame_sims[i] is None:
+                    self._frame_sims[i] = [
+                        FabricSim(self._replica_configs[i * R + r])
+                        for r in range(R)
+                    ]
+                g = np.stack([np.asarray(sim.run(bits)[0])
+                              for sim in self._frame_sims[i]])  # (R, n, O_i)
+                if R > 1:
+                    voted = majority_vote(g[0], g[1], g[2])
+                    disagree[i, :, :n] = (g != voted[None]).any(-1)
+                else:
+                    voted = g[0]
+                score[i, :n] = chip.synth.decode_outputs(voted)
         keep = (score <= self._thr_raw[:, None]) & valid
         dis = (disagree & valid[:, None, :]).sum(-1).astype(np.int64)
         return self._finish_launch([(0, (score, keep, dis))], per_chip_seq,
@@ -994,46 +1011,48 @@ class ReadoutServer:
         decode and trigger cut on the device (``fabric_eval_multi_scored``,
         or its word-domain sparse form with kernel B6), a dispatch a
         slab."""
-        per_chip_seq, per_chip_X, counts, per_chip_t = self._group(events)
-        meta = self._meta(events, per_chip_t)
-        t0 = self._clock()
-        per_chip_bits: List[np.ndarray] = []
-        for i, chip in enumerate(self.chips):
-            if per_chip_X[i]:
-                bits = chip.encode_features(np.stack(per_chip_X[i]))
-            else:
-                bits = np.zeros((0, chip.config.n_inputs), np.uint8)
-            per_chip_bits.append(bits)
-        self._stage("encode_host", t0)
+        with self._stages.time("coalesce"):
+            per_chip_seq, per_chip_X, counts, per_chip_t = self._group(
+                events)
+            meta = self._meta(events, per_chip_t)
+        with self._stages.time("encode_host"):
+            per_chip_bits: List[np.ndarray] = []
+            for i, chip in enumerate(self.chips):
+                if per_chip_X[i]:
+                    bits = chip.encode_features(np.stack(per_chip_X[i]))
+                else:
+                    bits = np.zeros((0, chip.config.n_inputs), np.uint8)
+                per_chip_bits.append(bits)
         meta["trace"]["t_encoded"] = self._clock()
 
-        t0 = self._clock()
-        B = max(counts) if counts else 0
-        if self.config.backend == "kernel":
-            B = self._pad_batch(B)
-            lead = per_chip_bits[0]
-            if len(lead) < B:           # stack_event_bits pads to the max
-                per_chip_bits[0] = np.vstack(
-                    [lead, np.zeros((B - len(lead), lead.shape[1]),
-                                    np.uint8)])
-            valid = self._valid_mask(counts, B)
-            stacked = self._lut_ops.stack_input_bits(self._stack,
-                                                     per_chip_bits)
-            sparse = self._word_sparse_active()
-            parts = self._lut_ops.scored_slabs(
-                self._stack, stacked, self._out_weight, self._thr_raw,
-                valid, batch_tile=self.config.batch_tile, sparse=sparse)
-            self._stage("launch_score", t0)
-            if sparse:
-                return self._finish_launch_sparse(parts, B, per_chip_seq,
-                                                  counts, meta)
-            return self._finish_launch(parts, per_chip_seq, counts, meta)
-        valid = self._valid_mask(counts, B)
-        stacked = stack_event_bits(per_chip_bits, self.geometry.n_inputs)
-        score, keep, dis = self._score_bits_host(stacked, valid)
-        self._stage("launch_score", t0)
-        return self._finish_launch([(0, (score, keep, dis))], per_chip_seq,
-                                   counts, meta)
+        sparse = self._word_sparse_active()
+        with self._stages.time("launch_score"):
+            B = max(counts) if counts else 0
+            if self.config.backend == "kernel":
+                B = self._pad_batch(B)
+                lead = per_chip_bits[0]
+                if len(lead) < B:       # stack_event_bits pads to the max
+                    per_chip_bits[0] = np.vstack(
+                        [lead, np.zeros((B - len(lead), lead.shape[1]),
+                                        np.uint8)])
+                valid = self._valid_mask(counts, B)
+                meta["dispatch_starts"] = [
+                    _device_mark(slab.device)
+                    for slab, _ in self._lut_ops.slabs_of(self._stack)]
+                stacked = self._lut_ops.stack_input_bits(self._stack,
+                                                         per_chip_bits)
+                parts = self._lut_ops.scored_slabs(
+                    self._stack, stacked, self._out_weight, self._thr_raw,
+                    valid, batch_tile=self.config.batch_tile, sparse=sparse)
+            else:
+                valid = self._valid_mask(counts, B)
+                stacked = stack_event_bits(per_chip_bits,
+                                           self.geometry.n_inputs)
+                parts = [(0, self._score_bits_host(stacked, valid))]
+        if sparse:
+            return self._finish_launch_sparse(parts, B, per_chip_seq,
+                                              counts, meta)
+        return self._finish_launch(parts, per_chip_seq, counts, meta)
 
     def _score_bits_host(
         self, stacked: np.ndarray, valid: np.ndarray
@@ -1073,18 +1092,18 @@ class ReadoutServer:
         if not self._sparse_active():
             return self._enqueue("scored", parts, (0, 1, 2), per_chip_seq,
                                  counts, meta)
-        t0 = self._clock()
-        packed = []
-        for c0, (score, keep, dis) in parts:
-            if self.config.backend == "kernel":
-                count, idx, vals = sparse_trigger_pack(score, keep)
-            else:
-                idx = np.flatnonzero(np.asarray(keep).ravel()).astype(
-                    np.int32)
-                vals = np.asarray(score).ravel()[idx].astype(np.int32)
-                count = len(idx)
-            packed.append((c0, (count, idx, vals, dis, int(keep.shape[1]))))
-        self._stage("sparse_pack", t0)
+        with self._stages.time("sparse_pack"):
+            packed = []
+            for c0, (score, keep, dis) in parts:
+                if self.config.backend == "kernel":
+                    count, idx, vals = sparse_trigger_pack(score, keep)
+                else:
+                    idx = np.flatnonzero(np.asarray(keep).ravel()).astype(
+                        np.int32)
+                    vals = np.asarray(score).ravel()[idx].astype(np.int32)
+                    count = len(idx)
+                packed.append((c0, (count, idx, vals, dis,
+                                    int(keep.shape[1]))))
         return self._enqueue("sparse", packed, (0, 3), per_chip_seq, counts,
                              meta)
 
@@ -1106,23 +1125,30 @@ class ReadoutServer:
         of ``parts[i]`` for i in ``to_host`` into pinned memory and record
         a CUDA event after them on the slab's device, so a completed event
         means the slab's copies landed. Results already on the host (host
-        backend, CPU tensors) need no event."""
-        slabs, ready = [], []
-        for c0, p in parts:
-            dev = next((x.device for x in p
-                        if torch.is_tensor(x) and x.is_cuda), None)
-            if dev is not None:
-                with torch.cuda.device(dev):
-                    p = tuple(
-                        torch.empty(x.shape, dtype=x.dtype,
-                                    pin_memory=True).copy_(
-                            x, non_blocking=True) if i in to_host else x
-                        for i, x in enumerate(p))
-                    ev = torch.cuda.Event()
-                    ev.record(torch.cuda.current_stream(dev))
-                ready.append(ev)
-            slabs.append((c0, p))
-        return kind, slabs, per_chip_seq, counts, ready, meta
+        backend, CPU tensors) need no event. The event is timed: with the
+        slab's start mark (``meta["dispatch_starts"]``) it brackets the
+        slab's dispatch on the device (``dispatch_device``)."""
+        with self._stages.time("enqueue_d2h"):
+            starts = meta.pop("dispatch_starts", None) or [None] * len(parts)
+            slabs, ready, pairs = [], [], []
+            for (c0, p), start in zip(parts, starts):
+                dev = next((x.device for x in p
+                            if torch.is_tensor(x) and x.is_cuda), None)
+                if dev is not None:
+                    with torch.cuda.device(dev):
+                        p = tuple(
+                            torch.empty(x.shape, dtype=x.dtype,
+                                        pin_memory=True).copy_(
+                                x, non_blocking=True) if i in to_host else x
+                            for i, x in enumerate(p))
+                        ev = torch.cuda.Event(enable_timing=True)
+                        ev.record(torch.cuda.current_stream(dev))
+                    ready.append(ev)
+                    if start is not None:
+                        pairs.append((start, ev))
+                slabs.append((c0, p))
+            meta["dispatch_events"] = pairs
+            return kind, slabs, per_chip_seq, counts, ready, meta
 
     def _bind_copy_streams(self) -> None:
         """A side stream for every card of the plan (kept across
@@ -1175,18 +1201,43 @@ class ReadoutServer:
 
     def _drain_one(self) -> List[ScoredEvent]:
         """Materialize the OLDEST in-flight batch and fold it into the
-        reports (``drain_wait`` is the host-visible blocking time). With
-        sparse egress only the count prefix of the packed (idx, score)
-        pair crosses the host link: the measured wire bytes. The slabs'
-        results are merged here, in slab order: a sparse batch is one
-        packet of ascending flat indices over the whole (C, B)."""
+        reports. ``drain_wait`` is the sync plus the fold: its child
+        ``drain_wait.sync`` is the host blocked on the batch's CUDA
+        events, ``drain_wait.fold`` the host work on the results (the
+        kept-prefix copies, the slab merge, a ``ScoredEvent`` an event,
+        the disagreement fold); ``observe`` follows (the latency ledger
+        and the result sort). With sparse egress only the count prefix of
+        the packed (idx, score) pair crosses the host link: the measured
+        wire bytes. The slabs' results are merged here, in slab order: a
+        sparse batch is one packet of ascending flat indices over the
+        whole (C, B)."""
         if not self._inflight:
             return []
         (kind, slabs, per_chip_seq, counts, ready,
          meta) = self._inflight.popleft()
-        t0 = self._clock()
-        for ev in ready:
-            ev.synchronize()                            # blocks here
+        with self._stages.time("drain_wait"):
+            with self._stages.time("drain_wait.sync"):
+                for ev in ready:
+                    ev.synchronize()                    # blocks here
+            with self._stages.time("drain_wait.fold"):
+                results = self._fold_batch(kind, slabs, per_chip_seq,
+                                           counts, meta)
+        self._n_scored += len(results)
+        t_done = self._clock()      # the host has seen the batch complete
+        self._t_last = t_done
+        with self._stages.time("observe"):
+            self._observe_batch(meta, t_done)
+            results.sort(key=lambda r: r.seq)
+        return results
+
+    def _fold_batch(self, kind, slabs, per_chip_seq, counts,
+                    meta) -> List[ScoredEvent]:
+        """A completed batch's results on the host, folded into the
+        per-chip counters, the link bytes and the disagreement counters;
+        the device seconds of each of its slabs' dispatches."""
+        for start, end in meta.get("dispatch_events", ()):
+            self._stages.add("dispatch_device",
+                             start.elapsed_time(end) * 1e-3)
         results: List[ScoredEvent] = []
         n_events = int(sum(counts))
         self._link_bytes_dense += DENSE_BYTES_PER_EVENT * n_events
@@ -1224,12 +1275,6 @@ class ReadoutServer:
                                     score[i, :n].astype(np.int64),
                                     keep[i, :n])
         self._fold_disagreements(dis)
-        self._stage("drain_wait", t0)
-        self._n_scored += len(results)
-        t_done = self._clock()      # the host has seen the batch complete
-        self._t_last = t_done
-        self._observe_batch(meta, t_done)
-        results.sort(key=lambda r: r.seq)
         return results
 
     def _fold_chip(self, results, i, seqs, scores, keep) -> None:
@@ -1396,13 +1441,12 @@ class ReadoutServer:
         pending, self._deferred_heals = self._deferred_heals, []
         if not pending:
             return
-        t0 = self._clock()
-        for slot, replica in pending:
-            image = self.readback_frame(slot, replica)
-            if not self._golden.verify(slot, replica, image):
-                self._scrub_healed_bits += self._heal_frame(
-                    slot, replica, image)
-        self._stage("scrub", t0)
+        with self._stages.time("scrub"):
+            for slot, replica in pending:
+                image = self.readback_frame(slot, replica)
+                if not self._golden.verify(slot, replica, image):
+                    self._scrub_healed_bits += self._heal_frame(
+                        slot, replica, image)
 
     # ------------------------------------------------------- reconfigure
     def reconfigure(self, slot: int, new_chip: ReadoutChip) -> List[ScoredEvent]:
@@ -1556,34 +1600,33 @@ class ReadoutServer:
         record per healed (or, under scrub_crc_only, deferred) frame:
         {"slot", "replica", "healed_bits", "detection_latency_dispatches"}.
         """
-        t0 = self._clock()
-        healed: List[Dict[str, int]] = []
-        # never wait here for a copy behind the batch just launched; a
-        # sample still pending after one full frame cycle is forced
-        n_frames = self.n_chips * self.n_replicas
-        still_pending: Deque[_Readback] = collections.deque()
-        while self._scrub_pending:
-            entry = self._scrub_pending.popleft()
-            ready = entry.ready is None or entry.ready.query()
-            if ready or len(self._scrub_pending) >= n_frames:
-                rec = self._resolve_readback(entry)
-                if rec:
-                    healed.append(rec)
-            else:
-                still_pending.append(entry)
-        self._scrub_pending = still_pending
-        R = self.n_replicas
-        if self.config.scrub_mode == "steered":
-            healed.extend(self._scrub_steered_check())
-        f = self._scrub_rr
-        self._scrub_rr = (f + 1) % n_frames
-        if self._scrub_rr == 0:
-            self._scrub_cycles += 1
-        rec = self._issue_scrub(f // R, f % R)
-        if rec:
-            healed.append(rec)
-        self._scrub_steps += 1
-        self._stage("scrub", t0)
+        with self._stages.time("scrub"):
+            healed: List[Dict[str, int]] = []
+            # never wait here for a copy behind the batch just launched; a
+            # sample still pending after one full frame cycle is forced
+            n_frames = self.n_chips * self.n_replicas
+            still_pending: Deque[_Readback] = collections.deque()
+            while self._scrub_pending:
+                entry = self._scrub_pending.popleft()
+                ready = entry.ready is None or entry.ready.query()
+                if ready or len(self._scrub_pending) >= n_frames:
+                    rec = self._resolve_readback(entry)
+                    if rec:
+                        healed.append(rec)
+                else:
+                    still_pending.append(entry)
+            self._scrub_pending = still_pending
+            R = self.n_replicas
+            if self.config.scrub_mode == "steered":
+                healed.extend(self._scrub_steered_check())
+            f = self._scrub_rr
+            self._scrub_rr = (f + 1) % n_frames
+            if self._scrub_rr == 0:
+                self._scrub_cycles += 1
+            rec = self._issue_scrub(f // R, f % R)
+            if rec:
+                healed.append(rec)
+            self._scrub_steps += 1
         return healed
 
     def scrub_flush(self) -> List[Dict[str, int]]:
@@ -1724,13 +1767,43 @@ class ReadoutServer:
         latency in dispatches), the latency histograms (p50/p99/p99.9, a
         CDF and the last drained batch's stage trace), the deadline
         ledger with the adaptive coalescer's knobs and the degrade
-        ladder, and the per-stage host timing (seconds and calls per
-        stage; the fused pass is one ``launch_fused`` entry, the staged
-        host path itemizes it), and the network front door's accounting
-        (``net``: the attached door's ``stats()``, else ``{"attached":
-        False}``). The same keys as the JAX package's report, and
-        ``slabs``: each slab's device and chips [first, end) (kernel
-        backend; empty on the host backend)."""
+        ladder, the per-stage timing (``stages``, below), and the network
+        front door's accounting (``net``: the attached door's
+        ``stats()``, else ``{"attached": False}``). The same keys as the
+        JAX package's report, and ``slabs``: each slab's device and chips
+        [first, end) (kernel backend; empty on the host backend).
+
+        ``stages`` maps a key to its host seconds and calls (a key runs
+        only where its path does; a dotted key is a child of the key
+        before the dot, indentation is nesting)::
+
+            submit              submit_frames / submit_batch, a call
+            poll                the whole body of poll()
+              coalesce          the queue take and kind split; each
+                                pass's grouping and batch meta
+              stack_frames      frames: the padded host staging
+              launch_fused      frames: the fused pass's launches, a
+                                dispatch
+                launch_fused.h2d  a slab's host-blocking copies into
+                                device staging, with the pad zeroing
+              encode_host       features: host quantize + bits
+              launch_score      features: the scoring pass's launches
+              staged_featurize, staged_encode, staged_score
+                                frames on the host backend
+              sparse_pack       dense results packed for sparse egress
+              enqueue_d2h       pinned buffers, async copies, CUDA events
+              drain_wait        a batch drained: sync plus fold
+                drain_wait.sync   the host blocked on the batch's events
+                drain_wait.fold   kept prefixes, merge, ScoredEvents,
+                                disagreements
+              observe           the latency ledger, the result sort
+              scrub             scrub steps (also in flush, and inside
+                                observe when the ladder applies deferred
+                                heals)
+            dispatch_device     DEVICE seconds a slab's dispatch, from a
+                                CUDA event pair (CUDA slabs only)
+
+        ``flush`` runs the same stages outside ``poll``."""
         cfg = self.config
         per_chip = []
         for i, st in enumerate(self._stats):
@@ -1836,10 +1909,7 @@ class ReadoutServer:
                     "deferred_heals_pending": len(self._deferred_heals),
                 },
             },
-            "stages": {
-                k: {"seconds": self._stage_s[k], "calls": self._stage_n[k]}
-                for k in sorted(self._stage_s)
-            },
+            "stages": self._stages.report(),
             "net": (self._net_stats_provider()
                     if self._net_stats_provider is not None
                     else {"attached": False}),

@@ -658,6 +658,37 @@ def test_scrub_readback_resolves_without_a_stream_synchronisation(
     assert all(server.verify_frame(s, r) for s in range(2) for r in range(3))
 
 
+@pytest.mark.parametrize("slabs", [1, 2])
+def test_dispatch_device_seconds_lie_inside_the_wall_time(card, slabs):
+    """A served TMR sparse stream on the card: each slab's dispatch adds
+    one ``dispatch_device`` call, whose CUDA event pair reads more than
+    zero and, summed, no more than the host's wall time around the
+    whole stream."""
+    import time
+
+    from repro_torch.launch.mesh import ReadoutMesh
+    from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
+
+    chips, frames, y0 = card
+    server = ReadoutServer(chips, ServerConfig(
+        max_batch=512, redundancy="tmr", sparse=True, scrub_interval=4),
+        device="cuda",
+        mesh=ReadoutMesh((torch.device("cuda:0"),) * slabs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(8):
+        for s in range(2):
+            server.submit_frames(s, frames[s], y0[s])
+        server.poll()
+    server.flush()
+    wall = time.perf_counter() - t0
+    st = server.report()["stages"]
+    assert st["dispatch_device"]["calls"] == 8 * slabs
+    assert st["launch_fused"]["calls"] == 8
+    assert st["launch_fused.h2d"]["calls"] == 8 * slabs
+    assert 0.0 < st["dispatch_device"]["seconds"] <= wall
+
+
 def test_tcp_replay_against_a_door_over_a_card_server(card):
     """The port's front door over a ServerConfig() server on the card,
     one TCP replay client a chip on loopback: every trigger verified
