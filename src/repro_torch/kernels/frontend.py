@@ -30,19 +30,25 @@ its own device: its stack rows, plan rows and staging buffers, and its
 launches, there. The readout server dispatches the slabs one by one and
 merges their results on the host at its drain.
 
-Staging: the (frames, y0) of a dispatch are copied into a preallocated
-device buffer (a slab's, on its device) that is reused while the padded
-shape stays the same (the readout server pads batches to powers of two,
-so the set of shapes is small). Reuse is safe across in-flight dispatches because every copy and
-kernel runs in order on one stream. The copy is a blocking copy from
-pageable host memory, so it also waits for the batches queued before it:
-device work of one batch overlaps only the host work that follows its
-copy.
+Staging: a dispatch's input is its real rows (``FrameRows``): each
+chip's events, chip-major and contiguous, with the per-chip counts; a
+padded (C, B, ...) array is the case where every count is B. Each chip's
+rows are copied into a preallocated padded device buffer (a slab's, on
+its device), reused while the padded shape stays the same (the readout
+server pads batch widths to powers of two, so the set of shapes is
+small); the rows past a chip's count are zeroed and marked invalid on the
+device, so the kernels read the same padded buffers whatever was staged
+before. Reuse is safe across in-flight dispatches because every copy and
+kernel runs in order on one stream. The readout server stages from a
+``StagingRing`` of pinned host buffers: the copies are asynchronous, and
+a CUDA event recorded behind them guards the ring slot until they have
+landed, so the host fills the next slot while the device copies.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+import itertools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -191,6 +197,89 @@ def _score_frames_impl(
 
 
 @dataclasses.dataclass(frozen=True)
+class FrameRows:
+    """A dispatch's real frame rows, chip-major: chip i's ``counts[i]``
+    events are rows ``offsets[i]`` on of ``frames`` (N, T, Y, X) and
+    ``y0`` (N,), float32 tensors; ``width`` is the dispatch's batch width,
+    at least every count. ``events`` is the host buffer's guard (a
+    ``StagingRing`` slot's list): every slab that copies out of it to a
+    CUDA device records an event there behind its copies. None: nothing
+    to guard."""
+
+    frames: torch.Tensor
+    y0: torch.Tensor
+    counts: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+    width: int
+    events: Optional[List] = None
+
+    @classmethod
+    def padded(cls, frames, y0) -> "FrameRows":
+        """A padded (C, B, T, Y, X) + (C, B) dispatch: every chip's count
+        is B."""
+        f = torch.as_tensor(frames, dtype=torch.float32)
+        z = torch.as_tensor(y0, dtype=torch.float32)
+        C, B = f.shape[0], f.shape[1]
+        return cls(f.reshape(C * B, *f.shape[2:]), z.reshape(C * B),
+                   (B,) * C, tuple(i * B for i in range(C)), B)
+
+    def chips(self, c0: int, n: int) -> "FrameRows":
+        """The rows of chips [c0, c0 + n) (a slab's), the same buffer."""
+        return dataclasses.replace(self, counts=self.counts[c0 : c0 + n],
+                                   offsets=self.offsets[c0 : c0 + n])
+
+
+class StagingRing:
+    """Reused host buffers for dispatches' frame rows: ``n_slots`` slots
+    taken in turn, each a (frames (cap, T, Y, X), y0 (cap,)) float32 pair,
+    page-locked when ``pinned`` (copies out of it then run asynchronously)
+    and grown to the next power of two of rows a dispatch needs.
+
+    A slot is refilled only once the copies out of it have landed:
+    ``take`` waits on the CUDA events recorded behind them, timed as
+    ``stack_frames.ring_wait`` on ``stages`` when one has not completed.
+    With more slots than dispatches in flight, a fill never waits."""
+
+    def __init__(self, n_slots: int, *, pinned: bool):
+        self.pinned = pinned
+        self._slots: List[Optional[FrameRows]] = [None] * n_slots
+        self._next = 0
+
+    def take(self, counts: Sequence[int], width: int,
+             stages: Stages = SPANS) -> FrameRows:
+        """The next slot, free to refill, laid out for ``counts`` rows a
+        chip (chip-major, no gaps) at batch width ``width``."""
+        i = self._next
+        self._next = (i + 1) % len(self._slots)
+        slot = self._slots[i]
+        n_rows = int(sum(counts))
+        if slot is not None:
+            if not all(ev.query() for ev in slot.events):
+                with stages.time("stack_frames.ring_wait"):
+                    for ev in slot.events:
+                        ev.synchronize()
+            slot.events.clear()
+        if slot is None or len(slot.frames) < n_rows:
+            cap = 1 << (max(n_rows, 1) - 1).bit_length()
+            slot = FrameRows(
+                torch.empty((cap, N_T, N_Y, N_X), dtype=torch.float32,
+                            pin_memory=self.pinned),
+                torch.empty((cap,), dtype=torch.float32,
+                            pin_memory=self.pinned),
+                (), (), 0, [])
+            self._slots[i] = slot
+        counts = tuple(int(n) for n in counts)
+        return dataclasses.replace(
+            slot, counts=counts, width=int(width),
+            offsets=tuple(itertools.accumulate(counts[:-1], initial=0)))
+
+
+def _as_rows(frames, y0) -> FrameRows:
+    return frames if isinstance(frames, FrameRows) else FrameRows.padded(
+        frames, y0)
+
+
+@dataclasses.dataclass(frozen=True)
 class FusedFrontend:
     """N configured chips' whole frontends, one asynchronous dispatch.
 
@@ -232,52 +321,58 @@ class FusedFrontend:
         return score, keep
 
     def score_frames_voted(
-        self, frames, y0, valid=None, *, stages: Stages = SPANS
+        self, frames, y0=None, valid=None, *, stages: Stages = SPANS
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Like ``score_frames`` plus disagree_counts (C, n_replicas) int32:
-        events (among ``valid`` rows; None = all rows) where that replica's
-        output word was voted against. The staging copies are timed as
-        ``launch_fused.h2d`` on ``stages``."""
-        C, B = np.shape(frames)[0], np.shape(frames)[1]
-        f, z, v = self._stage(frames, y0, valid, stages)
+        events (among ``valid`` rows; None = every chip's real rows) where
+        that replica's output word was voted against. ``frames`` is the
+        padded (C, B, T, Y, X) charge with ``y0`` (C, B), or a dispatch's
+        ``FrameRows`` (``y0`` None); results are (C, width). The staging
+        copies are timed as ``launch_fused.h2d`` on ``stages``."""
+        rows = _as_rows(frames, y0)
+        f, z, v = self._stage(rows, valid, stages)
         score, keep, dis = _score_frames_impl(
             f, z, self.stack, self.plan, v,
             threshold_electrons=self.threshold_electrons)
-        return score[:, :B], keep[:, :B], dis
+        return score[:, :rows.width], keep[:, :rows.width], dis
 
     def score_frames_sparse(
-        self, frames, y0, valid=None, *, stages: Stages = SPANS
+        self, frames, y0=None, valid=None, *, stages: Stages = SPANS
     ) -> Tuple[torch.Tensor, ...]:
         """Word-domain sparse egress form of ``score_frames_voted``
-        (bit-sliced stacks only): the trigger cut, SEU counters and the
-        popcount prefix-sum compaction run on sliced words in the same
-        asynchronous pass (K1, quantize, bit gather, K2, B6), so dropped
-        events are never transposed back to event order.
+        (bit-sliced stacks only; the same inputs): the trigger cut, SEU
+        counters and the popcount prefix-sum compaction run on sliced
+        words in the same asynchronous pass (K1, quantize, bit gather, K2,
+        B6), so dropped events are never transposed back to event order.
 
         Returns (count () int32, idx (C*B,) int32 ascending flat indices
         ``chip*B + event`` -1 padded, vals (C*B,) int32 kept scores 0
         padded, dis (C, R) int32), the ``parallel.compression`` wire
-        format. Nothing synchronises: slice ``idx[:count]`` after the
-        pass has finished to ship exactly the kept events. The staging
-        copies are timed as ``launch_fused.h2d`` on ``stages``."""
+        format, B the batch width. Nothing synchronises: slice
+        ``idx[:count]`` after the pass has finished to ship exactly the
+        kept events. The staging copies are timed as ``launch_fused.h2d``
+        on ``stages``."""
         if self.stack.src is None:
             raise ValueError(
                 "sparse frame scoring needs the word domain: pack the "
                 "frontend with layout='bitsliced'")
-        C, B = np.shape(frames)[0], np.shape(frames)[1]
-        f, z, v = self._stage(frames, y0, valid, stages)
+        rows = _as_rows(frames, y0)
+        f, z, v = self._stage(rows, valid, stages)
         count, idx, vals, dis = _score_frames_impl(
             f, z, self.stack, self.plan, v,
             threshold_electrons=self.threshold_electrons, sparse=True)
-        Bp = f.shape[1]
+        C, B, Bp = self.n_chips, rows.width, f.shape[1]
         if Bp != B:
             idx, vals = lut_ops.restride(idx, vals, C, B, Bp)
         return count, idx, vals, dis
 
-    def _stage(self, frames, y0, valid, stages: Stages):
-        """Copy one dispatch's inputs into the (reused) padded device
-        staging buffers; rows past B are zero and invalid."""
-        C, B = np.shape(frames)[0], np.shape(frames)[1]
+    def _stage(self, rows: FrameRows, valid, stages: Stages):
+        """Copy each chip's real rows into the (reused) padded device
+        staging buffers, asynchronously where ``rows`` is pinned; zero the
+        rows past each chip's count and mark the real rows valid (or
+        ``valid``'s (C, width) rows, given), on the device. Where ``rows``
+        carries its slot's events, record one behind the copies."""
+        C, B = len(rows.counts), rows.width
         assert C == self.n_chips, (C, self.n_chips)
         Bp = -(-max(B, 1) // self.batch_tile) * self.batch_tile
         with stages.time("launch_fused.h2d"):
@@ -291,16 +386,25 @@ class FusedFrontend:
                         torch.zeros((C, Bp), dtype=torch.bool, device=dev))
                 self.staging[(C, Bp)] = bufs
             f, z, v = bufs
-            f[:, :B].copy_(torch.as_tensor(frames, dtype=torch.float32))
-            z[:, :B].copy_(torch.as_tensor(y0, dtype=torch.float32))
-            if Bp != B:
-                f[:, B:].zero_()
-                z[:, B:].zero_()
-                v[:, B:].fill_(False)
-            if valid is None:
-                v[:, :B].fill_(True)
-            else:
+            for i, (n, o) in enumerate(zip(rows.counts, rows.offsets)):
+                if n:
+                    f[i, :n].copy_(rows.frames[o : o + n], non_blocking=True)
+                    z[i, :n].copy_(rows.y0[o : o + n], non_blocking=True)
+            if rows.events is not None and f.is_cuda:
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(f.device))
+                rows.events.append(ev)
+            for i, n in enumerate(rows.counts):
+                if n < Bp:
+                    f[i, n:].zero_()
+                    z[i, n:].zero_()
+                    if valid is None:
+                        v[i, n:].fill_(False)
+                if n and valid is None:
+                    v[i, :n].fill_(True)
+            if valid is not None:
                 v[:, :B].copy_(torch.as_tensor(valid, dtype=torch.bool))
+                v[:, B:].fill_(False)
         return f, z, v
 
     def swap_chip(

@@ -51,7 +51,10 @@ merged on the host at the drain, bit-identical to one slab's. Hot swaps,
 fault injection, readbacks and heals go to the slab that owns the chip,
 and ``rebind_mesh`` moves the slabs to another plan.
 
-Pipelining: every launch enqueues its work on its device's current CUDA
+Pipelining: a frames dispatch stages only its real rows, into a slot of
+a ring of pinned host buffers, and copies them to the device without
+blocking; a CUDA event behind the copies guards the slot until it comes
+round again. Every launch enqueues its work on its device's current CUDA
 stream, copies its small results (dense score/keep/disagree, or the
 sparse count and disagree counts) into pinned host memory without
 blocking, and records a CUDA event a slab behind them; ``poll`` retires a
@@ -530,6 +533,7 @@ class ReadoutServer:
             [c.score_threshold_raw for c in self.chips], np.int32)
         self._stack = None
         self._frontend = None  # fused frames pass, built on first use
+        self._ring = None  # its host staging ring, made at first use
         # a side stream a card for the drain's kept-prefix copies
         self._copy_streams: Dict[torch.device, object] = {}
         # the pinned envelope as the stack and the encode plan take it
@@ -935,31 +939,21 @@ class ReadoutServer:
             meta = self._meta(events, per_chip_t)
         cfg = self.config
         B = max(counts) if counts else 0
-        if cfg.backend == "kernel":
-            B = self._pad_batch(B)
-        valid = self._valid_mask(counts, B)
 
         if cfg.backend == "kernel":
+            B = self._pad_batch(B)
+            slabs = self._lut_ops.slabs_of(self._get_frontend())
             with self._stages.time("stack_frames"):
-                frames = np.zeros((self.n_chips, B, N_T, N_Y, N_X),
-                                  np.float32)
-                y0 = np.zeros((self.n_chips, B), np.float32)
-                for i, rows in enumerate(per_chip_fy):
-                    if rows:  # one vectorized copy per chip, not per event
-                        frames[i, : len(rows)] = np.stack(
-                            [fr for fr, _ in rows])
-                        y0[i, : len(rows)] = [z for _, z in rows]
+                rows = self._stage_rows(per_chip_fy, counts, B, slabs)
             meta["trace"]["t_encoded"] = self._clock()
             with self._stages.time("launch_fused"):
                 sparse = self._word_sparse_active()
                 parts, starts = [], []
-                for fe, c0 in self._lut_ops.slabs_of(self._get_frontend()):
-                    rows = slice(c0, c0 + fe.n_chips)
+                for fe, c0 in slabs:
                     score_fn = (fe.score_frames_sparse if sparse
                                 else fe.score_frames_voted)
                     starts.append(_device_mark(fe.device))
-                    parts.append((c0, score_fn(frames[rows], y0[rows],
-                                               valid=valid[rows],
+                    parts.append((c0, score_fn(rows.chips(c0, fe.n_chips),
                                                stages=self._stages)))
             meta["dispatch_starts"] = starts
             if sparse:
@@ -969,6 +963,7 @@ class ReadoutServer:
 
         from repro_torch.kernels.yprofile import ops as yp_ops
 
+        valid = self._valid_mask(counts, B)
         R = self.n_replicas
         score = np.zeros((self.n_chips, B), np.int64)
         disagree = np.zeros((self.n_chips, R, B), bool)
@@ -1003,6 +998,30 @@ class ReadoutServer:
         dis = (disagree & valid[:, None, :]).sum(-1).astype(np.int64)
         return self._finish_launch([(0, (score, keep, dis))], per_chip_seq,
                                    counts, meta)
+
+    def _stage_rows(self, per_chip_fy, counts: List[int], B: int, slabs):
+        """``stack_frames``: each chip's real (frame, y0) rows, chip-major
+        with no padding, into the next slot of the staging ring (pinned
+        where a slab is on a card; ``pipeline_depth + 2`` slots, so a
+        slot's copies have landed by the time it comes round again)."""
+        from repro_torch.kernels.frontend import StagingRing
+
+        pinned = any(fe.device.type == "cuda" for fe, _ in slabs)
+        if self._ring is None or self._ring.pinned != pinned:
+            self._ring = StagingRing(self.config.pipeline_depth + 2,
+                                     pinned=pinned)
+        rows = self._ring.take(counts, B, self._stages)
+        # the slot as (rows * T, Y, X): the frames concatenate along T
+        # into it, with no wrapper array an event (as np.stack makes)
+        frames = rows.frames.numpy().reshape(-1, N_Y, N_X)
+        y0 = rows.y0.numpy()
+        for o, events in zip(rows.offsets, per_chip_fy):
+            if events:
+                n = len(events)
+                np.concatenate([fr for fr, _ in events],
+                               out=frames[o * N_T : (o + n) * N_T])
+                y0[o : o + n] = [z for _, z in events]
+        return rows
 
     def _launch_features(self, events: List[_Event]) -> _Inflight:
         """Features path: host encoding (quantize + offset-binary bits,
@@ -1781,11 +1800,16 @@ class ReadoutServer:
             poll                the whole body of poll()
               coalesce          the queue take and kind split; each
                                 pass's grouping and batch meta
-              stack_frames      frames: the padded host staging
+              stack_frames      frames: the fill of a staging-ring
+                                slot with the real rows only
+                stack_frames.ring_wait  the host blocked on the slot's
+                                earlier copies (only when one had not
+                                landed)
               launch_fused      frames: the fused pass's launches, a
                                 dispatch
-                launch_fused.h2d  a slab's host-blocking copies into
-                                device staging, with the pad zeroing
+                launch_fused.h2d  a slab: issuing its asynchronous copies
+                                out of the slot, the pad zeroing and
+                                the valid mask on the device
               encode_host       features: host quantize + bits
               launch_score      features: the scoring pass's launches
               staged_featurize, staged_encode, staged_score

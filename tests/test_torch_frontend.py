@@ -154,6 +154,43 @@ def test_padding_rows_are_invalid_and_sliced(farm):
     assert (70, 128) == (score.shape[1], pf.staging[(3, 128)][0].shape[1])
 
 
+# two dispatches of real rows, one after the other: (first frame, count)
+# a chip; the second's counts leave rows of the first to be zeroed again
+STAGED_DISPATCHES = (((0, 70), (0, 0), (0, 128)),
+                     ((100, 5), (0, 128), (0, 0)))
+
+
+@pytest.mark.parametrize("egress", ["voted", "sparse"])
+def test_staged_rows_equal_the_padded_path(farm, egress):
+    """One frontend stages two dispatches of real rows from a staging
+    ring, chip-major with no padding: after each, its staging buffers
+    (frames, y0, valid) hold what a padded (C, 128) dispatch of the same
+    rows stages, and the results equal the padded call's."""
+    pairs, fr, y0, _, _ = farm
+    C, W = len(pairs), 128
+    pf, ref = _port_frontend(pairs, "tmr"), _port_frontend(pairs, "tmr")
+    ring = port_fe.StagingRing(2, pinned=False)
+    for picks in STAGED_DISPATCHES:
+        counts = [n for _, n in picks]
+        rows = ring.take(counts, W)
+        assert rows.offsets == tuple(np.cumsum([0] + counts[:-1]))
+        fp = np.zeros((C, W, 8, 13, 21), np.float32)
+        zp = np.zeros((C, W), np.float32)
+        for c, ((lo, n), o) in enumerate(zip(picks, rows.offsets)):
+            rows.frames.numpy()[o : o + n] = fr[c, lo : lo + n]
+            rows.y0.numpy()[o : o + n] = y0[c, lo : lo + n]
+            fp[c, :n], zp[c, :n] = fr[c, lo : lo + n], y0[c, lo : lo + n]
+        valid = np.arange(W)[None, :] < np.asarray(counts)[:, None]
+        got = getattr(pf, f"score_frames_{egress}")(rows)
+        want = getattr(ref, f"score_frames_{egress}")(fp, zp, valid=valid)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        f, z, v = pf.staging[(C, W)]
+        assert torch.equal(f, torch.as_tensor(fp))
+        assert torch.equal(z, torch.as_tensor(zp))
+        assert torch.equal(v, torch.as_tensor(valid))
+
+
 def test_swap_chip_and_threshold_update_plan_rows(farm):
     pairs, fr, y0, _, _ = farm
     pf = _port_frontend(pairs, "tmr")

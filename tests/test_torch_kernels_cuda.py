@@ -17,7 +17,9 @@ sparse-egress kernel B6 (its three entries, on the walk's real words and
 on chip_smoke's synthetic words, keep fractions and decode rows; each one
 kernel and no memset a call, by the profiler; its look-back state across
 graph replays and shape changes) and the fused frontend downstream of
-identical features are exact. A TCP replay through the port's front door
+identical features are exact. A served stream staged from the pinned
+ring equals the host oracle, and a ring slot is refilled only once its
+queued copy has landed. A TCP replay through the port's front door
 over a card server verifies every trigger against the host oracle. A
 server split into two and four slabs on ``cuda:0`` serves exactly as one
 slab does, and as the CPU from identical features; every kernel wrapper
@@ -687,6 +689,73 @@ def test_dispatch_device_seconds_lie_inside_the_wall_time(card, slabs):
     assert st["launch_fused"]["calls"] == 8
     assert st["launch_fused.h2d"]["calls"] == 8 * slabs
     assert 0.0 < st["dispatch_device"]["seconds"] <= wall
+
+
+def test_served_stream_from_the_pinned_ring_equals_the_oracle(card):
+    """A TMR sparse stream (bit-sliced, ``pipeline_depth`` 2, scrub every
+    4 dispatches) served for 12 dispatches, three times the ring's 4
+    slots, poll only until the flush: every kept event and its score are
+    the host oracle's, and no fill waited on the ring (a slot comes round
+    only after its batch, copies first, has drained)."""
+    from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
+
+    chips, frames, y0 = card
+    feats = [yp.yprofile(frames[i], y0[i], device="cuda").cpu().numpy()
+             .astype(np.float64) for i in range(2)]
+    chips = _cut_at_median(chips, feats)
+    server = ReadoutServer(chips, ServerConfig(
+        max_batch=256, layout="bitsliced", redundancy="tmr", sparse=True,
+        scrub_interval=4, pipeline_depth=2), device="cuda")
+    want, got = {}, []
+    oracle = [_card_oracle(chips[c], frames[c], y0[c]) for c in range(2)]
+    for k in range(12):
+        c = k % 2
+        for seq, score, keep in zip(
+                server.submit_frames(c, frames[c], y0[c]), *oracle[c]):
+            if keep:
+                want[seq] = (c, int(score))
+        got.extend(server.poll())
+    got.extend(server.flush())
+    assert {r.seq: (r.chip, r.score_raw) for r in got} == want
+    assert all(r.keep for r in got) and 0 < len(want) < 12 * 256
+    st = server.report()["stages"]
+    assert st["launch_fused"]["calls"] == 12
+    assert "stack_frames.ring_wait" not in st
+    assert server._ring.pinned and len(server._ring._slots) == 4
+
+
+def test_ring_slot_refill_waits_for_its_queued_copy(card):
+    """A one-slot ring whose copy is queued behind a long device sleep:
+    refilling the slot counts one ``stack_frames.ring_wait`` call, and
+    the device staging buffer holds the first fill's rows, not the
+    second's."""
+    import time
+
+    from repro_torch.stages import Stages
+
+    chips, frames, y0 = card
+    front = fe.pack_frontend([c.config for c in chips],
+                             [c.frontend_spec() for c in chips],
+                             layout="bitsliced", device="cuda")
+    front.score_frames_voted(frames, y0)    # builds and loads the kernels
+    stages = Stages(time.perf_counter)
+    ring = fe.StagingRing(1, pinned=True)
+    rows = ring.take((256, 256), 256, stages)
+    rows.frames.numpy()[:] = frames.reshape(512, 8, 13, 21)
+    rows.y0.numpy()[:] = y0.reshape(512)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 28)          # ~0.1 s ahead of the copies
+    front.score_frames_voted(rows, stages=stages)
+    assert len(rows.events) == 1 and not rows.events[0].query()
+    again = ring.take((256, 256), 256, stages)
+    assert again.frames.data_ptr() == rows.frames.data_ptr()
+    assert stages.calls["stack_frames.ring_wait"] == 1
+    again.frames.numpy()[:] = -1.0
+    again.y0.numpy()[:] = -1.0
+    torch.cuda.synchronize()
+    f, z, _ = front.staging[(2, 256)]
+    assert torch.equal(f.cpu(), torch.as_tensor(frames))
+    assert torch.equal(z.cpu(), torch.as_tensor(y0))
 
 
 def test_tcp_replay_against_a_door_over_a_card_server(card):

@@ -11,7 +11,11 @@ each parent's seconds cover its children's; the keys that existed before
 count one call a dispatch, drain or scrub as they did. Under
 ``torch.profiler`` the trace holds ``readout.*`` spans nested in
 ``readout.poll`` (and the check path's five spans); with no profiler
-recording no ``record_function`` is entered.
+recording no ``record_function`` is entered. ``stack_frames.ring_wait``
+(the fill of a staging-ring slot whose earlier copies have not landed)
+is absent on the CPU, whose copies are synchronous; on a ring of one
+slot whose copies never report landed it counts every fill after the
+first, and its span nests in ``readout.stack_frames``.
 """
 import functools
 import json
@@ -26,6 +30,7 @@ from repro_torch.core.readout import KernelBackend, ReadoutChip
 from repro_torch.data.pipeline import FrameStream, FrameStreamConfig
 from repro_torch.data.smartpixel import SmartPixelConfig, generate
 from repro_torch.data.smartpixel import train_test_split
+from repro_torch.kernels.frontend import StagingRing
 from repro_torch.launch.mesh import ReadoutMesh
 from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
 
@@ -114,6 +119,8 @@ def test_every_stage_key_of_the_served_loop(case):
                 "staged_score"} <= keys
         assert "sparse_pack" in keys or not kw.get("sparse")
     assert ("scrub" in keys) == ("scrub_interval" in kw)
+    # the CPU's copies are synchronous: no fill waits on the ring
+    assert "stack_frames.ring_wait" not in keys
     # device seconds come from CUDA event pairs only
     assert "dispatch_device" not in keys
 
@@ -216,6 +223,55 @@ def test_profiler_trace_nests_stage_spans_in_poll(tmp_path):
             assert any(_inside(s, p) for p in launches), s
     # spans follow the stages: one a call, never one an event
     assert len(polls) == server.report()["stages"]["poll"]["calls"]
+
+
+class _NotLanded:
+    """A CUDA event whose copies have not landed: a ring slot guarded by
+    it waits (a no-op here)."""
+
+    def query(self) -> bool:
+        return False
+
+    def synchronize(self) -> None:
+        pass
+
+
+def test_ring_wait_nests_in_stack_frames(tmp_path):
+    """A ring of one slot whose copies never report landed: every fill
+    after the first waits, inside ``stack_frames``; the other keys keep
+    one call a dispatch, and the results are those of the usual ring."""
+    server = _server(redundancy="tmr", sparse=True, scrub_interval=1)
+    ring = server._ring = StagingRing(1, pinned=False)
+    take = ring.take
+
+    def take_guarded(*a, **kw):
+        rows = take(*a, **kw)
+        rows.events.append(_NotLanded())
+        return rows
+
+    ring.take = take_guarded
+    got = []
+
+    def serve(srv, out):
+        for per in _blocks():
+            for s, b in enumerate(per):
+                srv.submit_frames(s, b["frames"], b["y0"])
+            out.extend(srv.poll())
+        out.extend(srv.flush())
+
+    spans = _trace(tmp_path, lambda: serve(server, got))
+    want = []
+    serve(_server(redundancy="tmr", sparse=True, scrub_interval=1), want)
+    assert got and set(got) == set(want) and len(got) == len(want)
+    calls = {k: v["calls"] for k, v in server.report()["stages"].items()}
+    assert calls["stack_frames.ring_wait"] == N_STEPS - 1
+    assert calls["stack_frames"] == calls["launch_fused"] == N_STEPS
+    assert calls["launch_fused.h2d"] == calls["enqueue_d2h"] == N_STEPS
+    waits = [s for s in spans if s[0] == "readout.stack_frames.ring_wait"]
+    fills = [s for s in spans if s[0] == "readout.stack_frames"]
+    assert len(waits) == N_STEPS - 1 and len(fills) == N_STEPS
+    for s in waits:
+        assert any(_inside(s, p) for p in fills), s
 
 
 def test_check_path_spans_under_a_profiler(tmp_path):
