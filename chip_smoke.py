@@ -149,7 +149,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                TMR, every event exact against the oracle, K2 launched (under
                TMR its split walk: a block a replica, then the vote pass),
                then K2 alone on each bucket's stack at W=16 exact against
-               its twin (an upset replica under TMR) and timed; and a
+               its twin (an upset replica under TMR) and timed; K2's
+               streamed walk at the benchmark's ens5xl envelope (a chip of
+               5 boosting rounds of the paper's tree on efpga_28nm_xl,
+               4 copies, plain and TMR: no other form's block holds one
+               word) at W=64, exact against its twin and timed; and a
                TCP replay through the front door with sensor_tenants in
                front of a fleet: sensors 0-3 verified, an unmapped and a
                retired tenant's sensor counted as events_bad_sensor.
@@ -268,6 +272,8 @@ RECONFIGURE_AT = 4
 # events per chip in one served dispatch: ServerConfig().max_batch (2048)
 # events over the 4 chips
 SERVED_B = 2048 // N_CHIPS
+# K2's streamed walk at the ens5xl envelope: words a chip (2,048 events)
+ENS_XL_WORDS = 64
 # B6 (egress): words a chip at the large shape (65,536 events), the keep
 # fractions, and the decode-weight rows of the synthetic words (the dense
 # entry also takes arbitrary int32 rows)
@@ -2261,12 +2267,12 @@ def synthetic_walk_stack(torch, np, C, R, L, M, in_seg, n_inputs, O, seed,
             torch.as_tensor(outs, device=device))
 
 
-def deep_case(torch, np, bs, st, words, n_luts, seed):
-    """K2 on the deep bucket's stack ``st`` at ``words`` words a chip:
-    exact against its twin on random bits, also with replica 1's tables
-    upset under TMR (which must give disagreement words); the walk's path,
-    tile and shared memory, its time by CUDA-graph replay, its twin's time
-    and its bound."""
+def deep_case(torch, np, bs, st, words, n_luts, seed, phase="fleet_deep"):
+    """K2 on the deep stack ``st`` at ``words`` words a chip: exact
+    against its twin on random bits, also with replica 1's tables upset
+    under TMR (which must give disagreement words); the walk's path, tile
+    and shared memory, its time by CUDA-graph replay, its twin's time and
+    its bound (``n_luts``: the real LUTs of all the stack's chips)."""
     R, L, M = st.n_replicas, st.n_levels, st.m_pad
     C = st.src.shape[0] // R
     rng = np.random.default_rng(seed)
@@ -2283,18 +2289,18 @@ def deep_case(torch, np, bs, st, words, n_luts, seed):
         torch.cuda.synchronize()
         for x, y, what in zip(got, want, ("voted", "disagree")):
             if x.shape != y.shape or not torch.equal(x, y):
-                fail("fleet_deep", f"K2 R={R} W={words}: {what} words "
-                                   f"differ in {int((x != y).sum())} places")
+                fail(phase, f"K2 R={R} W={words}: {what} words differ in "
+                            f"{int((x != y).sum())} places")
     if R > 1 and not bool((got[1] != 0).any()):
-        fail("fleet_deep", f"K2 R={R}: an upset replica gave no "
-                           "disagreement words")
+        fail(phase, f"K2 R={R}: an upset replica gave no disagreement "
+                    "words")
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     in_seg, O = st.in_seg, st.n_outputs
     tile = bs.word_tile(R, in_seg, L, M, words, C, n_sms)
     scratch = bs.scratch_for(C, R, L, M, "cuda")
     path = bs.walk_path(R, in_seg, L, M)
-    rep = (bs.split_buffers(C, R, words, O, "cuda") if path == "split"
-           else None)
+    rep = (bs.split_buffers(C, R, words, O, "cuda")
+           if path != "staged" and R > 1 else None)
     voted = torch.empty((C, words, O), dtype=torch.int32, device="cuda")
     dis = torch.empty((C, R, words), dtype=torch.int32, device="cuda")
     args = (st.src, st.tables, st.output_nets, seg, R)
@@ -2321,7 +2327,6 @@ def fleet_deep(torch, np, counters):
     have launched in each run. Then K2 alone on each bucket's stack at
     W=16: exact against its twin (an upset replica under TMR), with its
     path, shared memory, time and bound."""
-    import repro_torch.core.tmr  # noqa: F401  (registers efpga_28nm_xl)
     from repro_torch.core.bdt import GradientBoostedClassifier
     from repro_torch.core.fabric import FabricSim
     from repro_torch.core.quantize import FixedSpec
@@ -2390,6 +2395,46 @@ def fleet_deep(torch, np, counters):
     if out["tmr"]["path"] != "split":
         fail("fleet_deep", f"TMR took K2's {out['tmr']['path']} walk, "
                            "expected the split walk")
+    return out
+
+
+def ens_xl_walk(torch, np):
+    """K2's streamed walk at the benchmark's ens5xl envelope: one chip of
+    5 boosting rounds of the paper's tree (depth 5, 10 leaves,
+    min_samples_leaf 500, ap_fixed<28,19>, efpga_28nm_xl; 30,000 tracks
+    of seed 2024), packed 4 times, plain and under TMR. Neither the
+    staged nor the split walk's block holds one word there, so K2 must
+    take its streamed walk; then K2 alone at ENS_XL_WORDS words a chip,
+    exact against its twin (an upset replica under TMR), timed, with its
+    bound."""
+    from repro_torch.core.bdt import GradientBoostedClassifier
+    from repro_torch.core.quantize import FixedSpec
+    from repro_torch.core.readout import ReadoutChip
+    from repro_torch.data.smartpixel import (
+        SmartPixelConfig, generate, train_test_split)
+    from repro_torch.kernels.lut_eval import bitsliced as bs
+    from repro_torch.kernels.lut_eval import ops as lut_ops
+
+    tr, _ = train_test_split(generate(SmartPixelConfig(n_events=30_000,
+                                                       seed=2024)))
+    clf = GradientBoostedClassifier(
+        n_estimators=5, max_depth=5, max_leaf_nodes=10,
+        min_samples_leaf=500).fit(tr["features"], tr["label"])
+    cfg = ReadoutChip.build(clf, fabric="efpga_28nm_xl",
+                            spec=FixedSpec(width=28, int_bits=19)).config
+    out = {"luts": cfg.n_luts, "levels": len(cfg.level_sizes),
+           "widest": max(cfg.level_sizes), "inputs": cfg.n_inputs}
+    for red in ("none", "tmr"):
+        st = lut_ops.pack_fabrics([cfg] * N_CHIPS, redundancy=red,
+                                  layout="bitsliced", device="cuda")
+        row = deep_case(torch, np, bs, st, ENS_XL_WORDS,
+                        N_CHIPS * cfg.n_luts, seed=51 + st.n_replicas,
+                        phase="ens_xl_walk")
+        if row["path"] != "streamed":
+            fail("ens_xl_walk", f"{red}: K2 took its {row['path']} walk "
+                                f"at {row['levels']} x {row['m_pad']}, "
+                                "expected the streamed walk")
+        out[red] = row
     return out
 
 
@@ -3999,6 +4044,8 @@ def main():
     emit("fleet_k2", ok=True, card=card, runs=k2_depth)
     deep = fleet_deep(torch, np, counters)
     emit("fleet_deep", ok=True, card=card, **deep)
+    ens_xl = ens_xl_walk(torch, np)
+    emit("ens_xl_walk", ok=True, card=card, **ens_xl)
     emit("fleet_door", ok=True, card=card,
          **fleet_door(torch, np, chips, blocks, counters))
 
@@ -4138,6 +4185,11 @@ def main():
               **{k: deep[red]["kernel"][k] for k in (
                   "path", "tile", "smem_bytes", "ms", "plain_ms",
                   "bound_ms", "bound_by")}}
+        for red in ("none", "tmr")}
+    kernels[1]["ens_xl_walk"] = {
+        red: {k: ens_xl[red][k] for k in (
+            "path", "words", "tile", "smem_bytes", "ms", "plain_ms",
+            "bound_ms", "bound_by")}
         for red in ("none", "tmr")}
     kernels[1]["fleet_depth"] = {
         key: ({k: r[k] for k in ("levels", "tile", "smem_bytes", "ms",

@@ -172,9 +172,30 @@ FABRIC_28NM = FabricSpec(
     stream_bits=64,      # AXI-Stream to/from PGPv4 (§4.2)
 )
 
+# Next-generation 28nm fabric (paper §5: "A next-generation eFPGA with a
+# larger logical capacity"): same tile library, 4x the LUT4AB columns
+# (224 LUT4AB, 1,792 cells). The TMR readout chip and the boosted
+# ensembles need it; it is the program's reading of §5, not a taped-out
+# chip.
+FABRIC_28NM_XL = FabricSpec(
+    name="efpga_28nm_xl",
+    node="28nm",
+    grid=_make_grid(
+        [_col("WEST_IO", 8)]
+        + [_col("LUT4AB", 8) for _ in range(14)]
+        + [["DSP_top", "DSP_bot"] * 4]
+        + [_col("LUT4AB", 8) for _ in range(14)]
+        + [_col("EAST_IO", 8)]
+    ),
+    config_bus_in=128,
+    config_bus_out=128,
+    stream_bits=64,
+)
+
 FABRICS: Dict[str, FabricSpec] = {
     "efpga_130nm": FABRIC_130NM,
     "efpga_28nm": FABRIC_28NM,
+    "efpga_28nm_xl": FABRIC_28NM_XL,
     "130nm": FABRIC_130NM,
     "28nm": FABRIC_28NM,
 }

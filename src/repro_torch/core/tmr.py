@@ -45,8 +45,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.fabric import (
-    FabricConfig, FabricSpec, _col, _make_grid, packed_table_image,
+# FABRIC_28NM_XL lives in core.fabric, registered there; imported here too
+# so ``from repro_torch.core.tmr import FABRIC_28NM_XL`` keeps working
+from repro_torch.core.fabric import (  # noqa: F401
+    FABRIC_28NM_XL, FabricConfig, packed_table_image,
 )
 from repro_torch.core.netlist import (
     CONST0, CONST1, FF, LUT, Netlist, table_from_fn,
@@ -190,24 +192,6 @@ def triplicate(nl: Netlist) -> Netlist:
     )
 
 
-# Next-generation 28nm fabric (paper §5: "A next-generation eFPGA with a
-# larger logical capacity"): same tile library, 4x the LUT4AB columns.
-FABRIC_28NM_XL = FabricSpec(
-    name="efpga_28nm_xl",
-    node="28nm",
-    grid=_make_grid(
-        [_col("WEST_IO", 8)]
-        + [_col("LUT4AB", 8) for _ in range(14)]
-        + [["DSP_top", "DSP_bot"] * 4]
-        + [_col("LUT4AB", 8) for _ in range(14)]
-        + [_col("EAST_IO", 8)]
-    ),
-    config_bus_in=128,
-    config_bus_out=128,
-    stream_bits=64,
-)
-
-
 def replica_lut_index(config: FabricConfig, replica: int,
                       lut_index: int) -> int:
     """Slot of base-encoding LUT ``lut_index`` in ``replica``'s encoding.
@@ -275,8 +259,3 @@ def inject_seu(config: FabricConfig, lut_index: int, bit: int) -> FabricConfig:
     tables[lut_index, bit] ^= 1
     return dataclasses.replace(config, lut_tables=tables)
 
-
-# register so bitstreams/configs resolve the name
-from repro_torch.core.fabric import FABRICS  # noqa: E402
-
-FABRICS["efpga_28nm_xl"] = FABRIC_28NM_XL

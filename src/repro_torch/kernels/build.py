@@ -49,7 +49,9 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 PROTOTYPES = {
     "yprofile": {"yprofile_launch": (_P, _P, _P, _LL, _F, _P)},
     "bitsliced": {"eval_words_voted_launch": (_P,) * 7 + (_I,) * 8 + (_P,),
-                  "eval_words_split_launch": (_P,) * 9 + (_I,) * 8 + (_P,)},
+                  "eval_words_split_launch": (_P,) * 9 + (_I,) * 8 + (_P,),
+                  "eval_words_streamed_launch":
+                      (_P,) * 8 + (_I,) * 8 + (_P,)},
     "lut_eval": {"lut_eval_launch": (_P,) * 8 + (_I,) * 9 + (_P,)},
     "bdt_infer": {"bdt_infer_launch": (_P,) * 10 + (_I,) * 5 + (_P,)},
     "sparse_pack": {

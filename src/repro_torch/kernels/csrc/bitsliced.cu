@@ -67,6 +67,23 @@
 // and the descriptors would stream a level ahead, which stalled every
 // level in the staged design's first form (above).
 //
+// Envelopes whose descriptors do not fit beside one word's net buffer
+// take the streamed path (a boosted ensemble on efpga_28nm_xl: 33 levels
+// x 640 LUTs with a 384-word input segment needs 297,220 B for one
+// replica's word on the split path, 211,200 B of it descriptors; the
+// adders read tree outputs from the first levels, so a ring of recent
+// levels cannot bound the net buffer). eval_words_streamed_kernel, a
+// block per (replica row, tile), holds only the net buffer of its tile's
+// words in shared memory and streams the descriptors from the scratch
+// through a ring of kRing levels with cp.async, kRing - 1 levels ahead of
+// the level it computes (one level ahead stalled every level in the
+// staged design's first form, above). The descriptor pass lays each
+// level out at a stride of M rounded up to 8 LUTs, so a level's copy is
+// whole 16-byte pieces. Under TMR its replica rows' output words go to
+// the split path's scratch and vote_kernel votes them, as on the split
+// path. The wrapper takes the staged path where it fits, else the split
+// path, else this one.
+//
 // Padded LUT slots read net 0 (const0) with an all-zero table, so they
 // write 0. Const1 is all ones in every lane, tail lanes included; the
 // caller's valid mask drops those lanes later, as in the reference.
@@ -77,6 +94,8 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kDescThreads = 256;
+// levels of descriptors a streamed walk block holds (bitsliced.py RING)
+constexpr int kRing = 4;
 
 __device__ __forceinline__ uint32_t mux(uint32_t s, uint32_t hi,
                                         uint32_t lo) {
@@ -104,6 +123,22 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// LUT slots a level takes in the streamed walk's descriptor layout: M
+// rounded up to whole 16-byte pieces of masks
+__host__ __device__ __forceinline__ int level_stride(int M) {
+  return (M + 7) / 8 * 8;
+}
+
 // descriptors (uint2) and masks (uint16) of one chip, padded to 16 bytes
 __host__ __device__ __forceinline__ long long desc_stride(int R, int L,
                                                           int M) {
@@ -114,13 +149,17 @@ __host__ __device__ __forceinline__ long long mask_stride(int R, int L,
   return ((long long)R * L * M + 7) / 8 * 8;
 }
 
-// Pass 1: one descriptor per (row, level, LUT) of the stack.
+// Pass 1: one descriptor per (row, level, LUT) of the stack. A level
+// takes `ls` LUT slots of the layout: M, or with kLevelStride the
+// streamed walk's level_stride(M), the slots past M left unwritten (only
+// that layout pays for the level's division).
+template <bool kLevelStride>
 __global__ void __launch_bounds__(kDescThreads)
 desc_kernel(const int4* __restrict__ src,       // (R*C, L, M)
             const float4* __restrict__ tables,  // (R*C, L, M, 4)
             uint2* __restrict__ desc,           // (C, desc_stride)
             uint16_t* __restrict__ masks,       // (C, mask_stride)
-            int C, int R, int in_seg, int L, int M) {
+            int C, int R, int in_seg, int L, int M, int ls) {
   // the walk may launch now: it waits for this grid before it reads
   // the descriptors
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -130,7 +169,12 @@ desc_kernel(const int4* __restrict__ src,       // (R*C, L, M)
   const long long LM = (long long)L * M;
   const int row = (int)(k / LM);
   const int c = row / R, r = row - c * R;
-  const long long within = (long long)r * LM + (k - (long long)row * LM);
+  const int lm = (int)(k - (long long)row * LM);
+  long long within = (long long)r * LM + lm;
+  if (kLevelStride) {
+    const int l = lm / M;
+    within = ((long long)r * L + l) * ls + (lm - l * M);
+  }
   // a level net of replica r lies after the shared input segment and the
   // level slots of replicas 0..r-1
   const int shift = r * L * M;
@@ -139,7 +183,7 @@ desc_kernel(const int4* __restrict__ src,       // (R*C, L, M)
   const uint32_t s1 = s.y < in_seg ? s.y : s.y + shift;
   const uint32_t s2 = s.z < in_seg ? s.z : s.z + shift;
   const uint32_t s3 = s.w < in_seg ? s.w : s.w + shift;
-  desc[c * desc_stride(R, L, M) + within] =
+  desc[c * desc_stride(R, L, ls) + within] =
       make_uint2(s0 | (s1 << 16), s2 | (s3 << 16));
   uint32_t mk = 0u;
 #pragma unroll
@@ -148,7 +192,7 @@ desc_kernel(const int4* __restrict__ src,       // (R*C, L, M)
     mk |= bit(q.x, 4 * j) | bit(q.y, 4 * j + 1) | bit(q.z, 4 * j + 2) |
           bit(q.w, 4 * j + 3);
   }
-  masks[c * mask_stride(R, L, M) + within] = (uint16_t)mk;
+  masks[c * mask_stride(R, L, ls) + within] = (uint16_t)mk;
 }
 
 // One LUT over words [t0, t1) of the tile: its four source words, the mux
@@ -320,6 +364,98 @@ vote_kernel(const uint32_t* __restrict__ rep,  // (C*3, W, O)
   dis[((size_t)c * 3 + 2) * W + t] = d2;
 }
 
+// Copies of one level's descriptors and masks of a row (`dg`, `mg`: the
+// row's, in the level_stride layout) into ring slot `slot`, 16 bytes a
+// thread at a time.
+__device__ __forceinline__ void stream_level(uint2* ring_d, uint16_t* ring_m,
+                                             const uint2* dg,
+                                             const uint16_t* mg, int ls,
+                                             int slot, int l, int tid,
+                                             int bd) {
+  const char* ds = reinterpret_cast<const char*>(dg + (size_t)l * ls);
+  char* dd = reinterpret_cast<char*>(ring_d + (size_t)slot * ls);
+  for (int u = tid; u < ls / 2; u += bd) cp_async16(dd + 16 * u, ds + 16 * u);
+  const char* ms = reinterpret_cast<const char*>(mg + (size_t)l * ls);
+  char* md = reinterpret_cast<char*>(ring_m + (size_t)slot * ls);
+  for (int u = tid; u < ls / 8; u += bd) cp_async16(md + 16 * u, ms + 16 * u);
+}
+
+// The streamed walk: one replica row and one tile of words a block, the
+// net buffer [tile][in_seg + L*M] in shared memory, each level's
+// descriptors streamed through a ring of kRing levels. Block row c reads
+// the input words of chip c / split; its output words go to out
+// (rows, W, O), and where dis is given its (zero) disagreement words to
+// dis (rows, 1, W).
+__global__ void __launch_bounds__(kThreads)
+eval_words_streamed_kernel(const uint32_t* __restrict__ in_words,  // (rows/split, W, in_seg)
+                           const uint2* __restrict__ desc,         // (rows, L, ls)
+                           const uint16_t* __restrict__ masks,     // (rows, L, ls)
+                           const int* __restrict__ output_nets,    // (rows, O)
+                           uint32_t* __restrict__ out,             // (rows, W, O)
+                           uint32_t* __restrict__ dis,             // (rows, 1, W) or null
+                           int W, int in_seg, int L, int M, int O,
+                           int tile, int split) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int c = blockIdx.y;
+  const int c_in = c / split;
+  const int T = tile;
+  const int w0 = blockIdx.x * T;
+  const int nT = min(T, W - w0);
+  const int ls = level_stride(M);
+  const int n_tot = in_seg + L * M;
+  uint2* ring_d = reinterpret_cast<uint2*>(smem);                   // [kRing][ls]
+  uint16_t* ring_m = reinterpret_cast<uint16_t*>(ring_d + kRing * ls);  // [kRing][ls]
+  uint32_t* vals = reinterpret_cast<uint32_t*>(ring_m + kRing * ls);    // [T][n_tot]
+  const uint2* dg = desc + (size_t)c * L * ls;
+  const uint16_t* mg = masks + (size_t)c * L * ls;
+  const int tid = threadIdx.x, bd = blockDim.x;
+
+  // the input segment while the descriptor pass may still run
+  for (int idx = tid; idx < nT * in_seg; idx += bd) {
+    const int t = idx / in_seg, net = idx - t * in_seg;
+    vals[(size_t)t * n_tot + net] =
+        in_words[((size_t)c_in * W + w0 + t) * in_seg + net];
+  }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  // levels 0 .. kRing-2 in flight, a group each (empty past L)
+#pragma unroll
+  for (int j = 0; j < kRing - 1; ++j) {
+    if (j < L) stream_level(ring_d, ring_m, dg, mg, ls, j, j, tid, bd);
+    cp_async_commit();
+  }
+
+  const int groups = min(T, max(1, bd / M));
+  const int G = (T + groups - 1) / groups;
+  const int n_slots = M * groups;
+  for (int l = 0; l < L; ++l) {
+    // level l has landed (its group and those before it), every thread's
+    // copies are visible, and level l-1's slots are written and its ring
+    // slot read
+    cp_async_wait<kRing - 2>();
+    __syncthreads();
+    const int nl = l + kRing - 1;
+    if (nl < L)
+      stream_level(ring_d, ring_m, dg, mg, ls, nl % kRing, nl, tid, bd);
+    cp_async_commit();
+    const uint2* dl = ring_d + (size_t)(l % kRing) * ls;
+    const uint16_t* ml = ring_m + (size_t)(l % kRing) * ls;
+    for (int sl = tid; sl < n_slots; sl += bd) {
+      const int g = sl / M, m = sl - g * M;
+      walk_words(vals, n_tot, dl[m], ml[m], in_seg + l * M + m, g * G,
+                 min(g * G + G, nT));
+    }
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < nT * O; idx += bd) {
+    const int t = idx / O, o = idx - t * O;
+    out[((size_t)c * W + w0 + t) * O + o] =
+        vals[(size_t)t * n_tot + output_nets[(size_t)c * O + o]];
+  }
+  if (dis != nullptr)
+    for (int t = tid; t < nT; t += bd) dis[(size_t)c * W + w0 + t] = 0u;
+}
+
 // Shared-memory bytes of a walk block for `tile` words: the row's
 // descriptors and masks, the net buffer [tile][in_seg + R*L*M] and the
 // dis words.
@@ -340,10 +476,11 @@ cudaError_t launch_walk(const void* in_words, const void* src,
   uint16_t* masks =
       (uint16_t*)(desc + (long long)rows * desc_stride(R, L, M));
   const long long n = (long long)rows * R * L * M;
-  desc_kernel<<<(unsigned)((n + kDescThreads - 1) / kDescThreads),
-                kDescThreads, 0, s>>>((const int4*)src,
-                                      (const float4*)tables, desc, masks,
-                                      rows, R, in_seg, L, M);
+  desc_kernel<false><<<(unsigned)((n + kDescThreads - 1) / kDescThreads),
+                       kDescThreads, 0, s>>>((const int4*)src,
+                                             (const float4*)tables, desc,
+                                             masks, rows, R, in_seg, L, M,
+                                             M);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long smem = block_smem(R, in_seg, L, M, tile);
@@ -374,6 +511,83 @@ cudaError_t launch_walk(const void* in_words, const void* src,
                            (const uint16_t*)masks, (const int*)output_nets,
                            (uint32_t*)voted, (uint32_t*)dis, R, W, in_seg, L,
                            M, O, tile, split);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Shared-memory bytes of a streamed walk block for `tile` words: the
+// ring of kRing levels' descriptors and masks and the net buffer
+// [tile][in_seg + L*M].
+long long streamed_smem(int in_seg, int L, int M, int tile) {
+  return (long long)kRing * level_stride(M) * (8 + 2) +
+         (long long)tile * (in_seg + (long long)L * M) * 4;
+}
+
+// The descriptor pass over `rows` rows of one replica each, in the
+// level_stride layout, then the streamed walk as its programmatic
+// dependent, `split` block rows to an input chip.
+cudaError_t launch_streamed(const void* in_words, const void* src,
+                            const void* tables, const void* output_nets,
+                            void* scratch, void* out, void* dis, int rows,
+                            int W, int in_seg, int L, int M, int O, int tile,
+                            int split, cudaStream_t s) {
+  const int ls = level_stride(M);
+  uint2* desc = (uint2*)scratch;
+  uint16_t* masks = (uint16_t*)(desc + (long long)rows * L * ls);
+  const long long n = (long long)rows * L * M;
+  desc_kernel<true><<<(unsigned)((n + kDescThreads - 1) / kDescThreads),
+                      kDescThreads, 0, s>>>((const int4*)src,
+                                            (const float4*)tables, desc,
+                                            masks, rows, 1, in_seg, L, M,
+                                            ls);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long smem = streamed_smem(in_seg, L, M, tile);
+  err = cudaFuncSetAttribute(eval_words_streamed_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  int groups = kThreads / M;
+  groups = groups < 1 ? 1 : (groups > tile ? tile : groups);
+  long long threads = (long long)M * groups;
+  threads = (threads + 31) / 32 * 32;
+  if (threads > kThreads) threads = kThreads;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((W + tile - 1) / tile, rows);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, eval_words_streamed_kernel,
+                           (const uint32_t*)in_words, (const uint2*)desc,
+                           (const uint16_t*)masks, (const int*)output_nets,
+                           (uint32_t*)out, (uint32_t*)dis, W, in_seg, L, M,
+                           O, tile, split);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// vote_kernel over C chips' three replica rows of output words, as the
+// programmatic dependent of the walk before it.
+cudaError_t launch_vote(const void* rep, void* voted, void* dis, int C,
+                        int W, int O, cudaStream_t s) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  const long long n = (long long)C * W;
+  cfg.gridDim = dim3((unsigned)((n + kDescThreads - 1) / kDescThreads));
+  cfg.blockDim = dim3(kDescThreads);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, vote_kernel, (const uint32_t*)rep,
+                                       (uint32_t*)voted, (uint32_t*)dis, C,
+                                       W, O);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -438,20 +652,48 @@ int eval_words_split_launch(const void* in_words, const void* src,
       launch_walk(in_words, src, tables, output_nets, scratch, rep, rep_dis,
                   C * R, 1, W, in_seg, L, M, O, tile, R, s);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  const long long n = (long long)C * W;
-  cfg.gridDim = dim3((unsigned)((n + kDescThreads - 1) / kDescThreads));
-  cfg.blockDim = dim3(kDescThreads);
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, vote_kernel, (const uint32_t*)rep,
-                           (uint32_t*)voted, (uint32_t*)dis, C, W, O);
+  return (int)launch_vote(rep, voted, dis, C, W, O, s);
+}
+
+// Shared-memory bytes a streamed walk block needs for `tile` words: the
+// ring of descriptors and masks and the net buffer [tile][in_seg + L*M].
+long long eval_words_streamed_smem_bytes(int in_seg, int L, int M,
+                                         int tile) {
+  return streamed_smem(in_seg, L, M, tile);
+}
+
+// Scratch bytes of the streamed path's descriptors: C*R rows of one
+// replica, each level at level_stride(M) LUTs.
+long long eval_words_streamed_scratch_bytes(int C, int R, int L, int M) {
+  return (long long)C * R * L * level_stride(M) * (8 + 2);
+}
+
+// The streamed path: the descriptor pass over the R*C replica rows, then
+// eval_words_streamed_kernel, a block per (row, tile). R = 1: its output
+// words into voted (C, W, O) and zero words into dis (C, 1, W). R = 3:
+// each row's output words into rep (3*C, W, O), then vote_kernel into
+// voted (C, W, O) and dis (C, 3, W). scratch holds
+// eval_words_streamed_scratch_bytes(C, R, L, M). Same contract otherwise
+// as eval_words_voted_launch, with in_seg + L*M < 65536.
+int eval_words_streamed_launch(const void* in_words, const void* src,
+                               const void* tables, const void* output_nets,
+                               void* scratch, void* rep, void* voted,
+                               void* dis, int C, int R, int W, int in_seg,
+                               int L, int M, int O, int tile, void* stream) {
+  if (C <= 0 || W <= 0) return 0;
+  if ((R != 1 && R != 3) || tile <= 0 || L <= 0 || M <= 0 ||
+      in_seg + (long long)L * M >= 65536)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (R == 1)
+    return (int)launch_streamed(in_words, src, tables, output_nets, scratch,
+                                voted, dis, C, W, in_seg, L, M, O, tile, 1,
+                                s);
+  cudaError_t err =
+      launch_streamed(in_words, src, tables, output_nets, scratch, rep,
+                      nullptr, C * R, W, in_seg, L, M, O, tile, R, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)launch_vote(rep, voted, dis, C, W, O, s);
 }
 
 const char* kernel_error_string(int code) {

@@ -20,8 +20,10 @@ keeps.
 ``eval_seg_voted`` is the kernel wrapper: the level walk, vote and
 disagreement words in one kernel call (csrc/bitsliced.cu: a descriptor
 pass, then the walk; on an envelope too deep for one block under TMR a
-walk a replica and a vote pass, ``walk_path``) on CUDA tensors, the plain
-twin ``eval_seg_voted_plain`` on CPU tensors.
+walk a replica and a vote pass; on one whose descriptors do not fit
+beside a word's net buffer, a walk that streams them level by level,
+``walk_path``) on CUDA tensors, the plain twin ``eval_seg_voted_plain``
+on CPU tensors.
 
 Array contract (the ``layout="bitsliced"`` packing, ops.py):
   src         (R*C, L, M, 4)  int32 — per-LUT source nets in the padded
@@ -31,7 +33,7 @@ Array contract (the ``layout="bitsliced"`` packing, ops.py):
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -40,6 +42,11 @@ from repro_torch.kernels import build
 
 WORD = 32
 MAX_TILE = 32
+# the walk's forms, in the order ``walk_path`` tries them
+FORMS = ("staged", "split", "streamed")
+# levels of descriptors a streamed walk block holds (csrc/bitsliced.cu
+# kRing)
+RING = 4
 
 
 def pack_words(bits: torch.Tensor) -> torch.Tensor:
@@ -162,48 +169,75 @@ def _block_bytes(block_replicas: int, in_seg: int, n_levels: int,
             + tile * n_tot * 4 + block_replicas * tile * 4)
 
 
+def _level_stride(m_pad: int) -> int:
+    """LUT slots a level takes in the streamed walk's descriptor layout:
+    ``m_pad`` rounded up to whole 16-byte pieces of masks."""
+    return -(-m_pad // 8) * 8
+
+
+def _streamed_block_bytes(in_seg: int, n_levels: int, m_pad: int,
+                          tile: int) -> int:
+    """Dynamic shared memory of a streamed walk block (csrc/bitsliced.cu
+    streamed_smem): a ring of RING levels' descriptors and masks, and the
+    net buffer of ``tile`` words (the input segment, then one replica's
+    level slots)."""
+    return (RING * _level_stride(m_pad) * 10
+            + tile * (in_seg + n_levels * m_pad) * 4)
+
+
+def _form_bytes(form: str, n_replicas: int, in_seg: int, n_levels: int,
+                m_pad: int, tile: int) -> int:
+    """A block's dynamic shared memory on walk form ``form``."""
+    if form == "streamed":
+        return _streamed_block_bytes(in_seg, n_levels, m_pad, tile)
+    rb = n_replicas if form == "staged" else 1
+    return _block_bytes(rb, in_seg, n_levels, m_pad, tile)
+
+
 def walk_path(n_replicas: int, in_seg: int, n_levels: int,
               m_pad: int) -> str:
-    """Which form of the walk takes this envelope: ``"staged"`` (a block
-    holds every replica of a chip) where one word's block fits in shared
-    memory, else ``"split"`` (under TMR, a block per replica and a vote
-    pass) where one replica's fits. Raises ValueError when neither does."""
-    if _block_bytes(n_replicas, in_seg, n_levels, m_pad, 1) \
-            <= build.SMEM_LIMIT_BYTES:
-        return "staged"
-    if n_replicas > 1 and _block_bytes(1, in_seg, n_levels, m_pad, 1) \
-            <= build.SMEM_LIMIT_BYTES:
-        return "split"
+    """Which form of the walk takes this envelope, the first of FORMS
+    whose block for one word fits in shared memory: ``"staged"`` (a block
+    holds every replica of a chip), ``"split"`` (under TMR, a block per
+    replica, then a vote pass), ``"streamed"`` (a block per replica that
+    holds only the net buffer and streams each level's descriptors from
+    the scratch; under TMR the split walk's vote pass). Raises ValueError
+    when none fits."""
+    sizes = {}
+    for form in FORMS:
+        if form == "split" and n_replicas == 1:
+            continue        # one replica a block: the staged block
+        sizes[form] = _form_bytes(form, n_replicas, in_seg, n_levels,
+                                  m_pad, 1)
+        if sizes[form] <= build.SMEM_LIMIT_BYTES:
+            return form
     raise ValueError(
         f"one word's block ({n_levels} levels x {m_pad} LUTs, in_seg "
-        f"{in_seg}, one of {n_replicas} replicas a block: "
-        f"{_block_bytes(1, in_seg, n_levels, m_pad, 1)} B) exceeds "
-        f"{build.SMEM_LIMIT_BYTES} B of shared memory")
-
-
-def _replicas_a_block(n_replicas: int, in_seg: int, n_levels: int,
-                      m_pad: int) -> int:
-    return (n_replicas if walk_path(n_replicas, in_seg, n_levels, m_pad)
-            == "staged" else 1)
+        f"{in_seg}, {n_replicas} replicas: "
+        + ", ".join(f"{k} {v} B" for k, v in sizes.items())
+        + f") exceeds {build.SMEM_LIMIT_BYTES} B of shared memory")
 
 
 def scratch_bytes(n_chips: int, n_replicas: int, n_levels: int,
                   m_pad: int) -> int:
     """The descriptor scratch one launch rebuilds (csrc/bitsliced.cu
-    eval_words_voted_scratch_bytes): of ``n_chips`` chips of every replica
-    (the staged walk) or of their replica rows one by one (the split
-    walk), whichever is larger."""
+    eval_words_voted_scratch_bytes and
+    eval_words_streamed_scratch_bytes): of ``n_chips`` chips of every
+    replica (the staged walk), of their replica rows one by one (the
+    split walk) or of those rows with each level at the streamed walk's
+    stride, whichever is largest."""
+    rows = n_chips * n_replicas
     return max(n_chips * _chip_desc_bytes(n_replicas, n_levels, m_pad),
-               n_chips * n_replicas * _chip_desc_bytes(1, n_levels, m_pad))
+               rows * _chip_desc_bytes(1, n_levels, m_pad),
+               rows * n_levels * _level_stride(m_pad) * 10)
 
 
 def smem_bytes(n_replicas: int, in_seg: int, n_levels: int, m_pad: int,
                tile: int) -> int:
     """Dynamic shared memory of a block of the walk that ``walk_path``
     picks for this envelope, at ``tile`` words."""
-    return _block_bytes(_replicas_a_block(n_replicas, in_seg, n_levels,
-                                          m_pad),
-                        in_seg, n_levels, m_pad, tile)
+    return _form_bytes(walk_path(n_replicas, in_seg, n_levels, m_pad),
+                       n_replicas, in_seg, n_levels, m_pad, tile)
 
 
 def word_tile(n_replicas: int, in_seg: int, n_levels: int, m_pad: int,
@@ -211,22 +245,24 @@ def word_tile(n_replicas: int, in_seg: int, n_levels: int, m_pad: int,
     """Words per block of the walk that ``walk_path`` picks: as many as
     ``smem_bytes`` fit in shared memory, at most MAX_TILE, and no more
     than leaves every one of ``n_sms`` SMs a block of the grid (``n_chips``
-    rows, or ``n_chips`` x ``n_replicas`` on the split walk, of
-    ``n_words`` words)."""
-    rb = _replicas_a_block(n_replicas, in_seg, n_levels, m_pad)
+    rows on the staged walk, ``n_chips`` x ``n_replicas`` on the others,
+    of ``n_words`` words)."""
+    form = walk_path(n_replicas, in_seg, n_levels, m_pad)
     fit = 1
-    while fit < MAX_TILE and _block_bytes(rb, in_seg, n_levels, m_pad,
-                                          fit + 1) <= build.SMEM_LIMIT_BYTES:
+    while fit < MAX_TILE and _form_bytes(
+            form, n_replicas, in_seg, n_levels, m_pad,
+            fit + 1) <= build.SMEM_LIMIT_BYTES:
         fit += 1
-    rows = n_chips * (n_replicas // rb)
+    rows = n_chips * (1 if form == "staged" else n_replicas)
     spread = -(-rows * n_words // n_sms)
     return max(1, min(fit, n_words, spread))
 
 
 def split_buffers(n_chips: int, n_replicas: int, n_words: int,
                   n_outputs: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The split walk's per-replica output words (R*C, W, O) and the
-    walk's (zero) disagreement words (R*C, 1, W), int32."""
+    """The per-replica output words (R*C, W, O) of the split and streamed
+    walks under TMR and the split walk's (zero) disagreement words
+    (R*C, 1, W), int32."""
     rows = n_chips * n_replicas
     return (torch.empty((rows, n_words, n_outputs), dtype=torch.int32,
                         device=device),
@@ -235,30 +271,39 @@ def split_buffers(n_chips: int, n_replicas: int, n_words: int,
 
 
 def _launch(src, tables, output_nets, seg, scratch, voted, dis, R,
-            tile, rep=None) -> None:
-    """Both (staged) or all three (split) passes on the current stream.
-    ``rep`` is ``split_buffers``' pair, needed on the split walk (made
-    here when not given)."""
+            tile, rep=None, marks=None) -> None:
+    """Both (staged; streamed at R=1) or all three (split; streamed under
+    TMR) passes on the current stream. ``rep`` is ``split_buffers``'
+    pair, needed on the split walk and on the streamed walk under TMR
+    (made here when not given). Given ``marks``, appends (form,
+    ``tile``)."""
     lib = build.load("bitsliced")
     C, W, in_seg = seg.shape
     L, M, O = src.shape[1], src.shape[2], output_nets.shape[1]
     ptrs = (seg.data_ptr(), src.data_ptr(), tables.data_ptr(),
             output_nets.data_ptr(), scratch.data_ptr())
-    staged = walk_path(R, in_seg, L, M) == "staged"
-    if not staged:
+    form = walk_path(R, in_seg, L, M)
+    if form != "staged" and R > 1:
         rep = rep or split_buffers(C, R, W, O, seg.device)
     with torch.cuda.device(seg.device):
         stream = torch.cuda.current_stream(seg.device).cuda_stream
-        if staged:
+        if form == "staged":
             code = lib.eval_words_voted_launch(
                 *ptrs, voted.data_ptr(), dis.data_ptr(), C, R, W, in_seg, L,
                 M, O, tile, stream)
-        else:
+        elif form == "split":
             code = lib.eval_words_split_launch(
                 *ptrs, rep[0].data_ptr(), rep[1].data_ptr(),
                 voted.data_ptr(), dis.data_ptr(), C, R, W, in_seg, L, M, O,
                 tile, stream)
-    build.check(lib, code, "bitsliced eval_words_voted kernel")
+        else:
+            code = lib.eval_words_streamed_launch(
+                *ptrs, rep[0].data_ptr() if R > 1 else None,
+                voted.data_ptr(), dis.data_ptr(), C, R, W, in_seg, L, M, O,
+                tile, stream)
+    build.check(lib, code, f"bitsliced {form} walk kernel")
+    if marks is not None:
+        marks.append((form, tile))
 
 
 def scratch_for(n_chips: int, n_replicas: int, n_levels: int, m_pad: int,
@@ -275,6 +320,7 @@ def eval_seg_voted(
     output_nets: torch.Tensor,
     seg: torch.Tensor,
     n_replicas: int,
+    marks: Optional[List] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Level walk + vote + disagreement words over input-segment words:
     (voted (C, W, O) int32, dis (C, R, W) int32; zeros for R=1). CUDA
@@ -282,7 +328,8 @@ def eval_seg_voted(
     in the form ``walk_path`` picks from the envelope;
     CPU tensors run ``eval_seg_voted_plain``. Either way the launch
     signature (C, R, W, in_seg, L, M, O) is recorded first (the word tile
-    is a function of it)."""
+    is a function of it). Given ``marks``, a launch appends its form and
+    words a block (``_launch``)."""
     C, W, in_seg = seg.shape
     R = n_replicas
     if R not in (1, N_REPLICAS):
@@ -309,7 +356,8 @@ def eval_seg_voted(
     voted = torch.empty((C, W, O), dtype=torch.int32, device=seg.device)
     dis = torch.empty((C, R, W), dtype=torch.int32, device=seg.device)
     _launch(src, tables, output_nets, seg,
-            scratch_for(C, R, L, M, seg.device), voted, dis, R, tile)
+            scratch_for(C, R, L, M, seg.device), voted, dis, R, tile,
+            marks=marks)
     eval_seg_voted.launches += 1
     return voted, dis
 
@@ -326,13 +374,14 @@ def eval_words_voted(
     n_replicas: int,
     n_inputs: int,
     in_seg: int,
+    marks: Optional[List] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Redundant evaluation stopped in the word domain: (voted output
     words (C, W, O), per-replica disagreement words (C, R, W)), bit ``e``
     of a disagreement word set iff that replica's output differs from the
-    vote for event ``w*32+e``."""
+    vote for event ``w*32+e``. ``marks`` as ``eval_seg_voted``'s."""
     seg = input_words(bits, n_inputs, in_seg)
-    return eval_seg_voted(src, tables, output_nets, seg, n_replicas)
+    return eval_seg_voted(src, tables, output_nets, seg, n_replicas, marks)
 
 
 def eval_bits_voted(

@@ -572,6 +572,9 @@ class ReadoutServer:
         # per-stage host seconds and calls (report()["stages"]); spans
         # while a profiler records
         self._stages = Stages(clock)
+        # the fabric walk's launches by form (report()["k2_walk"]): form ->
+        # {"launches": n, "words_a_block": {tile: launches}}
+        self._k2_walk: Dict[str, Dict] = {}
         self._t_start: Optional[float] = None
         self._t_last: Optional[float] = None
         self._n_scored = 0
@@ -948,14 +951,16 @@ class ReadoutServer:
             meta["trace"]["t_encoded"] = self._clock()
             with self._stages.time("launch_fused"):
                 sparse = self._word_sparse_active()
-                parts, starts = [], []
+                parts, starts, marks = [], [], []
                 for fe, c0 in slabs:
                     score_fn = (fe.score_frames_sparse if sparse
                                 else fe.score_frames_voted)
                     starts.append(_device_mark(fe.device))
                     parts.append((c0, score_fn(rows.chips(c0, fe.n_chips),
-                                               stages=self._stages)))
+                                               stages=self._stages,
+                                               k2_marks=marks)))
             meta["dispatch_starts"] = starts
+            meta["k2_marks"] = marks
             if sparse:
                 return self._finish_launch_sparse(parts, B, per_chip_seq,
                                                   counts, meta)
@@ -1058,11 +1063,13 @@ class ReadoutServer:
                 meta["dispatch_starts"] = [
                     _device_mark(slab.device)
                     for slab, _ in self._lut_ops.slabs_of(self._stack)]
+                meta["k2_marks"] = []
                 stacked = self._lut_ops.stack_input_bits(self._stack,
                                                          per_chip_bits)
                 parts = self._lut_ops.scored_slabs(
                     self._stack, stacked, self._out_weight, self._thr_raw,
-                    valid, batch_tile=self.config.batch_tile, sparse=sparse)
+                    valid, batch_tile=self.config.batch_tile, sparse=sparse,
+                    marks=meta["k2_marks"])
             else:
                 valid = self._valid_mask(counts, B)
                 stacked = stack_event_bits(per_chip_bits,
@@ -1253,10 +1260,17 @@ class ReadoutServer:
                     meta) -> List[ScoredEvent]:
         """A completed batch's results on the host, folded into the
         per-chip counters, the link bytes and the disagreement counters;
-        the device seconds of each of its slabs' dispatches."""
+        the device seconds of each of its slabs' dispatches, and the
+        forms of their fabric walks."""
         for start, end in meta.get("dispatch_events", ()):
             self._stages.add("dispatch_device",
                              start.elapsed_time(end) * 1e-3)
+        for form, tile in meta.get("k2_marks", ()):
+            walk = self._k2_walk.setdefault(
+                form, {"launches": 0, "words_a_block": {}})
+            walk["launches"] += 1
+            walk["words_a_block"][tile] = (
+                walk["words_a_block"].get(tile, 0) + 1)
         results: List[ScoredEvent] = []
         n_events = int(sum(counts))
         self._link_bytes_dense += DENSE_BYTES_PER_EVENT * n_events
@@ -1827,7 +1841,14 @@ class ReadoutServer:
             dispatch_device     DEVICE seconds a slab's dispatch, from a
                                 CUDA event pair (CUDA slabs only)
 
-        ``flush`` runs the same stages outside ``poll``."""
+        ``flush`` runs the same stages outside ``poll``.
+
+        ``k2_walk`` maps each form of the fabric walk that ran (the
+        kernel's: ``"staged"``, ``"split"`` or ``"streamed"``, the form
+        ``bitsliced.walk_path`` picks for the stack's envelope) to
+        ``{"launches": n, "words_a_block": {tile: launches}}``, counted
+        from the dispatches drained so far (CUDA slabs only: the CPU twin
+        has no form)."""
         cfg = self.config
         per_chip = []
         for i, st in enumerate(self._stats):
@@ -1934,6 +1955,10 @@ class ReadoutServer:
                 },
             },
             "stages": self._stages.report(),
+            "k2_walk": {form: {"launches": w["launches"],
+                               "words_a_block": dict(sorted(
+                                   w["words_a_block"].items()))}
+                        for form, w in sorted(self._k2_walk.items())},
             "net": (self._net_stats_provider()
                     if self._net_stats_provider is not None
                     else {"attached": False}),

@@ -151,8 +151,9 @@ def test_word_tile_fits_shared_memory():
     assert port_bs.word_tile(1, 256, 13, 128, 8, n_chips=4, n_sms=132) == 1
     assert port_bs.word_tile(3, 256, 13, 128, 16, n_chips=4, n_sms=132) == 1
     # 50 levels under TMR take the split walk (one replica a block); the
-    # refusal stays for an envelope whose one replica does not fit
+    # refusal stays for an envelope whose one word's net buffer does not
+    # fit (past the streamed walk)
     assert port_bs.walk_path(3, 256, 50, 128) == "split"
     with pytest.raises(ValueError, match="shared"):
-        port_bs.word_tile(3, 256, 200, 128, 4)
+        port_bs.word_tile(3, 256, 460, 128, 4)
 

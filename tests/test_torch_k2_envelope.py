@@ -64,10 +64,12 @@ def test_served_envelopes_keep_the_staged_walk(env, R):
 
 
 def test_refusal_stays_for_an_envelope_neither_walk_takes():
+    # past the streamed walk too: one word's net buffer alone (the input
+    # segment and every level's slots) exceeds shared memory
     with pytest.raises(ValueError, match="shared memory"):
-        bs.word_tile(3, 128, 128, 256, 16)
+        bs.word_tile(3, 128, 240, 256, 16)
     with pytest.raises(ValueError, match="shared memory"):
-        bs.walk_path(1, 128, 80, 256)
+        bs.walk_path(1, 128, 230, 256)
 
 
 @pytest.mark.parametrize("upset", [False, True])

@@ -8,7 +8,10 @@ the port is installed:
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 The featurizer is held to |d| <= 2e-5 |x| + 1e-6 ke (summation order, see
-tests/test_torch_yprofile.py); the bit-sliced walk, the selection-matmul
+tests/test_torch_yprofile.py); the bit-sliced walk (in each of its three
+forms, staged, split and streamed, at an envelope that takes it; its
+launches' forms in a served stream's report), the
+selection-matmul
 fabric kernels (dense and banded, also on a synthetic 0/1 ``sel`` with
 empty and several-ones columns, and at the §5 chunk shape), the BDT
 kernel (its tree walk on the packed arrays, its literal path on arrays
@@ -954,6 +957,83 @@ def test_k2_at_the_deep_padded_envelope(card, redundancy, upset):
         assert x.shape == y.shape and torch.equal(x, y)
     if upset and R > 1:
         assert bool((got[1] != 0).any())
+
+
+# (C, L, M, in_seg, n_inputs, O) of a walk envelope: the served 4-chip
+# TMR stack's, a 4-tree ensemble's on efpga_28nm_xl (28 x 512) and the
+# benchmark's 5-tree ensemble's (ens5xl: 33 x 640, up to 364 input bits,
+# 28 outputs)
+WALK_ENVELOPES = {"served": (4, 13, 128, 256, 254, 28),
+                  "ens4": (4, 28, 512, 384, 364, 28),
+                  "ens5xl": (4, 33, 640, 384, 364, 28)}
+WALK_FORMS = {("served", 1): "staged", ("served", 3): "staged",
+              ("ens4", 1): "staged", ("ens4", 3): "split",
+              ("ens5xl", 1): "streamed", ("ens5xl", 3): "streamed"}
+
+
+@pytest.mark.parametrize("words", [64, 63])
+@pytest.mark.parametrize("redundancy", ["none", "tmr"])
+@pytest.mark.parametrize("env", sorted(WALK_ENVELOPES))
+def test_k2_walk_forms_equal_the_plain_twin(card, env, redundancy, words):
+    """K2 in each of its three forms, at the envelope that takes it, on
+    synthetic stack arrays: voted and disagreement words bit-exact
+    against the plain twin, with one replica's tables upset under TMR
+    (the synthetic replicas differ anyway), at 64 words a chip and
+    at 63 (not a whole number of tiles on the streamed walk). The launch
+    marks its form and tile."""
+    R = 3 if redundancy == "tmr" else 1
+    C, L, M, in_seg, n_in, O = WALK_ENVELOPES[env]
+    src, tables, outs = chip_smoke.synthetic_walk_stack(
+        torch, np, C, R, L, M, in_seg, n_in, O, seed=40 + R)
+    if R > 1:
+        tables[1, :, :16, ::3] = 1.0 - tables[1, :, :16, ::3]
+    form = bs.walk_path(R, in_seg, L, M)
+    assert form == WALK_FORMS[env, R]
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tile = bs.word_tile(R, in_seg, L, M, words, C, n_sms)
+    if form == "streamed":
+        assert tile == 2 and (words % tile == 0) == (words == 64)
+    rng = np.random.default_rng(R + words)
+    bits = torch.as_tensor(rng.integers(0, 2, (C, words * 32 - 5, n_in)),
+                           dtype=torch.int32, device="cuda")
+    seg = bs.input_words(bits, n_in, in_seg)
+    n0, marks = bs.eval_seg_voted.launches, []
+    got = bs.eval_seg_voted(src, tables, outs, seg, R, marks)
+    want = bs.eval_seg_voted_plain(src, tables, outs, seg, R)
+    assert bs.eval_seg_voted.launches == n0 + 1
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and torch.equal(x, y)
+    if R > 1:
+        assert bool((got[1] != 0).any())
+    assert marks == [(form, tile)]
+
+
+@pytest.mark.parametrize("slabs", [1, 2])
+def test_k2_walk_forms_of_a_served_stream(card, slabs):
+    """A served TMR sparse stream on the card: ``report()["k2_walk"]``
+    counts each slab's walk a dispatch, all staged on these chips'
+    envelope, and no K2 event pair is timed."""
+    from repro_torch.launch.mesh import ReadoutMesh
+    from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
+
+    chips, frames, y0 = card
+    server = ReadoutServer(chips, ServerConfig(
+        max_batch=512, redundancy="tmr", sparse=True, scrub_interval=4),
+        device="cuda",
+        mesh=ReadoutMesh((torch.device("cuda:0"),) * slabs))
+    for k in range(8):
+        for s in range(2):
+            server.submit_frames(s, frames[s], y0[s])
+        server.poll()
+    server.flush()
+    rep = server.report()
+    st = rep["stages"]
+    assert st["dispatch_device"]["calls"] == 8 * slabs
+    assert "dispatch_device.k2" not in st
+    (form, walk), = rep["k2_walk"].items()
+    assert form == "staged" and walk["launches"] == 8 * slabs
+    assert sum(walk["words_a_block"].values()) == 8 * slabs
+    assert all(t >= 1 for t in walk["words_a_block"])
 
 
 def _slab_serve(chips, frames, y0, feats, mesh, device="cuda", **kw):
