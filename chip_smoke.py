@@ -67,7 +67,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                of the first full chunk (C=1, B=65,536), exact, and timed
                there beside the twin and the chunk's bounds. The
                counters are zeroed before and read after, and each of B2,
-               B3 and B4 must have launched.
+               B3 and B4 must have launched. Each chunk's rows are
+               quantized and encoded on the card by the feature encode
+               (csrc/feature_encode.cu), which must have launched once a
+               chunk in each matmul and bit-sliced run; before the runs
+               it is held to its twin and the host encode on the first
+               full chunk and on ENCODE_SPECS' edge rows (exact, NaN and
+               +-inf among them), and timed at the chunk beside its byte
+               bound and the twin.
   6. serve   — phase 4 again with ServerConfig(layout="matmul"), plain and
      matmul    TMR: every event equal to the oracle, 0 disagreements, the
                featurizer and the selection-matmul kernel launched.
@@ -285,6 +292,9 @@ B6_DENSE_WEIGHTS = B6_WEIGHTS + ("arbitrary",)
 S5_EVENTS = 500_000
 S5_SEED = 2024
 S5_CHUNK = 65_536
+# the feature encode's checked fixed-point types: width -> int_bits, each
+# under both rounding and both overflow modes
+ENCODE_WIDTHS = {8: 4, 28: 19, 40: 24}
 
 
 def emit(phase, **kw):
@@ -1109,6 +1119,102 @@ def check_bdt(torch, np, bdt, bdt_ops, chip, X):
     }
 
 
+def encode_specs():
+    """ENCODE_WIDTHS under every rounding and overflow mode."""
+    from repro_torch.core.quantize import FixedSpec
+
+    return [FixedSpec(w, i, rnd, ovf) for w, i in ENCODE_WIDTHS.items()
+            for rnd in ("trn", "rnd") for ovf in ("wrap", "sat")]
+
+
+# x * scale values where numpy's float -> int64 cast is exact near its
+# ends (+-2**62, 1.5 * 2**62, -2**63, the largest float64 below 2**63)
+# and where it gives INT64_MIN (2**63 and past it, -inf to NaN)
+CAST_EDGES = (2.0 ** 62, -2.0 ** 62, 1.5 * 2.0 ** 62, -2.0 ** 63,
+              2.0 ** 63 - 2.0 ** 10, 2.0 ** 63, -2.0 ** 63 - 2.0 ** 11,
+              3e30, -3e30, float("inf"), float("-inf"), float("nan"))
+
+
+def encode_edge_rows(np, spec):
+    """(n, 14) float64 rows whose every column holds, in its own order:
+    normal values over a few times the grid's range, the half steps
+    (k + 0.5) / scale near 0 and near both ends, raw_min and raw_max and
+    one step across each, far past them, and CAST_EDGES / scale."""
+    s, lo, hi = spec.scale, spec.raw_min, spec.raw_max
+    rng = np.random.default_rng(spec.width)
+    ks = np.r_[np.arange(-20, 20), lo + np.arange(-3, 3),
+               hi + np.arange(-3, 3)]
+    vals = np.r_[
+        rng.normal(0.0, 2.0 * spec.max_value, 400),
+        (ks + 0.5) / s,
+        np.array([lo, hi, lo - 1, hi + 1, lo + 1, hi - 1, 0, -1, 1]) / s,
+        np.array([3, -3, 5.5, -7.25]) * (hi + 1) / s,
+        np.array(CAST_EDGES) / s,
+    ]
+    return np.stack([rng.permutation(vals) for _ in range(14)], axis=1)
+
+
+def host_encode(np, chip, X, spec):
+    """The chip's host encode (quantize_raw, then encode_inputs) under
+    ``spec``, for any spec: the same used features. NaN, inf and values
+    past int64 cast without numpy's warning."""
+    import dataclasses
+
+    from repro_torch.core.quantize import quantize_raw
+
+    synth = dataclasses.replace(chip.synth, spec=spec)
+    with np.errstate(invalid="ignore"):
+        raw = quantize_raw(np.asarray(X, np.float64), spec)
+    return synth.encode_inputs(raw)
+
+
+def check_feature_encode(torch, np, fe, chip, X):
+    """The feature encode against its twin and the host encode: on the
+    first full §5 chunk (float32, as the check's rows come) and on every
+    ENCODE_SPECS' edge rows in float32 and float64, exact; timed at the
+    chunk (the launch alone into preallocated
+    bits) beside its byte bound and the twin."""
+    spec = chip.synth.spec
+    used = torch.as_tensor(chip.synth.used_features, dtype=torch.int32,
+                           device="cuda")
+    cases = [("s5_chunk", spec, np.asarray(X[:S5_CHUNK], np.float32))]
+    cases += [(f"edge_W{sp.width}_{sp.rounding}_{sp.overflow}_{dt.__name__}",
+               sp, encode_edge_rows(np, sp).astype(dt))
+              for sp in encode_specs() for dt in (np.float32, np.float64)]
+    for what, sp, rows in cases:
+        x = torch.as_tensor(rows, device="cuda")
+        got = fe.encode_rows(x, used, sp).cpu().numpy()
+        twin = fe.encode_plain(x.cpu(), used.cpu(), sp).numpy()
+        want = host_encode(np, chip, rows, sp)
+        if not (np.array_equal(got, twin) and np.array_equal(got, want)):
+            fail("kernels", f"feature_encode {what}: bits differ from the "
+                            f"twin in {int((got != twin).sum())} places, "
+                            f"from the host encode in "
+                            f"{int((got != want).sum())}")
+    x = torch.as_tensor(cases[0][2], device="cuda")
+    bits = torch.empty((len(x), used.numel() * spec.width),
+                       dtype=torch.int32, device="cuda")
+    nbytes = x.numel() * 4 + bits.numel() * 4
+    return {
+        "name": "feature_encode",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/feature_encode.cu",
+        "replaces": None,
+        "why": "the JAX package encodes the check's rows on the host; the "
+               "port's check spent ~90% of its window there",
+        "checked": [c[0] for c in cases],
+        "timed_shape": list(x.shape),
+        "max_abs_err": 0.0,
+        "ms": time_ms(lambda: fe._launch(x, used, spec, bits)),
+        "plain_ms": time_ms(lambda: fe.encode_plain(x, used, spec),
+                            reps=5, inner=1),
+        "library_ms": None,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "bytes": nbytes,
+    }
+
+
 def section5(torch, np, chip, te, tr, counters):
     """The paper's §5 check on every event: fabric (banded, dense, then
     bit-sliced) and bdt_infer against the golden BDT, with the launch
@@ -1125,6 +1231,7 @@ def section5(torch, np, chip, te, tr, counters):
                 yield split["features"][lo : lo + S5_CHUNK]
 
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_chunks = sum(1 for _ in chunks())
     reset(counters)
     runs = {}
     # the default layout (banded B3), then band=False (dense B2), then the
@@ -1207,6 +1314,9 @@ def section5(torch, np, chip, te, tr, counters):
     for k in ("lut_eval", "lut_eval_banded", "bdt_infer"):
         if launches[k] <= 0:
             fail("s5", f"kernel {k} never launched")
+    if launches["feature_encode"] != 3 * n_chunks:
+        fail("s5", f"feature_encode launched {launches['feature_encode']} "
+                   f"times for 3 runs of {n_chunks} chunks")
     return runs, launches
 
 
@@ -3861,6 +3971,7 @@ def main():
     from repro_torch.data.pipeline import FrameStream, FrameStreamConfig
     from repro_torch.kernels import build
     from repro_torch.kernels.bdt_infer import bdt_infer as bdt
+    from repro_torch.kernels import feature_encode as fe
     from repro_torch.kernels.bdt_infer import ops as bdt_ops
     from repro_torch.kernels.lut_eval import bitsliced as bs
     from repro_torch.kernels.lut_eval import lut_eval as le
@@ -3878,7 +3989,8 @@ def main():
                 "bdt_infer": bdt.bdt_traverse,
                 "sparse_pack_decode": sp.decode_pack,
                 "sparse_pack_keep_words": sp.pack_keep_words,
-                "decode_dense": sp.decode_dense}
+                "decode_dense": sp.decode_dense,
+                "feature_encode": fe.encode_rows}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3924,6 +4036,8 @@ def main():
     emit("kernel_bdt_infer", ok=True, **b4)
     b6 = check_b6(torch, np, bs, sp, cp, lut_ops, chips)
     emit("kernel_sparse_pack", ok=True, **b6)
+    enc = check_feature_encode(torch, np, fe, s5_chip, te["features"])
+    emit("kernel_feature_encode", ok=True, **enc)
     # B6's dense entry: its own row of the kernels line
     b6_dense = {"name": "sparse_pack_dense", "route": "cuda",
                 "source": b6["source"],
@@ -4114,7 +4228,8 @@ def main():
     kernels = []
     # K2's row carries the times of its R=3 (TMR) run; K1, K2 and B6's
     # dense entry count their launches in the default served stream,
-    # B2-B4 in the §5 check, B6's sparse entries in the sparse stream
+    # B2-B4 and the feature encode in the §5 check, B6's sparse entries
+    # in the sparse stream
     for k, t, n in ((k1, k1, runs["none"]["launches"]["yprofile"]),
                     (k2, k2["runs"][f"R3_W{K2_WORDS}"],
                      runs["none"]["launches"]["eval_words_voted"]),
@@ -4126,7 +4241,8 @@ def main():
                          for k in ("sparse_pack_decode",
                                    "sparse_pack_keep_words"))),
                     (b6_dense, b6["runs"][f"dense_R3_W{B6_WORDS}"],
-                     runs["none"]["launches"]["decode_dense"])):
+                     runs["none"]["launches"]["decode_dense"]),
+                    (enc, enc, s5_launches["feature_encode"])):
         kernels.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
@@ -4167,6 +4283,8 @@ def main():
                           if k.startswith("dense")}
     kernels[6]["also_replaces"] = b6_dense["also_replaces"]
     kernels[6]["launches_tmr"] = runs["tmr"]["launches"]["decode_dense"]
+    # the feature encode replaces no TPU kernel: why it exists
+    kernels[7]["why"] = enc["why"]
     # K1, K2 and B6's dense entry behind the front door (phase 11, plain,
     # TCP unpaced)
     for row, k in ((kernels[0], "yprofile"), (kernels[1], "eval_words_voted"),

@@ -7,7 +7,9 @@
 JAX package's core/readout.py (numpy; the staged frames path featurizes
 with this port's yprofile). ``KernelBackend`` runs the fabric kernels
 (selection matmul by default, or bit-sliced) and the fused frontend on a
-torch device (CUDA by default).
+torch device (CUDA by default); its §5 check (``ReadoutChip.infer_raw``)
+also quantizes, encodes and decodes there, where the reference does it on
+the host.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import dataclasses
 from typing import Dict, Optional, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core.bdt import GradientBoostedClassifier, QuantizedEnsemble
 from repro_torch.core.bitstream import decode, encode
@@ -47,6 +50,11 @@ class ScoringBackend(abc.ABC):
         every stage materialized on the host between steps — the oracle
         the fused path is compared against. KernelBackend overrides it
         with the fused single-dispatch frontend (kernels/frontend.py).
+
+    ``ReadoutChip.infer_raw`` (feature rows in, scores out) runs
+    ``encode_features`` -> ``score_bits`` -> ``decode_outputs``; the base
+    encode and decode are the chip's host ones, and KernelBackend moves
+    both to the device.
     """
 
     name: str = "?"
@@ -54,6 +62,16 @@ class ScoringBackend(abc.ABC):
     @abc.abstractmethod
     def score_bits(self, config: FabricConfig, bits: np.ndarray) -> np.ndarray:
         """(B, n_inputs) 0/1 -> (B, n_outputs) uint8 output bits."""
+
+    def encode_features(self, chip: "ReadoutChip", X: np.ndarray):
+        """features (n, 14) float -> the input bits ``score_bits`` takes:
+        the chip's host encode."""
+        return chip.encode_features(X)
+
+    def decode_outputs(self, chip: "ReadoutChip", outs) -> np.ndarray:
+        """``score_bits``'s output bits -> (n,) raw int64 scores: the
+        chip's host decode."""
+        return chip.synth.decode_outputs(outs)
 
     # torch device of the featurizer (None = CUDA), resolved on first use
     device = None
@@ -157,14 +175,69 @@ class KernelBackend(ScoringBackend):
 
         self._packed = _ConfigCache(build)
         self._frontends = _ConfigCache(None)
+        self._check_plans = _ConfigCache(None)
 
-    def score_bits(self, config: FabricConfig, bits: np.ndarray) -> np.ndarray:
+    def score_bits(self, config: FabricConfig, bits):
+        """(B, n_inputs) 0/1 -> (B, n_outputs) uint8 output bits: a host
+        array for host bits (the copy back is the span
+        ``readout.check.d2h``), a tensor left on the device for bits that
+        are a device tensor (``encode_features``'s)."""
         from repro_torch.kernels.lut_eval import ops as lut_ops
 
         out = lut_ops.fabric_eval(
             self._packed.get(config), bits, batch_tile=self.batch_tile)
+        if isinstance(bits, torch.Tensor):
+            return out
         with SPANS.time("check.d2h"):
             return out.cpu().numpy()
+
+    def _check_plan(self, chip: "ReadoutChip") -> "_CheckPlan":
+        def build(_config):
+            dev = self._packed.get(chip.config).device
+            W = chip.synth.spec.width
+            return _CheckPlan(
+                used=torch.as_tensor(chip.synth.used_features,
+                                     dtype=torch.int32, device=dev),
+                weights=torch.as_tensor(np.int64(1) << np.arange(W),
+                                        device=dev))
+
+        return self._check_plans.get(chip.config, build=build)
+
+    def encode_features(self, chip: "ReadoutChip",
+                        X: np.ndarray) -> torch.Tensor:
+        """features (n, 14) -> (n, n_inputs) int32 input bits on the
+        device: the rows cross as they are (float32 or float64; another
+        type widened to float64 first), in the span
+        ``readout.check.h2d``, and kernels/feature_encode.py quantizes and
+        encodes them there, into the plan's bits buffer (the bits of the
+        chip's last chunk; a longer chunk grows it)."""
+        from repro_torch.kernels import feature_encode
+
+        plan = self._check_plan(chip)
+        X = np.asarray(X)
+        if X.dtype not in (np.float32, np.float64):
+            X = X.astype(np.float64)
+        dev = plan.used.device
+        with SPANS.time("check.h2d"):
+            x = torch.from_numpy(np.ascontiguousarray(X)).to(dev)
+        n, cols = len(X), plan.used.numel() * chip.synth.spec.width
+        if plan.bits is None or plan.bits.shape[0] < n:
+            plan.bits = torch.empty((n, cols), dtype=torch.int32, device=dev)
+        return feature_encode.encode_rows(x, plan.used, chip.synth.spec,
+                                          out=plan.bits[:n])
+
+    def decode_outputs(self, chip: "ReadoutChip", outs) -> np.ndarray:
+        """(n, W) output bits, a device tensor or a host array -> (n,) raw
+        int64 scores, decoded on the device exactly as
+        ``SynthResult.decode_outputs`` does and copied back in one copy
+        (the span ``readout.check.d2h``)."""
+        plan = self._check_plan(chip)
+        o = torch.as_tensor(outs, device=plan.used.device).to(torch.int64)
+        u = (o * plan.weights).sum(-1)
+        sign = 1 << (chip.synth.spec.width - 1)
+        score = torch.where(u >= sign, u - (sign << 1), u)
+        with SPANS.time("check.d2h"):
+            return score.cpu().numpy()
 
     def score_frames(
         self,
@@ -190,6 +263,19 @@ class KernelBackend(ScoringBackend):
         score, _keep = front.score_frames(
             np.asarray(frames)[None], np.asarray(y0)[None])
         return score[0].cpu().numpy().astype(np.int64)
+
+
+@dataclasses.dataclass
+class _CheckPlan:
+    """A chip's §5 check on KernelBackend's device: the used feature
+    columns (int32), the decode's bit weights 2**w (int64) and the
+    encode's (rows, n_inputs) int32 bits buffer, reused chunk after chunk
+    (stream order keeps a chunk's bits until its fabric pass has read
+    them)."""
+
+    used: torch.Tensor
+    weights: torch.Tensor
+    bits: Optional[torch.Tensor] = None
 
 
 _BACKENDS: Dict[str, ScoringBackend] = {}
@@ -256,14 +342,17 @@ class ReadoutChip:
     def infer_raw(
         self, X: np.ndarray, backend: Union[str, ScoringBackend] = "host"
     ) -> np.ndarray:
-        """features (n, 14) float -> raw integer scores, via the fabric.
-        While a profiler records, the host encode and decode are the
-        spans ``readout.check.encode`` and ``readout.check.decode``."""
+        """features (n, 14) float -> raw integer scores, via the fabric:
+        the backend's encode, ``score_bits`` and decode (on
+        KernelBackend, all three on the device). While a profiler
+        records, the encode and decode are the spans
+        ``readout.check.encode`` and ``readout.check.decode``."""
+        be = get_backend(backend)
         with SPANS.time("check.encode"):
-            bits = self.encode_features(X)
-        outs = get_backend(backend).score_bits(self.config, bits)
+            bits = be.encode_features(self, X)
+        outs = be.score_bits(self.config, bits)
         with SPANS.time("check.decode"):
-            return self.synth.decode_outputs(outs)
+            return be.decode_outputs(self, outs)
 
     def frontend_spec(self):
         """This chip's fused-frontend encode/decode contract

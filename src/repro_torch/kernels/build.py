@@ -57,6 +57,9 @@ PROTOTYPES = {
     "sparse_pack": {
         "sparse_pack_launch": (_P,) * 12 + (_I,) * 5 + (_LL, _P),
         "decode_dense_launch": (_P,) * 9 + (_I,) * 5 + (_LL, _P)},
+    "feature_encode": {
+        "feature_encode_launch": (_P, _I, _LL, _I, _P) + (_I,) * 5
+                                 + (_P,) * 2},
 }
 KERNELS = tuple(PROTOTYPES)
 

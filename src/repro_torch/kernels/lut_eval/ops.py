@@ -841,25 +841,29 @@ def fabric_eval(
 ) -> torch.Tensor:
     """Evaluate a batch of events on one configured fabric.
 
-    bits: (B, n_inputs) 0/1 -> (B, n_outputs) uint8 on the packed
-    fabric's device. B is padded up to a ``batch_tile`` multiple, as the
-    reference pads it. ``band``/``layout``/``device`` apply when packing a
-    raw config (ignored for an already-packed fabric). While a profiler
-    records, the bits' copy and the evaluation are the spans
-    ``readout.check.h2d`` and ``readout.check.eval``."""
+    bits: (B, n_inputs) 0/1, a host array or a tensor -> (B, n_outputs)
+    uint8 on the packed fabric's device. B is padded up to a
+    ``batch_tile`` multiple, as the reference pads it.
+    ``band``/``layout``/``device`` apply when packing a raw config
+    (ignored for an already-packed fabric). While a profiler records, the
+    evaluation is the span ``readout.check.eval``, and the copy of host
+    bits ``readout.check.h2d``."""
     packed = (
         config_or_packed
         if isinstance(config_or_packed, PackedFabric)
         else pack_fabric(config_or_packed, band=band, layout=layout,
                          device=device)
     )
-    with SPANS.time("check.h2d"):
-        b = torch.as_tensor(np.asarray(bits), dtype=torch.int32,
-                            device=packed.device)
-        B = b.shape[0]
-        Bp = _round_up(max(B, 1), batch_tile)
-        if Bp != B:
-            b = torch.nn.functional.pad(b, (0, 0, 0, Bp - B))
+    if isinstance(bits, torch.Tensor):
+        b = bits.to(device=packed.device, dtype=torch.int32)
+    else:
+        with SPANS.time("check.h2d"):
+            b = torch.as_tensor(np.asarray(bits), dtype=torch.int32,
+                                device=packed.device)
+    B = b.shape[0]
+    Bp = _round_up(max(B, 1), batch_tile)
+    if Bp != B:
+        b = torch.nn.functional.pad(b, (0, 0, 0, Bp - B))
     with SPANS.time("check.eval"):
         return _eval_packed(packed, b)[:B]
 

@@ -27,17 +27,26 @@ over a card server verifies every trigger against the host oracle. A
 server split into two and four slabs on ``cuda:0`` serves exactly as one
 slab does, and as the CPU from identical features; every kernel wrapper
 launched on ``cuda:1`` tensors while ``cuda:0`` is current is exact (that
-case skips below two cards).
+case skips below two cards). The §5 check's feature encode equals its
+twin and the host encode for every rounding, overflow and checked width,
+in float32 and float64, NaN, +-inf and values past int64 among the rows
+(the twin is held to the JAX package on the CPU,
+tests/test_torch_feature_encode.py); a 65,536-row chunk through
+``infer_raw`` on the card is exact in every layout with one encode
+launch, and rows that numpy casts to INT64_MIN score as the host's.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from repro_torch.core.bdt import GradientBoostedClassifier
-from repro_torch.core.readout import ReadoutChip
+from repro_torch.core.readout import KernelBackend, ReadoutChip
 from repro_torch.data.smartpixel import SmartPixelConfig, generate
 from repro_torch.data.smartpixel import train_test_split
+from repro_torch.kernels import feature_encode as fenc
 from repro_torch.kernels import frontend as fe
 from repro_torch.kernels.bdt_infer import bdt_infer as bdt
 from repro_torch.kernels.bdt_infer import ops as bdt_ops
@@ -1141,3 +1150,61 @@ def test_each_wrapper_on_a_second_card_while_the_first_is_current(card):
                                       ens.decision_function_raw(x))
         assert torch.cuda.current_device() == 0
     assert all(f.launches > n for f, n in zip(counters, n0))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize(
+    "spec", chip_smoke.encode_specs(),
+    ids=lambda sp: f"W{sp.width}-{sp.rounding}-{sp.overflow}")
+def test_feature_encode_kernel_equals_twin_and_host_encode(card, spec,
+                                                           dtype):
+    chip = card[0][1]
+    rows = chip_smoke.encode_edge_rows(np, spec).astype(dtype)
+    used = torch.as_tensor(chip.synth.used_features, dtype=torch.int32,
+                           device="cuda")
+    n0 = fenc.encode_rows.launches
+    got = fenc.encode_rows(torch.as_tensor(rows, device="cuda"), used,
+                           spec).cpu().numpy()
+    assert fenc.encode_rows.launches == n0 + 1
+    twin = fenc.encode_plain(torch.from_numpy(rows), used.cpu(),
+                             spec).numpy()
+    np.testing.assert_array_equal(got, twin)
+    np.testing.assert_array_equal(
+        got, chip_smoke.host_encode(np, chip, rows, spec))
+
+
+@functools.lru_cache(maxsize=None)
+def _s5_rows():
+    """One §5 chunk of feature rows (float32, as the check's come)."""
+    return generate(SmartPixelConfig(n_events=65_536, seed=13))["features"]
+
+
+@pytest.mark.parametrize("layout", [{}, {"band": False},
+                                    {"layout": "bitsliced"}],
+                         ids=["banded", "dense", "bitsliced"])
+def test_section5_chunk_on_card_is_exact_with_one_encode(card, layout):
+    chip = card[0][1]
+    X = _s5_rows()
+    backend = KernelBackend(device="cuda", **layout)
+    n0 = fenc.encode_rows.launches
+    got = chip.infer_raw(X, backend=backend)
+    assert got.dtype == np.int64 and got.shape == (len(X),)
+    np.testing.assert_array_equal(got, chip.golden.decision_function_raw(
+        chip.golden.quantize_features(X)))
+    assert fenc.encode_rows.launches == n0 + 1
+
+
+@pytest.mark.parametrize("value", [np.nan, -np.inf, 2.0 ** 62, 2.0 ** 63],
+                         ids=["nan", "minus_inf", "at_2_62", "at_2_63"])
+def test_rows_past_the_int64_cast_on_card_score_as_the_host(card, value):
+    chip = card[0][1]
+    X = _s5_rows()[:4096].astype(np.float64)
+    for i, col in enumerate(chip.synth.used_features):
+        X[7 + 11 * i, col] = value / chip.golden.spec.scale
+    backend = KernelBackend(device="cuda")
+    n0 = fenc.encode_rows.launches
+    got = chip.infer_raw(X, backend=backend)
+    with np.errstate(invalid="ignore"):
+        want = chip.infer_raw(X, backend="host")
+    np.testing.assert_array_equal(got, want)
+    assert fenc.encode_rows.launches == n0 + 1
