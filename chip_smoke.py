@@ -1419,13 +1419,13 @@ def serve(torch, np, chips, swap_chip, blocks, want, redundancy, counters,
     if rep["seu_disagreement_total"]:
         fail(phase, f"{what}: {rep['seu_disagreement_total']} replica "
                     "disagreements on a healthy stack")
-    need = [FABRIC_KERNEL[server._stack.layout]]
+    need = [FABRIC_KERNEL[server._path.stack.layout]]
     if not features:
         need.append("yprofile")
     if sparse:
-        need.append("sparse_pack_decode" if server._stack.bitsliced
+        need.append("sparse_pack_decode" if server._path.stack.bitsliced
                     else "sparse_pack_keep_words")
-    elif server._stack.bitsliced:
+    elif server._path.stack.bitsliced:
         need.append("decode_dense")
     for k in need:
         if launches[k] <= 0:
@@ -1438,7 +1438,7 @@ def serve(torch, np, chips, swap_chip, blocks, want, redundancy, counters,
             or link["dense_equivalent"] != 5 * n_in):
         fail(phase, f"{what}: link bytes {link} for {n_in} events, "
                     f"{rep['n_kept']} kept (wire {wire} expected)")
-    return {"layout": rep["layout"], "stack": server._stack.layout,
+    return {"layout": rep["layout"], "stack": server._path.stack.layout,
             "redundancy": redundancy, "sparse": sparse,
             "ingest": "features" if features else "frames",
             "slabs": rep["slabs"],
@@ -1599,13 +1599,13 @@ def serve_scrub(torch, np, chips, blocks, want, flips, counters, layout,
              for r in range(R)]
     if not all(clean):
         fail(phase, f"{what}: frames failing verify at the end: {clean}")
-    need = ["yprofile", FABRIC_KERNEL[server._stack.layout]]
-    if server._stack.bitsliced:
+    need = ["yprofile", FABRIC_KERNEL[server._path.stack.layout]]
+    if server._path.stack.bitsliced:
         need.append("decode_dense")
     for k in need:
         if launches[k] <= 0:
             fail(phase, f"{what}: kernel {k} never launched")
-    return {"layout": rep["layout"], "stack": server._stack.layout,
+    return {"layout": rep["layout"], "stack": server._path.stack.layout,
             "redundancy": redundancy, "mode": mode,
             "events": rep["n_in"], "upset": hit,
             "healed_after_batch": (healed_after or [None])[0],
@@ -2024,9 +2024,9 @@ def bucket_state(fleet):
     out = []
     for b in fleet._buckets:
         srv = b.server
-        stacks = [st for st, _ in slabs_of(srv._stack)]
-        fes = ([f for f, _ in slabs_of(srv._frontend)]
-               if srv._frontend is not None else [])
+        stacks = [st for st, _ in slabs_of(srv._path.stack)]
+        fes = ([f for f, _ in slabs_of(srv._path.frontend)]
+               if srv._path.frontend is not None else [])
         out.append({
             "stack": [t.data_ptr() for st in stacks
                       for t in (st.tables, st.output_nets,
@@ -2037,7 +2037,7 @@ def bucket_state(fleet):
                          for i, fe in enumerate(fes)
                          for k, v in fe.staging.items()}
                         if fes else None),
-            "copy_stream": dict(srv._copy_streams),
+            "copy_stream": dict(srv._path.copy_streams),
         })
     return out
 
@@ -2134,7 +2134,7 @@ def serve_fleet(torch, np, chips, blocks, want, counters, what, **cfg_kw):
                     f"cancelled != {len(where)} admitted")
     if not led["t1"]["evicted_while_queued"]:
         fail(phase, f"{what}: evict(drain=False) cancelled nothing")
-    layouts = sorted({b.server._stack.layout for b in fleet._buckets})
+    layouts = sorted({b.server._path.stack.layout for b in fleet._buckets})
     need = ["yprofile"] + [FABRIC_KERNEL[k] for k in layouts]
     if "bitsliced" in layouts:
         need.append("decode_dense")
@@ -2484,7 +2484,7 @@ def fleet_deep(torch, np, counters):
                             device="cuda")
         fleet.admit("deep", chip)
         # the first slab (the whole stack on one card), on cuda:0
-        st = lut_ops.slabs_of(fleet._buckets[0].server._stack)[0][0]
+        st = lut_ops.slabs_of(fleet._buckets[0].server._path.stack)[0][0]
         reset(counters)
         seqs = fleet.submit_batch("deep", X)
         got = {r.seq: r.score_raw for r in fleet.flush()}
@@ -3896,6 +3896,7 @@ def slabs_multi_card(torch, np, chips, swap_chip, blocks, want,
     tensors on its card; a live rebind from cuda:0 to cuda:1 mid-stream;
     and a fleet over every card whose two buckets land on disjoint
     cards, every delivered event equal to the oracle."""
+    from repro_torch.kernels.lut_eval.ops import slabs_of
     from repro_torch.launch.fleet import TenantFleet
     from repro_torch.launch.mesh import ReadoutMesh
     from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
@@ -3914,7 +3915,7 @@ def slabs_multi_card(torch, np, chips, swap_chip, blocks, want,
                            mesh=ReadoutMesh(cards))
     server.submit_frames(0, blocks[0][0]["frames"], blocks[0][0]["y0"])
     server.flush()
-    for slab, c0 in server._lut_ops.slabs_of(server._frontend):
+    for slab, c0 in slabs_of(server._path.frontend):
         dev = cards[c0 * n // N_CHIPS]
         placed = [slab.stack.tables, slab.stack.output_nets,
                   *slab.plan.values(), *[t for bufs in slab.staging.values()

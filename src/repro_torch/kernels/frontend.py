@@ -170,18 +170,15 @@ def score_features(
     valid: torch.Tensor,                # (C, B) bool
     *,
     sparse: bool = False,
-    k2_marks: Optional[List] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Stages 2-5 from device features: (score (C, B) int32, keep (C, B)
     bool, disagree counts (C, R) int32). ``sparse=True`` (bit-sliced
     stacks) stays in the word domain after the bit gather — the fabric
     kernel's words go to kernel B6 — and returns (count, idx, vals, dis)
-    over flat indices ``chip*B + event``. Given ``k2_marks`` (a list),
-    the fabric walk's launch appends its form and words a block
-    (``bitsliced.eval_seg_voted``)."""
+    over flat indices ``chip*B + event``."""
     return lut_ops._eval_stack_scored(
         stack, encode_bits(feats, plan), plan["out_weight"],
-        plan["threshold_raw"], valid, sparse=sparse, marks=k2_marks)
+        plan["threshold_raw"], valid, sparse=sparse)
 
 
 def _score_frames_impl(
@@ -193,12 +190,10 @@ def _score_frames_impl(
     *,
     threshold_electrons: float,
     sparse: bool = False,
-    k2_marks: Optional[List] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The fused body: featurize (stage 1) then ``score_features``."""
     feats = yp_ops.yprofile_traced(frames, y0, threshold=threshold_electrons)
-    return score_features(feats, stack, plan, valid, sparse=sparse,
-                          k2_marks=k2_marks)
+    return score_features(feats, stack, plan, valid, sparse=sparse)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -326,27 +321,23 @@ class FusedFrontend:
         return score, keep
 
     def score_frames_voted(
-        self, frames, y0=None, valid=None, *, stages: Stages = SPANS,
-        k2_marks: Optional[List] = None,
+        self, frames, y0=None, valid=None, *, stages: Stages = SPANS
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Like ``score_frames`` plus disagree_counts (C, n_replicas) int32:
         events (among ``valid`` rows; None = every chip's real rows) where
         that replica's output word was voted against. ``frames`` is the
         padded (C, B, T, Y, X) charge with ``y0`` (C, B), or a dispatch's
         ``FrameRows`` (``y0`` None); results are (C, width). The staging
-        copies are timed as ``launch_fused.h2d`` on ``stages``; the
-        fabric walk's launch is marked on ``k2_marks`` (``score_features``).
-        """
+        copies are timed as ``launch_fused.h2d`` on ``stages``."""
         rows = _as_rows(frames, y0)
         f, z, v = self._stage(rows, valid, stages)
         score, keep, dis = _score_frames_impl(
             f, z, self.stack, self.plan, v,
-            threshold_electrons=self.threshold_electrons, k2_marks=k2_marks)
+            threshold_electrons=self.threshold_electrons)
         return score[:, :rows.width], keep[:, :rows.width], dis
 
     def score_frames_sparse(
-        self, frames, y0=None, valid=None, *, stages: Stages = SPANS,
-        k2_marks: Optional[List] = None,
+        self, frames, y0=None, valid=None, *, stages: Stages = SPANS
     ) -> Tuple[torch.Tensor, ...]:
         """Word-domain sparse egress form of ``score_frames_voted``
         (bit-sliced stacks only; the same inputs): the trigger cut, SEU
@@ -360,8 +351,7 @@ class FusedFrontend:
         format, B the batch width. Nothing synchronises: slice
         ``idx[:count]`` after the pass has finished to ship exactly the
         kept events. The staging copies are timed as ``launch_fused.h2d``
-        on ``stages``; the fabric walk's launch is marked on ``k2_marks``.
-        """
+        on ``stages``."""
         if self.stack.src is None:
             raise ValueError(
                 "sparse frame scoring needs the word domain: pack the "
@@ -370,8 +360,7 @@ class FusedFrontend:
         f, z, v = self._stage(rows, valid, stages)
         count, idx, vals, dis = _score_frames_impl(
             f, z, self.stack, self.plan, v,
-            threshold_electrons=self.threshold_electrons, sparse=True,
-            k2_marks=k2_marks)
+            threshold_electrons=self.threshold_electrons, sparse=True)
         C, B, Bp = self.n_chips, rows.width, f.shape[1]
         if Bp != B:
             idx, vals = lut_ops.restride(idx, vals, C, B, Bp)

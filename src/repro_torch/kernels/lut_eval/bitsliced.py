@@ -33,7 +33,7 @@ Array contract (the ``layout="bitsliced"`` packing, ops.py):
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -271,12 +271,11 @@ def split_buffers(n_chips: int, n_replicas: int, n_words: int,
 
 
 def _launch(src, tables, output_nets, seg, scratch, voted, dis, R,
-            tile, rep=None, marks=None) -> None:
+            tile, rep=None) -> None:
     """Both (staged; streamed at R=1) or all three (split; streamed under
     TMR) passes on the current stream. ``rep`` is ``split_buffers``'
     pair, needed on the split walk and on the streamed walk under TMR
-    (made here when not given). Given ``marks``, appends (form,
-    ``tile``)."""
+    (made here when not given)."""
     lib = build.load("bitsliced")
     C, W, in_seg = seg.shape
     L, M, O = src.shape[1], src.shape[2], output_nets.shape[1]
@@ -302,8 +301,6 @@ def _launch(src, tables, output_nets, seg, scratch, voted, dis, R,
                 voted.data_ptr(), dis.data_ptr(), C, R, W, in_seg, L, M, O,
                 tile, stream)
     build.check(lib, code, f"bitsliced {form} walk kernel")
-    if marks is not None:
-        marks.append((form, tile))
 
 
 def scratch_for(n_chips: int, n_replicas: int, n_levels: int, m_pad: int,
@@ -320,7 +317,6 @@ def eval_seg_voted(
     output_nets: torch.Tensor,
     seg: torch.Tensor,
     n_replicas: int,
-    marks: Optional[List] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Level walk + vote + disagreement words over input-segment words:
     (voted (C, W, O) int32, dis (C, R, W) int32; zeros for R=1). CUDA
@@ -328,8 +324,7 @@ def eval_seg_voted(
     in the form ``walk_path`` picks from the envelope;
     CPU tensors run ``eval_seg_voted_plain``. Either way the launch
     signature (C, R, W, in_seg, L, M, O) is recorded first (the word tile
-    is a function of it). Given ``marks``, a launch appends its form and
-    words a block (``_launch``)."""
+    is a function of it)."""
     C, W, in_seg = seg.shape
     R = n_replicas
     if R not in (1, N_REPLICAS):
@@ -356,8 +351,7 @@ def eval_seg_voted(
     voted = torch.empty((C, W, O), dtype=torch.int32, device=seg.device)
     dis = torch.empty((C, R, W), dtype=torch.int32, device=seg.device)
     _launch(src, tables, output_nets, seg,
-            scratch_for(C, R, L, M, seg.device), voted, dis, R, tile,
-            marks=marks)
+            scratch_for(C, R, L, M, seg.device), voted, dis, R, tile)
     eval_seg_voted.launches += 1
     return voted, dis
 
@@ -374,14 +368,13 @@ def eval_words_voted(
     n_replicas: int,
     n_inputs: int,
     in_seg: int,
-    marks: Optional[List] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Redundant evaluation stopped in the word domain: (voted output
     words (C, W, O), per-replica disagreement words (C, R, W)), bit ``e``
     of a disagreement word set iff that replica's output differs from the
-    vote for event ``w*32+e``. ``marks`` as ``eval_seg_voted``'s."""
+    vote for event ``w*32+e``."""
     seg = input_words(bits, n_inputs, in_seg)
-    return eval_seg_voted(src, tables, output_nets, seg, n_replicas, marks)
+    return eval_seg_voted(src, tables, output_nets, seg, n_replicas)
 
 
 def eval_bits_voted(

@@ -1073,8 +1073,7 @@ def fabric_eval_multi(
 
 
 def _eval_stack_scored(stack: PackedFabricStack, bits, out_weight,
-                       threshold_raw, valid, *, sparse: bool = False,
-                       marks=None):
+                       threshold_raw, valid, *, sparse: bool = False):
     """Serving dispatch for padded device bits: evaluate every replica,
     vote, decode scores and apply the integer cut.
 
@@ -1086,14 +1085,12 @@ def _eval_stack_scored(stack: PackedFabricStack, bits, out_weight,
     fabric kernel's voted and disagreement words go straight to kernel B6
     (sparse: cut, count and compact the kept lanes; dense: every event's
     score and cut in event order), launched as the walk's programmatic
-    dependent. The matmul layout votes and decodes in torch ops. Given
-    ``marks`` (a list), the fabric walk's launch appends its form and
-    words a block (``bitsliced.eval_seg_voted``)."""
+    dependent. The matmul layout votes and decodes in torch ops."""
     if stack.src is not None:
         voted_w, dis_w = _bitsliced.eval_words_voted(
             stack.src, stack.tables, stack.output_nets, bits,
             n_replicas=stack.n_replicas, n_inputs=stack.n_inputs,
-            in_seg=stack.in_seg, marks=marks)
+            in_seg=stack.in_seg)
         tail = (_sparse_pack.decode_pack if sparse
                 else _sparse_pack.decode_dense)
         return tail(voted_w, dis_w, out_weight, threshold_raw, valid)
@@ -1137,21 +1134,20 @@ def fabric_eval_multi_scored(
     valid=None,
     *,
     batch_tile: int = 128,
-    marks=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Score (chips, events) input bits in one voted dispatch: (score
     (C, B) int32, keep (C, B) bool, dis (C, R) int32), with the decode
     weights of ``decode_plan`` and the integer cuts applied on the
     device. Nothing synchronises with the host. A ``SlabStack`` runs one
     dispatch a slab on the slab's device and merges them on the host
-    (``merge_scored``). ``marks`` as ``_eval_stack_scored``'s."""
+    (``merge_scored``)."""
     if isinstance(stack, SlabStack):
         return merge_scored(scored_slabs(stack, bits, out_weight,
                                          threshold_raw, valid,
-                                         batch_tile=batch_tile, marks=marks))
+                                         batch_tile=batch_tile))
     b, w, t, v, B, _ = _scored_args(stack, bits, out_weight, threshold_raw,
                                     valid, batch_tile)
-    score, keep, dis = _eval_stack_scored(stack, b, w, t, v, marks=marks)
+    score, keep, dis = _eval_stack_scored(stack, b, w, t, v)
     return score[:, :B], keep[:, :B], dis
 
 
@@ -1163,7 +1159,6 @@ def fabric_eval_multi_scored_sparse(
     valid=None,
     *,
     batch_tile: int = 128,
-    marks=None,
 ) -> Tuple[torch.Tensor, ...]:
     """Word-domain sparse twin of ``fabric_eval_multi_scored``: (count ()
     int32, idx (C*B,) int32 ascending flat indices ``chip*B + event`` -1
@@ -1175,8 +1170,7 @@ def fabric_eval_multi_scored_sparse(
     if isinstance(stack, SlabStack):
         return merge_sparse(scored_slabs(stack, bits, out_weight,
                                          threshold_raw, valid,
-                                         batch_tile=batch_tile, sparse=True,
-                                         marks=marks),
+                                         batch_tile=batch_tile, sparse=True),
                             bits.shape[1])
     if stack.src is None:
         raise ValueError(
@@ -1185,7 +1179,7 @@ def fabric_eval_multi_scored_sparse(
     b, w, t, v, B, Bp = _scored_args(stack, bits, out_weight, threshold_raw,
                                      valid, batch_tile)
     count, idx, vals, dis = _eval_stack_scored(stack, b, w, t, v,
-                                               sparse=True, marks=marks)
+                                               sparse=True)
     if Bp != B:
         idx, vals = restride(idx, vals, stack.n_chips, B, Bp)
     return count, idx, vals, dis
@@ -1208,22 +1202,19 @@ def _cut(x, c0: int, n: int):
 
 
 def scored_slabs(stack, bits, out_weight, threshold_raw, valid=None, *,
-                 batch_tile: int = 128, sparse: bool = False,
-                 marks=None) -> List:
+                 batch_tile: int = 128, sparse: bool = False) -> List:
     """One scored dispatch a slab of ``stack`` (split or not), each
     launched on its slab's device and left there, unmerged: [(first
     chip, result)], a result as ``fabric_eval_multi_scored`` (or, with
     ``sparse``, ``fabric_eval_multi_scored_sparse``: flat indices over
     the slab's own (chips, B)) returns it for the slab's chips. The
-    slabs share nothing. ``marks`` as ``_eval_stack_scored``'s, a launch
-    a slab."""
+    slabs share nothing."""
     fn = (fabric_eval_multi_scored_sparse if sparse
           else fabric_eval_multi_scored)
     return [(c0, fn(slab, _cut(bits, c0, slab.n_chips),
                     _cut(out_weight, c0, slab.n_chips),
                     _cut(threshold_raw, c0, slab.n_chips),
-                    _cut(valid, c0, slab.n_chips), batch_tile=batch_tile,
-                    marks=marks))
+                    _cut(valid, c0, slab.n_chips), batch_tile=batch_tile))
             for slab, c0 in slabs_of(stack)]
 
 

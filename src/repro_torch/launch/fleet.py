@@ -72,9 +72,7 @@ import numpy as np
 from repro_torch.core.bitstream import GoldenImageStore, encode
 from repro_torch.core.fabric import StackGeometry
 from repro_torch.core.readout import ReadoutChip
-from repro_torch.core.tmr import replica_table_images
 from repro_torch.device import resolve_device
-from repro_torch.kernels import build
 from repro_torch.kernels.lut_eval.ops import bucket_envelope
 from repro_torch.launch.mesh import make_fleet_meshes
 from repro_torch.launch.readout_server import (
@@ -378,33 +376,22 @@ class TenantFleet:
         return min(seated, key=lambda t: t.last_used).tenant
 
     def _register_golden(self, t: _TenantState, b: _Bucket) -> None:
-        srv = b.server
-        self._golden.register(
-            t.tenant, t.chip.config,
-            replica_table_images(
-                t.chip.config, srv._img_levels, srv._img_m_pad,
-                srv.n_replicas))
+        self._golden.register(t.tenant, t.chip.config,
+                              b.server.replica_images(t.chip.config))
 
     def _baseline_slot(self, t: _TenantState, b: _Bucket) -> None:
-        srv, slot = b.server, t.slot
-        t._base_dis = list(srv._stats[slot].disagreements)
+        t._base_dis, t._base_scrub = b.server.slot_health(t.slot)
         if not t.seu_disagreements:
-            t.seu_disagreements = [0] * srv.n_replicas
-        lo = slot * srv.n_replicas
-        t._base_scrub = int(
-            sum(srv._scrub_per_frame[lo : lo + srv.n_replicas]))
+            t.seu_disagreements = [0] * b.server.n_replicas
 
     def _fold_slot(self, t: _TenantState, b: _Bucket) -> None:
         """Fold the slot's cumulative health counters into the tenant's
         ledger as deltas since seat time."""
-        srv, slot = b.server, t.slot
-        for r, d in enumerate(srv._stats[slot].disagreements):
+        dis, scrubs = b.server.slot_health(t.slot)
+        for r, d in enumerate(dis):
             t.seu_disagreements[r] += d - t._base_dis[r]
-        t._base_dis = list(srv._stats[slot].disagreements)
-        lo = slot * srv.n_replicas
-        now = int(sum(srv._scrub_per_frame[lo : lo + srv.n_replicas]))
-        t.scrub_frames += now - t._base_scrub
-        t._base_scrub = now
+        t.scrub_frames += scrubs - t._base_scrub
+        t._base_dis, t._base_scrub = dis, scrubs
 
     # ---------------------------------------------------------- eviction
     def evict(self, tenant: Hashable, drain: bool = True) -> None:

@@ -36,20 +36,12 @@ The JAX package's launch/readout_server.py, with both ingestion forms:
                                        histograms, the deadline ledger and
                                        the degrade ladder)
 
-Two backends: "kernel" is the device path; "host" is the staged numpy
-oracle (featurize on the device, then numpy quantize + pack + FabricSim
-per replica + vote), bit-identical to the kernel path given the same
-features.
-
-Slabs: the kernel backend serves over a device plan
-(launch.mesh.ReadoutMesh, by default ``make_readout_mesh`` over every
-card): C chips in d contiguous slabs of C/d chips, each slab's stack
-rows, encode-plan rows and staging buffers on its own device, and its
-launches there (K1 -> quantize/encode -> K2 -> B6, or B3 on a matmul
-stack). The slabs share nothing during a dispatch; their results are
-merged on the host at the drain, bit-identical to one slab's. Hot swaps,
-fault injection, readbacks and heals go to the slab that owns the chip,
-and ``rebind_mesh`` moves the slabs to another plan.
+The server is the loop. Each pass goes to one of two scoring paths
+(launch/scoring.py), picked once from ``ServerConfig.backend``: "kernel"
+is the device path; "host" is the staged numpy oracle, bit-identical to
+the kernel path given the same features. The kernel path serves over
+slabs of a device plan (``rebind_mesh`` moves them); their results are
+merged on the host at the drain, bit-identical to one slab's.
 
 Pipelining: a frames dispatch stages only its real rows, into a slot of
 a ring of pinned host buffers, and copies them to the device without
@@ -91,19 +83,15 @@ import torch
 
 from repro_torch.core.bitstream import GoldenImageStore
 from repro_torch.core.fabric import (
-    FabricSim,
     FrontendSpec,
-    MultiFabricSim,
     StackGeometry,
     check_stackable,
     packed_table_image,
-    stack_event_bits,
 )
 from repro_torch.core.readout import ReadoutChip
 from repro_torch.core.tmr import (
     N_REPLICAS,
     inject_seu as _inject_seu_config,
-    majority_vote,
     replica_table_images,
     replicate_config,
 )
@@ -112,11 +100,11 @@ from repro_torch.data.smartpixel import N_T, N_X, N_Y
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.lut_eval.ops import merge_kept
+from repro_torch.launch.scoring import HostPath, KernelPath, Sparse
 from repro_torch.parallel.compression import (
     DENSE_BYTES_PER_EVENT,
     SPARSE_BYTES_PER_EVENT,
     SPARSE_HEADER_BYTES,
-    sparse_trigger_pack,
 )
 from repro_torch.stages import Stages
 
@@ -413,15 +401,29 @@ class ChipStreamStats:
 # (seq, chip, kind, payload, t_enqueue): kind "frames" carries
 # (frame, y0), kind "features" a (n_features,) float64 row
 _Event = Tuple[int, int, str, object, float]
-# (kind, slabs, per_chip_seq, counts, ready, meta): slabs is [(first
-# chip, pending)] in slab order, a pending of kind "scored" (score
-# (C_s, B), keep (C_s, B), disagree (C_s, R)), of kind "sparse" (count,
-# idx, vals, disagree (C_s, R), B) with flat indices over the slab's own
-# (C_s, B); ready holds the CUDA events behind the slabs' pinned copies
-# (none for results already on the host); meta = {"t_enq": per-chip enqueue times (the latency ledger), "trace":
-# the batch's stage timestamps}. A batch keeps the egress kind it was
-# launched with, whatever the ladder does before it drains.
-_Inflight = Tuple[str, Tuple, List[List[int]], List[int], object, Dict]
+
+
+@dataclasses.dataclass
+class _Batch:
+    """One pass in flight: per chip its seqs, counts and enqueue times,
+    its stage trace, a record a slab (``Dense`` or ``Sparse``, kept
+    whatever the ladder does before the drain), the CUDA events behind
+    the slabs' pinned copies, and a (start, end) event pair a CUDA slab
+    (``dispatch_device``)."""
+
+    seqs: List[List[int]]
+    counts: List[int]
+    t_enq: List[List[float]]
+    trace: Dict[str, float]
+    slabs: List = dataclasses.field(default_factory=list)
+    ready: List = dataclasses.field(default_factory=list)
+    dispatch: List = dataclasses.field(default_factory=list)
+
+
+def _pinned(x: torch.Tensor) -> torch.Tensor:
+    """An asynchronous copy of a device tensor into pinned host memory."""
+    return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(
+        x, non_blocking=True)
 
 
 @dataclasses.dataclass
@@ -439,16 +441,6 @@ class _Readback:
     source: torch.Tensor
     prev_pass: int
     issue_idx: int
-
-
-def _device_mark(device: torch.device):
-    """A timed CUDA event recorded now on ``device``'s current stream (a
-    dispatch's start on the device); None off CUDA."""
-    if device.type != "cuda":
-        return None
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record(torch.cuda.current_stream(device))
-    return ev
 
 
 class ReadoutServer:
@@ -524,60 +516,35 @@ class ReadoutServer:
         )
         self.n_replicas = config.n_replicas
         # the SERVED replica encodings, slot-major (replica r of chip c
-        # is _replica_configs[c*R + r]): the host oracle's simulators
+        # is _replica_configs[c*R + r]), upsets included
         self._replica_configs: List = [
             replicate_config(c.config, r)
             for c in self.chips for r in range(self.n_replicas)
         ]
-        self._thr_raw = np.array(
-            [c.score_threshold_raw for c in self.chips], np.int32)
-        self._stack = None
-        self._frontend = None  # fused frames pass, built on first use
-        self._ring = None  # its host staging ring, made at first use
-        # a side stream a card for the drain's kept-prefix copies
-        self._copy_streams: Dict[torch.device, object] = {}
-        # the pinned envelope as the stack and the encode plan take it
-        self._pinned = (None if envelope is None else
-                        dataclasses.replace(self.geometry, frontend=None))
-        self._mesh = None
+        # per-stage host seconds and calls (report()["stages"]); spans
+        # while a profiler records
+        self._stages = Stages(clock)
         if config.backend == "kernel":
-            from repro_torch.kernels.lut_eval import ops as lut_ops
-            from repro_torch.launch.mesh import make_readout_mesh
-
-            self._lut_ops = lut_ops
-            self._mesh = (make_readout_mesh(self.n_chips, device=self.device)
-                          if mesh is None else mesh)
-            self._stack = lut_ops.place_stack(lut_ops.pack_fabrics(
-                [c.config for c in self.chips], band=config.band,
-                redundancy=config.redundancy, layout=self.layout,
-                geometry=self._pinned, device=self._mesh.device,
-            ), self._mesh.slabs(self.n_chips))
-            self._out_weight = lut_ops.decode_plan(
-                [c.config for c in self.chips], self._stack.n_outputs)
-            self._bind_copy_streams()
+            self._path = KernelPath(
+                self.chips, config, self._stages, clock,
+                pinned=(None if envelope is None else
+                        dataclasses.replace(self.geometry, frontend=None)),
+                device=self.device, mesh=mesh)
         else:
-            self._multisim = MultiFabricSim(
-                self._replica_configs, geometry=self.geometry)
+            self._path = HostPath(
+                self.chips, config, self._stages, clock,
+                geometry=self.geometry,
+                replica_configs=self._replica_configs, device=self.device)
 
         self._queue: Deque[_Event] = collections.deque()
         self._seq = 0
-        # per-slot FabricSim cache (one per replica) for the host backend
-        self._frame_sims: List[Optional[List[FabricSim]]] = (
-            [None] * len(self.chips))
-        self._inflight: Deque[_Inflight] = collections.deque()
+        self._inflight: Deque[_Batch] = collections.deque()
         self._stats = [
             ChipStreamStats(disagreements=[0] * self.n_replicas)
             for _ in self.chips
         ]
-        # per-stage host seconds and calls (report()["stages"]); spans
-        # while a profiler records
-        self._stages = Stages(clock)
-        # the fabric walk's launches by form (report()["k2_walk"]): form ->
-        # {"launches": n, "words_a_block": {tile: launches}}
-        self._k2_walk: Dict[str, Dict] = {}
         self._t_start: Optional[float] = None
         self._t_last: Optional[float] = None
-        self._n_scored = 0
         self._link_bytes_wire = 0
         self._link_bytes_dense = 0
 
@@ -623,14 +590,7 @@ class ReadoutServer:
         self._deferred_heals: List[Tuple[int, int]] = []
 
         # ---- scrubbing (readback -> verify -> heal). One image layout
-        # for readbacks and golden digests: the kernel stack's padded
-        # (levels, m_pad), the same formula on the host backend.
-        if self._stack is not None:
-            self._img_levels = self._stack.n_levels
-            self._img_m_pad = self._stack.m_pad
-        else:
-            self._img_levels = self.geometry.n_levels
-            self._img_m_pad = -(-self.geometry.max_level_size // 128) * 128
+        # for readbacks and golden digests, the path's (replica_images)
         self._golden = GoldenImageStore()
         for i in range(self.n_chips):
             self._register_golden(i)
@@ -648,7 +608,7 @@ class ReadoutServer:
         self._scrub_last_dis = [0] * n_frames
         # dispatch index at each frame's last scrub (latency reference)
         self._scrub_last_pass = [0] * n_frames
-        # readbacks issued and not yet verified (kernel backend)
+        # readbacks issued and not yet verified (a path's deferred_scrub)
         self._scrub_pending: Deque[_Readback] = collections.deque()
         # bumped whenever a frame is re-encoded (inject, heal,
         # reconfigure): an older pending sample is stale
@@ -785,7 +745,8 @@ class ReadoutServer:
             out.extend(self._dispatch(*self._coalesce()))
             while len(self._inflight) > self.config.pipeline_depth:
                 out.extend(self._drain_one())       # flush MAY block
-        out.extend(self._drain_all())
+        while self._inflight:
+            out.extend(self._drain_one())
         if self.config.scrub_interval is not None:
             with self._stages.time("scrub"):
                 self.scrub_flush()
@@ -856,24 +817,21 @@ class ReadoutServer:
         return done
 
     def _launch_counted(self, kind: str, launch, events: List[_Event]
-                        ) -> _Inflight:
+                        ) -> _Batch:
         """``launch(events)``, counted in ``shape_misses`` if it added an
         nvcc build, a library load or a launch signature
         (kernels/build.py miss_counts) at a (path, egress, batch width)
         this server had launched before: every shape is a function of the
         fixed geometry and the batch width alone, so only a new width may
-        add one (the host backend featurizes each chip at its own count)."""
+        add one (the host path featurizes each chip at its own count)."""
         counts = collections.Counter(e[1] for e in events).values()
-        widths = ((self._pad_batch(max(counts)),)
-                  if self.config.backend == "kernel"
-                  else tuple(sorted(set(counts))))
-        key = (kind, self._sparse_active(), widths)
+        key = (kind, self._sparse_active(), self._path.widths(counts))
         before = build.miss_counts()
-        inflight = launch(events)
+        batch = launch(events)
         if key in self._launch_keys and build.miss_counts() != before:
             self.shape_misses += 1
         self._launch_keys.add(key)
-        return inflight
+        return batch
 
     def _effective_scrub_interval(self) -> Optional[int]:
         """The configured scrub interval, widened by SCRUB_RELAX_FACTOR
@@ -883,9 +841,9 @@ class ReadoutServer:
             si = si * SCRUB_RELAX_FACTOR
         return si
 
-    def _group(self, events: List[_Event]):
-        """Per chip: the seqs, payloads and enqueue times of ``events``,
-        and their counts."""
+    def _open_batch(self, events: List[_Event]):
+        """A batch of ``events`` opened at the coalesce, and per chip
+        their payloads."""
         per_chip_seq: List[List[int]] = [[] for _ in self.chips]
         per_chip_payload: List[List[object]] = [[] for _ in self.chips]
         per_chip_t: List[List[float]] = [[] for _ in self.chips]
@@ -897,25 +855,10 @@ class ReadoutServer:
         for i, n in enumerate(counts):
             if n:
                 self._stats[i].n_dispatches += 1
-        return per_chip_seq, per_chip_payload, counts, per_chip_t
-
-    def _meta(self, events: List[_Event], per_chip_t) -> Dict:
-        """A batch's latency meta: per-chip enqueue times and its stage
-        trace, opened at the coalesce."""
-        return {"t_enq": per_chip_t,
-                "trace": {"t_enqueued": min(e[4] for e in events),
-                          "t_coalesced": self._clock()}}
-
-    @staticmethod
-    def _pad_batch(B: int) -> int:
-        """Round a kernel-backend batch width up to a power of two, so the
-        set of padded shapes (and of reused staging buffers) stays small."""
-        return 1 << (max(int(B), 1) - 1).bit_length()
-
-    def _valid_mask(self, counts: List[int], B: int) -> np.ndarray:
-        """(C, B) bool: True on real event rows, False on zero-padding."""
-        return (np.arange(max(B, 1))[None, :]
-                < np.asarray(counts)[:, None])
+        trace = {"t_enqueued": min(e[4] for e in events),
+                 "t_coalesced": self._clock()}
+        return _Batch(per_chip_seq, counts, per_chip_t, trace), \
+            per_chip_payload
 
     def _sparse_active(self) -> bool:
         """Sparse egress is on when configured or forced by the degrade
@@ -923,122 +866,22 @@ class ReadoutServer:
         scores of dropped events stop crossing the link)."""
         return self.config.sparse or self._rung_active("sparse_egress")
 
-    def _word_sparse_active(self) -> bool:
-        """Sparse egress on a bit-sliced kernel stack: the keep cut, SEU
-        counters and compaction run on the fabric kernel's words (kernel
-        B6 in the same pass), so there is no separate pack."""
-        return (self._sparse_active()
-                and self.config.backend == "kernel"
-                and self._stack is not None and self._stack.bitsliced)
-
-    def _launch_frames(self, events: List[_Event]) -> _Inflight:
-        """Kernel backend: ONE fused device pass (timed ``launch_fused``).
-        Host backend: the same pipeline STAGED, each stage materialized
-        and timed (``staged_featurize`` / ``staged_encode`` /
+    def _launch_frames(self, events: List[_Event]) -> _Batch:
+        """Frames: the path's pass (kernel: ONE fused device pass, timed
+        ``launch_fused``; host: the same pipeline STAGED, each stage
+        materialized and timed, ``staged_featurize`` / ``staged_encode`` /
         ``staged_score``)."""
         with self._stages.time("coalesce"):
-            per_chip_seq, per_chip_fy, counts, per_chip_t = self._group(
-                events)
-            meta = self._meta(events, per_chip_t)
-        cfg = self.config
-        B = max(counts) if counts else 0
+            batch, per_chip_fy = self._open_batch(events)
+        return self._enqueue(batch, *self._path.score_frames(
+            per_chip_fy, batch.counts, batch.trace, self._sparse_active()))
 
-        if cfg.backend == "kernel":
-            B = self._pad_batch(B)
-            slabs = self._lut_ops.slabs_of(self._get_frontend())
-            with self._stages.time("stack_frames"):
-                rows = self._stage_rows(per_chip_fy, counts, B, slabs)
-            meta["trace"]["t_encoded"] = self._clock()
-            with self._stages.time("launch_fused"):
-                sparse = self._word_sparse_active()
-                parts, starts, marks = [], [], []
-                for fe, c0 in slabs:
-                    score_fn = (fe.score_frames_sparse if sparse
-                                else fe.score_frames_voted)
-                    starts.append(_device_mark(fe.device))
-                    parts.append((c0, score_fn(rows.chips(c0, fe.n_chips),
-                                               stages=self._stages,
-                                               k2_marks=marks)))
-            meta["dispatch_starts"] = starts
-            meta["k2_marks"] = marks
-            if sparse:
-                return self._finish_launch_sparse(parts, B, per_chip_seq,
-                                                  counts, meta)
-            return self._finish_launch(parts, per_chip_seq, counts, meta)
-
-        from repro_torch.kernels.yprofile import ops as yp_ops
-
-        valid = self._valid_mask(counts, B)
-        R = self.n_replicas
-        score = np.zeros((self.n_chips, B), np.int64)
-        disagree = np.zeros((self.n_chips, R, B), bool)
-        for i, chip in enumerate(self.chips):
-            if not per_chip_fy[i]:
-                continue
-            n = counts[i]
-            frames_i = np.stack([fr for fr, _ in per_chip_fy[i]])
-            y0_i = np.asarray([z for _, z in per_chip_fy[i]], np.float32)
-            with self._stages.time("staged_featurize"):
-                feats = yp_ops.yprofile(
-                    frames_i, y0_i,
-                    threshold_electrons=cfg.threshold_electrons,
-                    device=self.device).cpu().numpy()
-            with self._stages.time("staged_encode"):
-                bits = chip.encode_features(feats)
-            with self._stages.time("staged_score"):
-                if self._frame_sims[i] is None:
-                    self._frame_sims[i] = [
-                        FabricSim(self._replica_configs[i * R + r])
-                        for r in range(R)
-                    ]
-                g = np.stack([np.asarray(sim.run(bits)[0])
-                              for sim in self._frame_sims[i]])  # (R, n, O_i)
-                if R > 1:
-                    voted = majority_vote(g[0], g[1], g[2])
-                    disagree[i, :, :n] = (g != voted[None]).any(-1)
-                else:
-                    voted = g[0]
-                score[i, :n] = chip.synth.decode_outputs(voted)
-        keep = (score <= self._thr_raw[:, None]) & valid
-        dis = (disagree & valid[:, None, :]).sum(-1).astype(np.int64)
-        return self._finish_launch([(0, (score, keep, dis))], per_chip_seq,
-                                   counts, meta)
-
-    def _stage_rows(self, per_chip_fy, counts: List[int], B: int, slabs):
-        """``stack_frames``: each chip's real (frame, y0) rows, chip-major
-        with no padding, into the next slot of the staging ring (pinned
-        where a slab is on a card; ``pipeline_depth + 2`` slots, so a
-        slot's copies have landed by the time it comes round again)."""
-        from repro_torch.kernels.frontend import StagingRing
-
-        pinned = any(fe.device.type == "cuda" for fe, _ in slabs)
-        if self._ring is None or self._ring.pinned != pinned:
-            self._ring = StagingRing(self.config.pipeline_depth + 2,
-                                     pinned=pinned)
-        rows = self._ring.take(counts, B, self._stages)
-        # the slot as (rows * T, Y, X): the frames concatenate along T
-        # into it, with no wrapper array an event (as np.stack makes)
-        frames = rows.frames.numpy().reshape(-1, N_Y, N_X)
-        y0 = rows.y0.numpy()
-        for o, events in zip(rows.offsets, per_chip_fy):
-            if events:
-                n = len(events)
-                np.concatenate([fr for fr, _ in events],
-                               out=frames[o * N_T : (o + n) * N_T])
-                y0[o : o + n] = [z for _, z in events]
-        return rows
-
-    def _launch_features(self, events: List[_Event]) -> _Inflight:
-        """Features path: host encoding (quantize + offset-binary bits,
-        timed ``encode_host``), then ONE chip-batched scoring pass (timed
-        ``launch_score``): fabric evaluation of every replica, vote, score
-        decode and trigger cut on the device (``fabric_eval_multi_scored``,
-        or its word-domain sparse form with kernel B6), a dispatch a
-        slab."""
+    def _launch_features(self, events: List[_Event]) -> _Batch:
+        """Features: host encoding (quantize + offset-binary bits, timed
+        ``encode_host``), then the path's ONE chip-batched scoring pass
+        (timed ``launch_score``)."""
         with self._stages.time("coalesce"):
-            per_chip_seq, per_chip_X, counts, per_chip_t = self._group(
-                events)
-            meta = self._meta(events, per_chip_t)
+            batch, per_chip_X = self._open_batch(events)
         with self._stages.time("encode_host"):
             per_chip_bits: List[np.ndarray] = []
             for i, chip in enumerate(self.chips):
@@ -1047,165 +890,44 @@ class ReadoutServer:
                 else:
                     bits = np.zeros((0, chip.config.n_inputs), np.uint8)
                 per_chip_bits.append(bits)
-        meta["trace"]["t_encoded"] = self._clock()
+        batch.trace["t_encoded"] = self._clock()
+        return self._enqueue(batch, *self._path.score_features(
+            per_chip_bits, batch.counts, batch.trace, self._sparse_active()))
 
-        sparse = self._word_sparse_active()
-        with self._stages.time("launch_score"):
-            B = max(counts) if counts else 0
-            if self.config.backend == "kernel":
-                B = self._pad_batch(B)
-                lead = per_chip_bits[0]
-                if len(lead) < B:       # stack_event_bits pads to the max
-                    per_chip_bits[0] = np.vstack(
-                        [lead, np.zeros((B - len(lead), lead.shape[1]),
-                                        np.uint8)])
-                valid = self._valid_mask(counts, B)
-                meta["dispatch_starts"] = [
-                    _device_mark(slab.device)
-                    for slab, _ in self._lut_ops.slabs_of(self._stack)]
-                meta["k2_marks"] = []
-                stacked = self._lut_ops.stack_input_bits(self._stack,
-                                                         per_chip_bits)
-                parts = self._lut_ops.scored_slabs(
-                    self._stack, stacked, self._out_weight, self._thr_raw,
-                    valid, batch_tile=self.config.batch_tile, sparse=sparse,
-                    marks=meta["k2_marks"])
-            else:
-                valid = self._valid_mask(counts, B)
-                stacked = stack_event_bits(per_chip_bits,
-                                           self.geometry.n_inputs)
-                parts = [(0, self._score_bits_host(stacked, valid))]
-        if sparse:
-            return self._finish_launch_sparse(parts, B, per_chip_seq,
-                                              counts, meta)
-        return self._finish_launch(parts, per_chip_seq, counts, meta)
-
-    def _score_bits_host(
-        self, stacked: np.ndarray, valid: np.ndarray
-    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """The numpy oracle of the device scoring pass: every replica
-        (MultiFabricSim over the served replica configs), the same
-        majority vote, two's-complement decode, cut and disagreement
-        counts."""
-        C, B = stacked.shape[0], stacked.shape[1]
-        R = self.n_replicas
-        rep = np.repeat(stacked, R, axis=0) if R > 1 else stacked
-        outs = self._multisim.run(rep)                  # (R*C, B, O)
-        g = outs.reshape(C, R, B, outs.shape[-1])
-        if R > 1:
-            voted = majority_vote(g[:, 0], g[:, 1], g[:, 2])
-            disagree = (g != voted[:, None]).any(-1)    # (C, R, B)
-        else:
-            voted = g[:, 0]
-            disagree = np.zeros((C, 1, B), bool)
-        score = np.zeros((C, B), np.int64)
-        for i, chip in enumerate(self.chips):
-            n_out = len(chip.config.output_nets)
-            score[i] = chip.synth.decode_outputs(voted[i, :, :n_out])
-        keep = (score <= self._thr_raw[:, None]) & valid
-        dis = (disagree & valid[:, None, :]).sum(-1).astype(np.int64)
-        return score, keep, dis
-
-    def _finish_launch(self, parts, per_chip_seq, counts,
-                       meta) -> _Inflight:
-        """Output stage of a dense pass, a slab at a time ([(first chip,
-        (score, keep, dis))]): the dense (score, keep) or, with sparse
-        egress on, its packed (count, idx, vals) — on the kernel backend
-        through ``compression.sparse_trigger_pack`` (kernel B6 on the
-        card, still asynchronous), on the host backend with numpy (timed
-        ``sparse_pack``)."""
-        meta["trace"]["t_launched"] = self._clock()
-        if not self._sparse_active():
-            return self._enqueue("scored", parts, (0, 1, 2), per_chip_seq,
-                                 counts, meta)
-        with self._stages.time("sparse_pack"):
-            packed = []
-            for c0, (score, keep, dis) in parts:
-                if self.config.backend == "kernel":
-                    count, idx, vals = sparse_trigger_pack(score, keep)
-                else:
-                    idx = np.flatnonzero(np.asarray(keep).ravel()).astype(
-                        np.int32)
-                    vals = np.asarray(score).ravel()[idx].astype(np.int32)
-                    count = len(idx)
-                packed.append((c0, (count, idx, vals, dis,
-                                    int(keep.shape[1]))))
-        return self._enqueue("sparse", packed, (0, 3), per_chip_seq, counts,
-                             meta)
-
-    def _finish_launch_sparse(self, parts, B, per_chip_seq, counts,
-                              meta) -> _Inflight:
-        """Output stage of a word-domain sparse pass, a slab at a time
-        ([(first chip, (count, idx, vals, dis))]; the pack ran in the pass
-        itself): the counts and the disagree counts go to pinned memory
-        behind the slabs' events; the padded (idx, vals) stay on their
-        devices until the drain copies their kept prefixes."""
-        meta["trace"]["t_launched"] = self._clock()
-        return self._enqueue(
-            "sparse", [(c0, (*p, int(B))) for c0, p in parts], (0, 3),
-            per_chip_seq, counts, meta)
-
-    def _enqueue(self, kind: str, parts, to_host: Tuple[int, ...],
-                 per_chip_seq, counts, meta) -> _Inflight:
-        """Per slab ([(first chip, parts)]): start the device->host copies
-        of ``parts[i]`` for i in ``to_host`` into pinned memory and record
-        a CUDA event after them on the slab's device, so a completed event
-        means the slab's copies landed. Results already on the host (host
-        backend, CPU tensors) need no event. The event is timed: with the
-        slab's start mark (``meta["dispatch_starts"]``) it brackets the
-        slab's dispatch on the device (``dispatch_device``)."""
+    def _enqueue(self, batch: _Batch, slabs: List, starts: List) -> _Batch:
+        """Per CUDA slab: copy what the drain reads first into pinned
+        memory without blocking (a dense record's score, keep and dis; a
+        sparse one's count and dis, its idx and vals staying on the device
+        until the drain copies their kept prefixes), then record a timed
+        CUDA event: its batch is ready once every event has completed, and
+        with the slab's start mark it brackets ``dispatch_device``."""
         with self._stages.time("enqueue_d2h"):
-            starts = meta.pop("dispatch_starts", None) or [None] * len(parts)
-            slabs, ready, pairs = [], [], []
-            for (c0, p), start in zip(parts, starts):
-                dev = next((x.device for x in p
-                            if torch.is_tensor(x) and x.is_cuda), None)
-                if dev is not None:
-                    with torch.cuda.device(dev):
-                        p = tuple(
-                            torch.empty(x.shape, dtype=x.dtype,
-                                        pin_memory=True).copy_(
-                                x, non_blocking=True) if i in to_host else x
-                            for i, x in enumerate(p))
-                        ev = torch.cuda.Event(enable_timing=True)
-                        ev.record(torch.cuda.current_stream(dev))
-                    ready.append(ev)
-                    if start is not None:
-                        pairs.append((start, ev))
-                slabs.append((c0, p))
-            meta["dispatch_events"] = pairs
-            return kind, slabs, per_chip_seq, counts, ready, meta
-
-    def _bind_copy_streams(self) -> None:
-        """A side stream for every card of the plan (kept across
-        rebinds)."""
-        for dev in self._mesh.devices:
-            if dev.type == "cuda" and dev not in self._copy_streams:
-                self._copy_streams[dev] = torch.cuda.Stream(dev)
-
-    def _get_frontend(self):
-        if self._frontend is None:
-            from repro_torch.kernels import frontend as fe
-
-            self._frontend = fe.pack_frontend(
-                [c.config for c in self.chips],
-                [c.frontend_spec() for c in self.chips],
-                band=self.config.band,
-                redundancy=self.config.redundancy,
-                layout=self.layout,
-                batch_tile=self.config.batch_tile,
-                threshold_electrons=self.config.threshold_electrons,
-                stack=self._stack,  # share the server's packed tensors
-                geometry=self._pinned,
-            )
-        return self._frontend
+            for rec, start in zip(slabs, starts):
+                if not (torch.is_tensor(rec.dis) and rec.dis.is_cuda):
+                    continue
+                dev = rec.dis.device
+                with torch.cuda.device(dev):
+                    if isinstance(rec, Sparse):
+                        rec.count, rec.dis = _pinned(rec.count), _pinned(
+                            rec.dis)
+                    else:
+                        rec.score, rec.keep, rec.dis = (
+                            _pinned(rec.score), _pinned(rec.keep),
+                            _pinned(rec.dis))
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record(torch.cuda.current_stream(dev))
+                batch.ready.append(ev)
+                if start is not None:
+                    batch.dispatch.append((start, ev))
+            batch.slabs = slabs
+            return batch
 
     def _head_ready(self) -> bool:
         """Non-blocking probe: has every event of the OLDEST in-flight
         batch completed (results already on the host always have)?"""
         if not self._inflight:
             return False
-        return all(ev.query() for ev in self._inflight[0][4])
+        return all(ev.query() for ev in self._inflight[0].ready)
 
     def _drain_ready(self) -> List[ScoredEvent]:
         """Retire every finished in-flight batch, oldest first, never
@@ -1214,16 +936,6 @@ class ReadoutServer:
         while self._head_ready():
             out.extend(self._drain_one())
         return out
-
-    def _kept_prefix(self, t, n: int) -> np.ndarray:
-        """The first ``n`` entries of a packed vector on the host, int64.
-        A CUDA vector is copied on its card's side stream: its batch has
-        finished, and the copy must not wait for the batches queued on
-        the main stream behind it."""
-        if torch.is_tensor(t) and t.is_cuda:
-            with torch.cuda.stream(self._copy_streams[t.device]):
-                t = t[:n].cpu()
-        return np.asarray(t[:n]).astype(np.int64)
 
     def _drain_one(self) -> List[ScoredEvent]:
         """Materialize the OLDEST in-flight batch and fold it into the
@@ -1239,51 +951,36 @@ class ReadoutServer:
         whole (C, B)."""
         if not self._inflight:
             return []
-        (kind, slabs, per_chip_seq, counts, ready,
-         meta) = self._inflight.popleft()
+        batch = self._inflight.popleft()
         with self._stages.time("drain_wait"):
             with self._stages.time("drain_wait.sync"):
-                for ev in ready:
+                for ev in batch.ready:
                     ev.synchronize()                    # blocks here
             with self._stages.time("drain_wait.fold"):
-                results = self._fold_batch(kind, slabs, per_chip_seq,
-                                           counts, meta)
-        self._n_scored += len(results)
+                results = self._fold_batch(batch)
         t_done = self._clock()      # the host has seen the batch complete
         self._t_last = t_done
         with self._stages.time("observe"):
-            self._observe_batch(meta, t_done)
+            self._observe_batch(batch, t_done)
             results.sort(key=lambda r: r.seq)
         return results
 
-    def _fold_batch(self, kind, slabs, per_chip_seq, counts,
-                    meta) -> List[ScoredEvent]:
+    def _fold_batch(self, batch: _Batch) -> List[ScoredEvent]:
         """A completed batch's results on the host, folded into the
         per-chip counters, the link bytes and the disagreement counters;
-        the device seconds of each of its slabs' dispatches, and the
-        forms of their fabric walks."""
-        for start, end in meta.get("dispatch_events", ()):
+        and the device seconds of each of its slabs' dispatches."""
+        for start, end in batch.dispatch:
             self._stages.add("dispatch_device",
                              start.elapsed_time(end) * 1e-3)
-        for form, tile in meta.get("k2_marks", ()):
-            walk = self._k2_walk.setdefault(
-                form, {"launches": 0, "words_a_block": {}})
-            walk["launches"] += 1
-            walk["words_a_block"][tile] = (
-                walk["words_a_block"].get(tile, 0) + 1)
         results: List[ScoredEvent] = []
+        slabs, counts, per_chip_seq = batch.slabs, batch.counts, batch.seqs
         n_events = int(sum(counts))
         self._link_bytes_dense += DENSE_BYTES_PER_EVENT * n_events
-        dis = np.concatenate([np.asarray(p[3 if kind == "sparse" else 2])
-                              for _, p in slabs])
-        if kind == "sparse":
-            B = slabs[0][1][4]
-            kept = []
-            for c0, (count, idx, vals, _, _) in slabs:
-                n = int(count)
-                kept.append((c0, self._kept_prefix(idx, n),
-                             self._kept_prefix(vals, n)))
-            idx_h, vals_h = merge_kept(kept, B)
+        dis = np.concatenate([np.asarray(r.dis) for r in slabs])
+        if isinstance(slabs[0], Sparse):
+            B = slabs[0].width
+            idx_h, vals_h = merge_kept(
+                [(r.c0, *self._path.kept_prefix(r)) for r in slabs], B)
             n_kept = len(idx_h)
             self._link_bytes_wire += (
                 SPARSE_HEADER_BYTES + SPARSE_BYTES_PER_EVENT * n_kept)
@@ -1297,9 +994,8 @@ class ReadoutServer:
                     seq=per_chip_seq[c][k % B], chip=int(c),
                     score_raw=int(v), keep=True))
         else:
-            score, keep = (np.concatenate([np.asarray(p[k])
-                                           for _, p in slabs])
-                           for k in (0, 1))
+            score = np.concatenate([np.asarray(r.score) for r in slabs])
+            keep = np.concatenate([np.asarray(r.keep) for r in slabs])
             self._link_bytes_wire += DENSE_BYTES_PER_EVENT * n_events
             for i in range(self.n_chips):
                 n = counts[i]
@@ -1326,12 +1022,6 @@ class ReadoutServer:
                 a + int(b) for a, b in zip(st.disagreements, dis[i])
             ]
 
-    def _drain_all(self) -> List[ScoredEvent]:
-        out: List[ScoredEvent] = []
-        while self._inflight:
-            out.extend(self._drain_one())
-        return out
-
     # ------------------------------------------- latency / deadline loop
     def reset_latency_metrics(self) -> None:
         """Zero the latency/deadline ledger (histograms, met/missed/shed
@@ -1357,19 +1047,19 @@ class ReadoutServer:
         for st in self._stats:
             st.n_shed = 0
 
-    def _observe_batch(self, meta: Dict, t_done: float) -> None:
+    def _observe_batch(self, batch: _Batch, t_done: float) -> None:
         """Fold one drained batch into the latency ledger (every admitted
         event, kept or not, sparse or dense), then let the deadline
         machinery act: the EWMA service update, adaptive batch sizing and
         the ladder evaluation."""
-        trace = meta["trace"]
+        trace = batch.trace
         trace["t_drained"] = t_done
         self._last_batch_trace = trace
         self._n_batches_drained += 1
         t_co = trace.get("t_coalesced", t_done)
         dl = self.config.deadline_s
         n_batch = 0
-        for i, ts in enumerate(meta["t_enq"]):
+        for i, ts in enumerate(batch.t_enq):
             if not ts:
                 continue
             t_enq = np.asarray(ts, np.float64)
@@ -1509,21 +1199,9 @@ class ReadoutServer:
             replicate_config(cfg, r) for r in range(R)
         ]
         self.chips[slot] = new_chip
-        self._thr_raw = np.array(
-            [c.score_threshold_raw for c in self.chips], np.int32)
-        if self.config.backend == "kernel":
-            self._stack = self._stack.swap_chip(slot, cfg, in_place=True)
-            self._out_weight = self._lut_ops.decode_plan(
-                [c.config for c in self.chips], self._stack.n_outputs)
-            if self._frontend is not None:
-                self._frontend = self._frontend.swap_chip(
-                    slot, cfg, new_chip.frontend_spec(), stack=self._stack)
-        else:
-            self._multisim = MultiFabricSim(
-                self._replica_configs, geometry=self.geometry)
+        self._path.swap_chip(slot, new_chip)
         if build.miss_counts() != before:
             self.shape_misses += 1
-        self._frame_sims[slot] = None
         # the slot's golden truth IS the new bitstream now; pending samples
         # of the old one are stale, and old disagreements must not steer
         self._register_golden(slot)
@@ -1543,20 +1221,12 @@ class ReadoutServer:
         after a move launches at new slab shapes or on a new card, which
         counts once in ``shape_misses`` (the reference retraces once).
         ValueError, before anything is flushed, for a plan whose size
-        does not divide the chips. A no-op on the host backend."""
-        if self.config.backend != "kernel":
+        does not divide the chips. A no-op on the host path (no plan)."""
+        if self._path.mesh is None:
             return []
         mesh.slabs(self.n_chips)        # raises before the flush
         done = self.flush()
-        if mesh != self._mesh:
-            from repro_torch.kernels.frontend import place_frontend
-            from repro_torch.train.elastic import reshard_replicated
-
-            self._stack = reshard_replicated(self._stack, mesh)
-            if self._frontend is not None:
-                self._frontend = place_frontend(self._frontend, self._stack)
-            self._mesh = mesh
-            self._bind_copy_streams()
+        self._path.rebind(mesh)
         return done
 
     # ----------------------------------------------------- fault injection
@@ -1567,56 +1237,50 @@ class ReadoutServer:
         the next dispatch; batches in flight keep the tables they were
         launched with. Both backends; replica 0 of a plain server is the
         unprotected case. Repeated calls accumulate flips."""
-        self._check_chip(slot)
-        R = self.n_replicas
-        if not 0 <= replica < R:
-            raise ValueError(f"replica must be in [0, {R}), got {replica!r}")
-        i = slot * R + replica
+        i = self._frame_index(slot, replica)
         self._frame_gen[i] += 1     # invalidates pre-flip scrub samples
         self._replica_configs[i] = _inject_seu_config(
             self._replica_configs[i], lut_index, bit)
-        if self.config.backend == "kernel":
-            if R > 1:
-                self._stack = self._stack.swap_replica(
-                    slot, replica, self._replica_configs[i])
-            else:
-                self._stack = self._stack.swap_chip(
-                    slot, self._replica_configs[i])
-            self._refresh_frontend()
-        else:
-            self._multisim.swap_config(i, self._replica_configs[i])
-        self._frame_sims[slot] = None
-
-    def _refresh_frontend(self) -> None:
-        """Point the fused frames pass at the current stack."""
-        if self._frontend is not None:
-            self._frontend = self._frontend.with_stack(self._stack)
+        self._path.swap_replica(slot, replica, self._replica_configs[i])
 
     # ----------------------------------------------------------- scrubbing
     def _register_golden(self, slot: int) -> None:
         """Snapshot slot's golden truth (bitstream + per-replica digests):
         at construction and on every reconfigure."""
         cfg = self.chips[slot].config
-        self._golden.register(slot, cfg, replica_table_images(
-            cfg, self._img_levels, self._img_m_pad, self.n_replicas))
+        self._golden.register(slot, cfg, self.replica_images(cfg))
+
+    def replica_images(self, config) -> List[np.ndarray]:
+        """Every replica's (n_levels, m_pad, 16) uint8 truth-table image of
+        ``config`` in this server's scrub layout: what a readback of a
+        healthy slot serving it returns, and what the golden store
+        digests."""
+        return replica_table_images(config, self._path.image_levels,
+                                    self._path.image_m_pad, self.n_replicas)
+
+    def slot_health(self, slot: int) -> Tuple[List[int], int]:
+        """One slot's running health counters: the per-replica SEU
+        disagreement counts, and the scrub samples of its replica
+        frames."""
+        R = self.n_replicas
+        return (list(self._stats[slot].disagreements),
+                int(sum(self._scrub_per_frame[slot * R : (slot + 1) * R])))
 
     def _frame_index(self, slot: int, replica: int) -> int:
-        return slot * self.n_replicas + replica
-
-    def readback_frame(self, slot: int, replica: int = 0) -> np.ndarray:
-        """Live (n_levels, m_pad, 16) uint8 truth-table image of one
-        served replica, any upset included: the stack's tables on the
-        kernel backend (synchronous), the MultiFabricSim twin on the host
-        backend."""
+        """The index of a (slot, replica) frame; ValueError off range."""
         self._check_chip(slot)
         R = self.n_replicas
         if not 0 <= replica < R:
             raise ValueError(f"replica must be in [0, {R}), got {replica!r}")
-        if self.config.backend == "kernel":
-            return self._stack.readback_replica(slot, replica)
-        return self._multisim.readback_tables(
-            self._frame_index(slot, replica),
-            self._img_levels, self._img_m_pad)
+        return slot * R + replica
+
+    def readback_frame(self, slot: int, replica: int = 0) -> np.ndarray:
+        """Live (n_levels, m_pad, 16) uint8 truth-table image of one
+        served replica, any upset included: the stack's tables on the
+        kernel path (synchronous), the MultiFabricSim twin on the host
+        path."""
+        self._frame_index(slot, replica)
+        return self._path.readback(slot, replica)
 
     def verify_frame(self, slot: int, replica: int = 0) -> bool:
         """CRC-check one replica's readback against its golden digest (no
@@ -1697,34 +1361,23 @@ class ReadoutServer:
 
     def _issue_scrub(self, slot: int,
                      replica: int) -> Optional[Dict[str, int]]:
-        """Sample one frame's live truth tables. Host backend: verify right
-        here. Kernel backend: queue the sample and verify it on a later
-        step; on the card the row is copied to pinned memory
-        asynchronously behind a CUDA event, so the scrub never waits for
-        the dispatch it runs behind."""
+        """Sample one frame's live truth tables. Host path: verify right
+        here. Kernel path (``deferred_scrub``): queue the sample and
+        verify it on a later step; on the card the row is copied to
+        pinned memory asynchronously behind a CUDA event, so the scrub
+        never waits for the dispatch it runs behind."""
         fi = self._frame_index(slot, replica)
         self._scrub_per_frame[fi] += 1
         # steering reacts to NEW disagreements only
         self._scrub_last_dis[fi] = self._stats[slot].disagreements[replica]
         prev_pass = self._scrub_last_pass[fi]
         self._scrub_last_pass[fi] = self._dispatch_idx
-        if self.config.backend != "kernel":
+        if not self._path.deferred_scrub:
             return self._verify_heal(
-                slot, replica,
-                self._multisim.readback_tables(
-                    fi, self._img_levels, self._img_m_pad),
-                prev_pass)
-        row = self._stack.replica_tables(slot, replica)
-        image, ready = row, None
-        if row.is_cuda:
-            with torch.cuda.device(row.device):
-                image = torch.empty(row.shape, dtype=row.dtype,
-                                    pin_memory=True)
-                image.copy_(row, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(row.device))
+                slot, replica, self._path.readback(slot, replica), prev_pass)
+        image, ready, source = self._path.sample(slot, replica)
         self._scrub_pending.append(_Readback(
-            fi, self._frame_gen[fi], image, ready, row, prev_pass,
+            fi, self._frame_gen[fi], image, ready, source, prev_pass,
             self._dispatch_idx))
         return None
 
@@ -1778,17 +1431,12 @@ class ReadoutServer:
         golden_cfg = self._golden.golden_config(slot)
         rep_cfg = replicate_config(golden_cfg, replica)
         golden_img = packed_table_image(
-            rep_cfg, self._img_levels, self._img_m_pad)
+            rep_cfg, self._path.image_levels, self._path.image_m_pad)
         healed_bits = int(np.count_nonzero(image != golden_img))
         i = self._frame_index(slot, replica)
         self._frame_gen[i] += 1
         self._replica_configs[i] = rep_cfg
-        if self.config.backend == "kernel":
-            self._stack = self._stack.swap_replica(slot, replica, rep_cfg)
-            self._refresh_frontend()
-        else:
-            self._multisim.swap_config(i, rep_cfg)
-        self._frame_sims[slot] = None
+        self._path.swap_replica(slot, replica, rep_cfg)
         return healed_bits
 
     # ------------------------------------------------------------ report
@@ -1804,7 +1452,7 @@ class ReadoutServer:
         front door's accounting (``net``: the attached door's
         ``stats()``, else ``{"attached": False}``). The same keys as the
         JAX package's report, and ``slabs``: each slab's device and chips
-        [first, end) (kernel backend; empty on the host backend).
+        [first, end) (kernel path; empty on the host path).
 
         ``stages`` maps a key to its host seconds and calls (a key runs
         only where its path does; a dotted key is a child of the key
@@ -1813,7 +1461,7 @@ class ReadoutServer:
             submit              submit_frames / submit_batch, a call
             poll                the whole body of poll()
               coalesce          the queue take and kind split; each
-                                pass's grouping and batch meta
+                                pass's grouping into a batch
               stack_frames      frames: the fill of a staging-ring
                                 slot with the real rows only
                 stack_frames.ring_wait  the host blocked on the slot's
@@ -1827,7 +1475,8 @@ class ReadoutServer:
               encode_host       features: host quantize + bits
               launch_score      features: the scoring pass's launches
               staged_featurize, staged_encode, staged_score
-                                frames on the host backend
+                                frames on the host path: a chip each,
+                                then the stacked bits scored
               sparse_pack       dense results packed for sparse egress
               enqueue_d2h       pinned buffers, async copies, CUDA events
               drain_wait        a batch drained: sync plus fold
@@ -1841,14 +1490,7 @@ class ReadoutServer:
             dispatch_device     DEVICE seconds a slab's dispatch, from a
                                 CUDA event pair (CUDA slabs only)
 
-        ``flush`` runs the same stages outside ``poll``.
-
-        ``k2_walk`` maps each form of the fabric walk that ran (the
-        kernel's: ``"staged"``, ``"split"`` or ``"streamed"``, the form
-        ``bitsliced.walk_path`` picks for the stack's envelope) to
-        ``{"launches": n, "words_a_block": {tile: launches}}``, counted
-        from the dispatches drained so far (CUDA slabs only: the CPU twin
-        has no form)."""
+        ``flush`` runs the same stages outside ``poll``."""
         cfg = self.config
         per_chip = []
         for i, st in enumerate(self._stats):
@@ -1882,10 +1524,7 @@ class ReadoutServer:
         return {
             "backend": cfg.backend,
             "device": str(self.device),
-            "slabs": ([{"device": str(slab.device),
-                        "chips": [c0, c0 + slab.n_chips]}
-                       for slab, c0 in self._lut_ops.slabs_of(self._stack)]
-                      if self._stack is not None else []),
+            "slabs": self._path.slabs(),
             "layout": self.layout,
             "redundancy": cfg.redundancy,
             "n_replicas": self.n_replicas,
@@ -1955,10 +1594,6 @@ class ReadoutServer:
                 },
             },
             "stages": self._stages.report(),
-            "k2_walk": {form: {"launches": w["launches"],
-                               "words_a_block": dict(sorted(
-                                   w["words_a_block"].items()))}
-                        for form, w in sorted(self._k2_walk.items())},
             "net": (self._net_stats_provider()
                     if self._net_stats_provider is not None
                     else {"attached": False}),

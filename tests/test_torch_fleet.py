@@ -175,8 +175,9 @@ def test_warm_admission_no_build_or_signature_miss_zero_incumbent_drops(
 
     misses = build.miss_counts()
     srv = f.port._buckets[0].server
-    ptrs = ([t.data_ptr() for t in (srv._stack.src, srv._stack.tables,
-                                    srv._stack.output_nets)]
+    ptrs = ([t.data_ptr() for t in (srv._path.stack.src,
+                                    srv._path.stack.tables,
+                                    srv._path.stack.output_nets)]
             if backend == "kernel" else None)
     pending = f.call("submit_batch", "pix", X[16:32])
     info = f.admit("neu", b)
@@ -186,7 +187,8 @@ def test_warm_admission_no_build_or_signature_miss_zero_incumbent_drops(
     assert build.miss_counts() == misses
     if backend == "kernel":
         assert ptrs == [t.data_ptr() for t in (
-            srv._stack.src, srv._stack.tables, srv._stack.output_nets)]
+            srv._path.stack.src, srv._path.stack.tables,
+            srv._path.stack.output_nets)]
 
     got = {r[0]: r for r in res}
     for seqs_, chip, rows, tenant in ((pending, pc[a], X[16:32], "pix"),
@@ -220,10 +222,10 @@ def test_admission_miss_is_counted_at_the_tenants_first_dispatch(
         def repack(slot, chip):
             done = swap(slot, chip)
             configs = [c.config for c in srv.chips]
-            srv._stack = port_ops.pack_fabrics(configs, layout="bitsliced",
-                                               device="cpu")
-            srv._out_weight = port_ops.decode_plan(configs,
-                                                   srv._stack.n_outputs)
+            srv._path.stack = port_ops.pack_fabrics(
+                configs, layout="bitsliced", device="cpu")
+            srv._path.out_weight = port_ops.decode_plan(
+                configs, srv._path.stack.n_outputs)
             return done
         srv.reconfigure = repack
     keys = set(srv._launch_keys)
@@ -254,13 +256,13 @@ def test_warm_admission_of_the_frames_path_reallocates_nothing(farm):
     fleet.submit_frames("pix", fr[:32], y0[:32])
     fleet.flush()
     srv = fleet._buckets[0].server
-    fe = srv._frontend
+    fe = srv._path.frontend
     plan_ptrs = {k: v.data_ptr() for k, v in fe.plan.items()}
     staging = {k: [t.data_ptr() for t in v] for k, v in fe.staging.items()}
     env = fleet._buckets[0].envelope
-    assert fe.plan["feat_idx"].shape[1] == srv._stack.n_inputs \
+    assert fe.plan["feat_idx"].shape[1] == srv._path.stack.n_inputs \
         == env.n_inputs
-    assert fe.plan["out_weight"].shape[1] == srv._stack.n_outputs \
+    assert fe.plan["out_weight"].shape[1] == srv._path.stack.n_outputs \
         == env.n_outputs == 31
     misses = build.miss_counts()
     seqs_a = fleet.submit_frames("pix", fr[:32], y0[:32])
@@ -269,7 +271,7 @@ def test_warm_admission_of_the_frames_path_reallocates_nothing(farm):
     res = {r.seq: r for r in fleet.flush()}
     assert build.miss_counts() == misses
     assert fleet.report()["admission_misses"] == 0
-    fe2 = srv._frontend
+    fe2 = srv._path.frontend
     assert {k: v.data_ptr() for k, v in fe2.plan.items()} == plan_ptrs
     assert {k: [t.data_ptr() for t in v]
             for k, v in fe2.staging.items()} == staging
@@ -622,9 +624,9 @@ def test_pinned_envelope_server_and_its_refusals_match_jax(farm, backend):
         dataclasses.astuple(dataclasses.replace(jsrv.geometry,
                                                 frontend=None))
     if backend == "kernel":
-        assert psrv._stack.n_levels == penv.n_levels
+        assert psrv._path.stack.n_levels == penv.n_levels
         # band=False is not consulted: the envelope's reach is the band
-        assert psrv._stack.band_k == (penv.fanin_reach or penv.n_levels)
+        assert psrv._path.stack.band_k == (penv.fanin_reach or penv.n_levels)
     with pytest.raises(ValueError) as je:
         JaxServer([jc[1]], JaxConfig(backend="host"),
                   envelope=dataclasses.replace(env, n_inputs=8))
@@ -667,15 +669,15 @@ def test_rebind_mesh_to_an_equal_plan_copies_nothing(farm):
     srv = ReadoutServer(pc[:2], _cfg(ServerConfig, "kernel"), device="cpu")
     srv.submit_frames(0, fr, y0)
     srv.flush()
-    stack, plan = srv._stack, srv._frontend.plan
+    stack, plan = srv._path.stack, srv._path.frontend.plan
     srv.submit_batch(1, X[:3])
     plan_ = port_mesh.make_fleet_meshes([2], device="cpu")[0]
-    assert plan_ == srv._mesh
+    assert plan_ == srv._path.mesh
     done = srv.rebind_mesh(plan_)
     assert [r.chip for r in done] == [1, 1, 1]
-    assert srv._stack is stack and srv._frontend.plan is plan
+    assert srv._path.stack is stack and srv._path.frontend.plan is plan
     host = ReadoutServer(pc[:2], _cfg(ServerConfig, "host"), device="cpu")
-    assert host.rebind_mesh(plan_) == [] and host._mesh is None
+    assert host.rebind_mesh(plan_) == [] and host._path.mesh is None
     moved = reshard_replicated(stack, plan_)
     assert moved.tables is stack.tables and moved.n_levels == stack.n_levels
     # a plan of two slabs: the queue is flushed, then the slabs serve

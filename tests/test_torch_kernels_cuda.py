@@ -733,7 +733,7 @@ def test_served_stream_from_the_pinned_ring_equals_the_oracle(card):
     st = server.report()["stages"]
     assert st["launch_fused"]["calls"] == 12
     assert "stack_frames.ring_wait" not in st
-    assert server._ring.pinned and len(server._ring._slots) == 4
+    assert server._path.ring.pinned and len(server._path.ring._slots) == 4
 
 
 def test_ring_slot_refill_waits_for_its_queued_copy(card):
@@ -872,8 +872,9 @@ def test_warm_fleet_admission_on_card_adds_no_build_or_signature(card):
     fleet.flush()
     torch.cuda.synchronize()
     srv = fleet._buckets[0].server
-    keep = (srv._stack.src.data_ptr(), srv._stack.tables.data_ptr(),
-            srv._frontend.plan["feat_idx"].data_ptr(), srv._copy_streams)
+    path = srv._path
+    keep = (path.stack.src.data_ptr(), path.stack.tables.data_ptr(),
+            path.frontend.plan["feat_idx"].data_ptr(), path.copy_streams)
     misses = build.miss_counts()
     sa = fleet.submit_frames("a", frames[1][:128], y0[1][:128])
     assert fleet.admit("b", chips[1])["cold"] is False
@@ -882,9 +883,9 @@ def test_warm_fleet_admission_on_card_adds_no_build_or_signature(card):
     torch.cuda.synchronize()
     assert build.miss_counts() == misses
     assert fleet.report()["admission_misses"] == 0
-    assert keep == (srv._stack.src.data_ptr(), srv._stack.tables.data_ptr(),
-                    srv._frontend.plan["feat_idx"].data_ptr(),
-                    srv._copy_streams)
+    assert keep == (path.stack.src.data_ptr(), path.stack.tables.data_ptr(),
+                    path.frontend.plan["feat_idx"].data_ptr(),
+                    path.copy_streams)
     for seqs, lo in ((sa, 0), (sb, 128)):
         score, kp = _card_oracle(chips[1], frames[1][lo:lo + 128],
                                  y0[1][lo:lo + 128])
@@ -988,8 +989,7 @@ def test_k2_walk_forms_equal_the_plain_twin(card, env, redundancy, words):
     synthetic stack arrays: voted and disagreement words bit-exact
     against the plain twin, with one replica's tables upset under TMR
     (the synthetic replicas differ anyway), at 64 words a chip and
-    at 63 (not a whole number of tiles on the streamed walk). The launch
-    marks its form and tile."""
+    at 63 (not a whole number of tiles on the streamed walk)."""
     R = 3 if redundancy == "tmr" else 1
     C, L, M, in_seg, n_in, O = WALK_ENVELOPES[env]
     src, tables, outs = chip_smoke.synthetic_walk_stack(
@@ -1006,22 +1006,22 @@ def test_k2_walk_forms_equal_the_plain_twin(card, env, redundancy, words):
     bits = torch.as_tensor(rng.integers(0, 2, (C, words * 32 - 5, n_in)),
                            dtype=torch.int32, device="cuda")
     seg = bs.input_words(bits, n_in, in_seg)
-    n0, marks = bs.eval_seg_voted.launches, []
-    got = bs.eval_seg_voted(src, tables, outs, seg, R, marks)
+    n0 = bs.eval_seg_voted.launches
+    got = bs.eval_seg_voted(src, tables, outs, seg, R)
     want = bs.eval_seg_voted_plain(src, tables, outs, seg, R)
     assert bs.eval_seg_voted.launches == n0 + 1
     for x, y in zip(got, want):
         assert x.shape == y.shape and torch.equal(x, y)
     if R > 1:
         assert bool((got[1] != 0).any())
-    assert marks == [(form, tile)]
 
 
 @pytest.mark.parametrize("slabs", [1, 2])
 def test_k2_walk_forms_of_a_served_stream(card, slabs):
-    """A served TMR sparse stream on the card: ``report()["k2_walk"]``
-    counts each slab's walk a dispatch, all staged on these chips'
-    envelope, and no K2 event pair is timed."""
+    """A served TMR sparse stream on the card: each slab's stack takes
+    the staged walk (``bitsliced.walk_path`` on its shape) at a tile of
+    at least one word, its walk launches once a dispatch, and no K2
+    event pair is timed."""
     from repro_torch.launch.mesh import ReadoutMesh
     from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
 
@@ -1030,19 +1030,22 @@ def test_k2_walk_forms_of_a_served_stream(card, slabs):
         max_batch=512, redundancy="tmr", sparse=True, scrub_interval=4),
         device="cuda",
         mesh=ReadoutMesh((torch.device("cuda:0"),) * slabs))
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for slab, _ in lut_ops.slabs_of(server._path.stack):
+        shape = (slab.n_replicas, slab.in_seg, slab.n_levels, slab.m_pad)
+        assert bs.walk_path(*shape) == "staged"
+        assert bs.word_tile(*shape, frames.shape[1] // 32, slab.n_chips,
+                            n_sms) >= 1
+    n0 = bs.eval_seg_voted.launches
     for k in range(8):
         for s in range(2):
             server.submit_frames(s, frames[s], y0[s])
         server.poll()
     server.flush()
-    rep = server.report()
-    st = rep["stages"]
+    assert bs.eval_seg_voted.launches == n0 + 8 * slabs
+    st = server.report()["stages"]
     assert st["dispatch_device"]["calls"] == 8 * slabs
     assert "dispatch_device.k2" not in st
-    (form, walk), = rep["k2_walk"].items()
-    assert form == "staged" and walk["launches"] == 8 * slabs
-    assert sum(walk["words_a_block"].values()) == 8 * slabs
-    assert all(t >= 1 for t in walk["words_a_block"])
 
 
 def _slab_serve(chips, frames, y0, feats, mesh, device="cuda", **kw):

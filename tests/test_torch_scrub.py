@@ -333,14 +333,14 @@ def test_scrub_heals_the_fused_frames_path(duo):
 
     want = scores()
     server.inject_seu(0, 2, 1, 9)
-    assert server._frontend.stack is server._stack
+    assert server._path.frontend.stack is server._path.stack
     assert not server.verify_frame(0, 2)
     for _ in range(6):
         assert scores() == want
         if server.report()["scrub"]["detections"]:
             break
     assert server.report()["scrub"]["detections"] == 1
-    assert server._frontend.stack is server._stack
+    assert server._path.frontend.stack is server._path.stack
     assert all(server.verify_frame(0, r) for r in range(3))
     base = server.report()["per_chip"][0]["seu_disagreements"]
     assert scores() == want

@@ -11,7 +11,9 @@ test_torch_yprofile.py). The features path, fed the same host features,
 agrees exactly. The scrub, deadline and tenant-quota knobs validate as
 the JAX package's do (their serving is tested in test_torch_scrub.py,
 test_torch_deadline.py and test_torch_fleet.py). Sparse egress is tested
-in test_torch_sparse.py.
+in test_torch_sparse.py. The server's two scoring paths (kernel and host)
+give the same events and reports through the one loop, in both egress
+and ingest forms and through an upset and its heal.
 """
 import dataclasses
 
@@ -96,7 +98,7 @@ def test_matmul_server_events_and_counters_match_jax(stream, matmul_runs,
     server = ReadoutServer([p[1] for p in pairs],
                            ServerConfig(layout="matmul", redundancy=red),
                            clock=lambda: 0.0, device="cpu")
-    assert server._stack.layout == "banded" and server.layout == "matmul"
+    assert server._path.stack.layout == "banded" and server.layout == "matmul"
     got, rep = _drive(server, swap[1], blocks)
     want, jrep = matmul_runs[red]
     assert sorted(got) == sorted(want)
@@ -118,13 +120,69 @@ def test_default_layout_stays_bitsliced():
     assert ServerConfig(layout="matmul").effective_layout == "matmul"
 
 
-def test_host_and_kernel_backends_agree_exactly(stream):
+# The stage keys each scoring path reports on this stream, fixed: the
+# benchmark's readers sum stages by name.
+_LOOP_STAGES = {"submit", "poll", "coalesce", "enqueue_d2h", "drain_wait",
+                "drain_wait.sync", "drain_wait.fold", "observe"}
+_STAGE_KEYS = {
+    ("kernel", "frames"): _LOOP_STAGES | {
+        "stack_frames", "launch_fused", "launch_fused.h2d"},
+    ("kernel", "features"): _LOOP_STAGES | {"encode_host", "launch_score"},
+    ("host", "frames"): _LOOP_STAGES | {
+        "staged_featurize", "staged_encode", "staged_score"},
+    ("host", "features"): _LOOP_STAGES | {"encode_host", "launch_score"},
+}
+
+
+@pytest.mark.parametrize("case", ["dense-frames", "dense-features",
+                                  "sparse-frames", "sparse-features",
+                                  "seu"])
+def test_host_and_kernel_backends_agree_exactly(stream, case):
+    """Both scoring paths through the one loop, on the TMR stream, by
+    egress (dense or sparse) and ingest (frames or features): identical
+    ScoredEvents, identical reports but for ``backend``, ``slabs`` and
+    ``stages``, and each path's stage keys as before. Case ``seu``: an
+    upset in one replica of chip 1 before the stream, scrubbed every
+    dispatch; both paths detect it once and heal the same bits (the
+    kernel path verifies a sample a scrub step later, so detection
+    latencies and disagreement counts are not compared)."""
     pairs, swap, blocks, _ = stream
-    runs = [_drive(ReadoutServer([p[1] for p in pairs],
-                                 ServerConfig(backend=b, redundancy="tmr"),
-                                 clock=lambda: 0.0, device="cpu"),
-                   swap[1], blocks)[0] for b in ("kernel", "host")]
-    assert runs[0] == runs[1]
+    seu = case == "seu"
+    egress, _, ingest = ("dense-frames" if seu else case).partition("-")
+    runs = []
+    for backend in ("kernel", "host"):
+        server = ReadoutServer(
+            [p[1] for p in pairs],
+            ServerConfig(backend=backend, redundancy="tmr",
+                         sparse=egress == "sparse",
+                         **(dict(scrub_interval=1, max_batch=N_EVENTS)
+                            if seu else {})),
+            clock=lambda: 0.0, device="cpu")
+        if seu:
+            server.inject_seu(1, 1, 0, 0)
+        got, rep = _drive(
+            server, swap[1], blocks, frames=ingest == "frames",
+            features=served_features() if ingest == "features" else None)
+        want = (_STAGE_KEYS[backend, ingest]
+                | ({"sparse_pack"} if backend == "host"
+                   and egress == "sparse" else set())
+                | ({"scrub"} if seu else set()))
+        assert set(rep["stages"]) == want, backend
+        runs.append((got, rep, [server.verify_frame(c, r)
+                                for c in range(2) for r in range(3)]))
+    (got, rep, healthy), (host_got, host_rep, host_healthy) = runs
+    assert got == host_got and len(got) > 0
+    if seu:
+        for r in (rep, host_rep):
+            assert r["scrub"]["detections"] == 1
+        assert rep["scrub"]["healed_bits"] == host_rep["scrub"][
+            "healed_bits"] == 1
+        assert healthy == host_healthy == [True] * 6
+    else:
+        def drop(r):
+            return {k: v for k, v in r.items()
+                    if k not in ("backend", "slabs", "stages")}
+        np.testing.assert_equal(drop(rep), drop(host_rep))
 
 
 def test_score_stream_yields_every_event(stream):

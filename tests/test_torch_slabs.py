@@ -165,7 +165,7 @@ def test_split_server_equals_one_slab_and_jax(farm, case, k):
     # matmul layout evaluates a row a replica)
     rows = N_CHIPS // k * (server.n_replicas if layout == "matmul" else 1)
     assert any(sig[0] == rows
-               for sig in build._SIGNATURES[FABRIC[server._stack.layout]])
+               for sig in build._SIGNATURES[FABRIC[server._path.stack.layout]])
     assert got == one
     n_all = N_STEPS * N_CHIPS * N_EV
     if sparse:
@@ -355,7 +355,7 @@ def test_rebind_one_two_four_one_mid_stream_loses_nothing(farm, layout,
     assert sizes == [1, 2, 4, 1]
     assert got == want
     assert sorted(got) == sorted(want) and len(got) > 0
-    assert isinstance(server._stack, port_ops.PackedFabricStack)
+    assert isinstance(server._path.stack, port_ops.PackedFabricStack)
 
 
 def test_a_plan_that_does_not_divide_the_chips_raises(farm):
@@ -367,10 +367,10 @@ def test_a_plan_that_does_not_divide_the_chips_raises(farm):
     assert plan(2).slabs(4) == [(CPU, 0, 2), (CPU, 2, 2)]
     server = _port(pc)
     server.submit_batch(0, feats[0][0][:5])
-    stack = server._stack
+    stack = server._path.stack
     with pytest.raises(ValueError, match="does not split"):
         server.rebind_mesh(plan(3))
-    assert server.queue_depth == 5 and server._stack is stack
+    assert server.queue_depth == 5 and server._path.stack is stack
     with pytest.raises(ValueError, match="chips"):
         port_ops.place_stack(stack, plan(2).slabs(6))
     assert len(server.flush()) == 5
