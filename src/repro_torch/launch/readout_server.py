@@ -8,10 +8,14 @@ The JAX package's launch/readout_server.py, with both ingestion forms:
                                        a submission whose predicted
                                        completion blows deadline_us is
                                        shed, seq None, counted per chip)
-      -> micro-batch queue            (coalesce: the effective max_batch /
-                                       max_latency_s, shrunk and re-grown
-                                       by the service time under a
-                                       deadline)
+      -> micro-batch queue            (an entry a run of consecutive
+                                       seqs of one chip and one kind: a
+                                       submitted block stays whole until
+                                       the coalesce cuts it where a batch
+                                       ends; coalesce: the effective
+                                       max_batch / max_latency_s, shrunk
+                                       and re-grown by the service time
+                                       under a deadline)
       -> device passes, one per kind  (frames: kernels/frontend.py,
                                        yprofile -> quantize -> bit gather
                                        -> fabric kernel + TMR vote ->
@@ -75,8 +79,8 @@ import collections
 import dataclasses
 import math
 import time
-from typing import (Callable, Deque, Dict, Iterable, List, Optional,
-                    Sequence, Tuple)
+from typing import (Callable, Deque, Dict, Iterable, List, NamedTuple,
+                    Optional, Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -398,22 +402,38 @@ class ChipStreamStats:
         return self.n_kept / self.n_in if self.n_in else 1.0
 
 
-# (seq, chip, kind, payload, t_enqueue): kind "frames" carries
-# (frame, y0), kind "features" a (n_features,) float64 row
-_Event = Tuple[int, int, str, object, float]
+class _Run(NamedTuple):
+    """A queue entry: the events ``seq0`` .. ``seq0 + n - 1`` of one chip
+    and one kind, enqueued at ``t_enq``. ``payload`` holds n rows an
+    array: kind "frames" (frames (n, T, Y, X) float32, y0 (n,) float32),
+    kind "features" ((n, n_features) float64,)."""
+
+    seq0: int
+    n: int
+    chip: int
+    kind: str
+    payload: Tuple[np.ndarray, ...]
+    t_enq: float
+
+    def split(self, k: int) -> Tuple["_Run", "_Run"]:
+        """(its first ``k`` events, the rest), the payload as views."""
+        head = tuple(a[:k] for a in self.payload)
+        rest = tuple(a[k:] for a in self.payload)
+        return (self._replace(n=k, payload=head),
+                self._replace(seq0=self.seq0 + k, n=self.n - k, payload=rest))
 
 
 @dataclasses.dataclass
 class _Batch:
-    """One pass in flight: per chip its seqs, counts and enqueue times,
-    its stage trace, a record a slab (``Dense`` or ``Sparse``, kept
-    whatever the ladder does before the drain), the CUDA events behind
-    the slabs' pinned copies, and a (start, end) event pair a CUDA slab
-    (``dispatch_device``)."""
+    """One pass in flight: per chip its seqs (Python ints), counts and
+    enqueue times (float64, an event), its stage trace, a record a slab
+    (``Dense`` or ``Sparse``, kept whatever the ladder does before the
+    drain), the CUDA events behind the slabs' pinned copies, and a
+    (start, end) event pair a CUDA slab (``dispatch_device``)."""
 
     seqs: List[List[int]]
     counts: List[int]
-    t_enq: List[List[float]]
+    t_enq: List[np.ndarray]
     trace: Dict[str, float]
     slabs: List = dataclasses.field(default_factory=list)
     ready: List = dataclasses.field(default_factory=list)
@@ -536,7 +556,11 @@ class ReadoutServer:
                 geometry=self.geometry,
                 replica_configs=self._replica_configs, device=self.device)
 
-        self._queue: Deque[_Event] = collections.deque()
+        self._queue: Deque[_Run] = collections.deque()
+        self._queued = 0            # events in the queue's runs
+        # runs and events that entered the queue (report()["queue"])
+        self._runs_in = 0
+        self._events_in = 0
         self._seq = 0
         self._inflight: Deque[_Batch] = collections.deque()
         self._stats = [
@@ -634,51 +658,81 @@ class ReadoutServer:
 
     @property
     def queue_depth(self) -> int:
-        return len(self._queue)
+        """Events queued (admitted, not yet coalesced)."""
+        return self._queued
 
     def _check_chip(self, chip: int) -> None:
         if not 0 <= chip < self.n_chips:
             raise ValueError(
                 f"chip must be in [0, {self.n_chips}), got {chip}")
 
-    def _admit(self, chip: int, now: float) -> bool:
-        """Deadline admission (overload_policy "shed"/"degrade"): shed a
-        submission, counted in the chip's ``n_shed``, when the worse of
-        two predictors blows the deadline: the queue head's wait, or the
-        backlog's drain time at the recent drain rate, plus the EWMA
-        service time. An idle server always admits (the only way to
-        refresh a stale EWMA)."""
+    def _admit(self, chip: int, n: int, now: float) -> int:
+        """Deadline admission (overload_policy "shed"/"degrade") of ``n``
+        events submitted together at ``now``, judged in turn as if those
+        before had been queued: an event is shed, counted in the chip's
+        ``n_shed``, when the worse of two predictors blows the deadline:
+        the queue head's wait, or the backlog's drain time at the recent
+        drain rate, plus the EWMA service time. An idle server always
+        admits (the only way to refresh a stale EWMA). Only the backlog
+        grows along a block, so the admitted events are a prefix; returns
+        its length."""
         dl = self.config.deadline_s
-        if dl is None or self.config.overload_policy == "observe":
-            return True
-        if not self._queue and not self._inflight:
-            return True
-        wait = (now - self._queue[0][4]) if self._queue else 0.0
+        if dl is None or self.config.overload_policy == "observe" or not n:
+            return n
+        # the first event of a block on an idle server is admitted
+        lo = 0 if (self._queue or self._inflight) else 1
+        # the head's wait: a block put into an empty queue is its head
+        wait = (now - self._queue[0].t_enq) if self._queue else 0.0
         rate = self._drain_rate()
-        backlog = (len(self._queue) / rate) if rate > 0.0 else 0.0
-        if max(wait, backlog) + self._service_ewma_s < dl:
-            return True
-        self._stats[chip].n_shed += 1
-        return False
+        ewma = self._service_ewma_s
+
+        def admits(k: int) -> bool:     # with k of the block queued
+            backlog = ((self._queued + k) / rate) if rate > 0.0 else 0.0
+            return max(wait, backlog) + ewma < dl
+
+        # the first k in [lo, n) that admits(k) refuses, else n
+        hi = n
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if admits(mid):
+                lo = mid + 1
+            else:
+                hi = mid
+        self._stats[chip].n_shed += n - lo
+        return lo
+
+    def _put(self, chip: int, kind: str, payload: Tuple[np.ndarray, ...]
+             ) -> List[Optional[int]]:
+        """Queue the admitted prefix of a block of events (``payload``'s
+        rows, one kind, one chip) as one run; returns their seqs, None
+        for each shed event."""
+        now = self._clock()
+        n_in = len(payload[0])
+        n = self._admit(chip, n_in, now)
+        seq0 = self._seq
+        if n:
+            if n < n_in:
+                payload = tuple(a[:n] for a in payload)
+            self._queue.append(_Run(seq0, n, chip, kind, payload, now))
+            self._seq += n
+            self._queued += n
+            self._runs_in += 1
+            self._events_in += n
+        return [*range(seq0, seq0 + n), *([None] * (n_in - n))]
 
     def submit(self, chip: int, features: np.ndarray) -> Optional[int]:
         """Enqueue one pre-featurized event for one chip; returns its seq,
         or None when deadline admission shed it."""
         self._check_chip(chip)
-        now = self._clock()
-        if not self._admit(chip, now):
-            return None
-        seq = self._seq
-        self._seq += 1
-        self._queue.append((seq, chip, "features",
-                            np.asarray(features, np.float64), now))
-        return seq
+        return self._put(chip, "features",
+                         (np.asarray(features, np.float64)[None],))[0]
 
     def submit_batch(self, chip: int, X: np.ndarray) -> List[Optional[int]]:
         """Enqueue a block of pre-featurized events (rows of X); shed rows
         yield None."""
+        self._check_chip(chip)
         with self._stages.time("submit"):
-            return [self.submit(chip, row) for row in np.asarray(X)]
+            return self._put(chip, "features", (np.asarray(X, np.float64),))
 
     def cancel_queued(self, chip: int) -> int:
         """Drop every QUEUED (admitted, not yet coalesced) event of one
@@ -688,40 +742,32 @@ class ReadoutServer:
         are not cancelled; they drain as usual. Other chips' events are
         untouched."""
         self._check_chip(chip)
-        n0 = len(self._queue)
-        self._queue = collections.deque(
-            e for e in self._queue if e[1] != chip)
-        return n0 - len(self._queue)
+        n = sum(r.n for r in self._queue if r.chip == chip)
+        if n:
+            self._queue = collections.deque(
+                r for r in self._queue if r.chip != chip)
+            self._queued -= n
+        return n
 
     def submit_frames(
         self, chip: int, frames: np.ndarray, y0: np.ndarray
     ) -> List[Optional[int]]:
         """Enqueue raw-frame events: (n, T, Y, X) charge + (n,) y0; returns
-        their seqs, None for each event deadline admission shed. Frames
-        and features of one micro-batch score as two passes, so results
-        follow the passes, not the global seq order (every event stays
-        seq-tagged)."""
+        their seqs, None for each event deadline admission shed. The block
+        is queued whole, its frames as given (not copied) and its y0
+        copied. Frames and features of one micro-batch score as two
+        passes, so results follow the passes, not the global seq order
+        (every event stays seq-tagged)."""
         self._check_chip(chip)
         with self._stages.time("submit"):
             frames = np.asarray(frames, np.float32)
-            y0 = np.asarray(y0, np.float32)
+            y0 = np.array(y0, np.float32)
             if frames.ndim != 4 or frames.shape[1:] != (N_T, N_Y, N_X) \
                     or y0.shape != (len(frames),):
                 raise ValueError(
                     f"need frames (n, {N_T}, {N_Y}, {N_X}) and y0 (n,), "
                     f"got {frames.shape} and {y0.shape}")
-            seqs: List[Optional[int]] = []
-            now = self._clock()
-            for i in range(len(frames)):
-                if not self._admit(chip, now):
-                    seqs.append(None)
-                    continue
-                seq = self._seq
-                self._seq += 1
-                self._queue.append(
-                    (seq, chip, "frames", (frames[i], float(y0[i])), now))
-                seqs.append(seq)
-            return seqs
+            return self._put(chip, "frames", (frames, y0))
 
     # ------------------------------------------------------------ the loop
     def poll(self) -> List[ScoredEvent]:
@@ -778,37 +824,47 @@ class ReadoutServer:
         # shrinks both below the config ceilings
         if not self._queue:
             return False
-        if len(self._queue) >= self._eff_max_batch:
+        if self._queued >= self._eff_max_batch:
             return True
-        oldest = self._queue[0][4]
+        oldest = self._queue[0].t_enq
         return (self._clock() - oldest) >= self._eff_max_latency_s
 
-    def _coalesce(self) -> Tuple[List[_Event], List[_Event]]:
-        """The next micro-batch off the queue, split by kind: (frame
-        events, feature events)."""
+    def _coalesce(self) -> Tuple[List[_Run], List[_Run]]:
+        """The next micro-batch off the queue, up to the effective
+        max_batch events, split by kind: (frame runs, feature runs). Runs
+        are taken whole; the last is cut where the batch ends, and its
+        rest stays at the head with its enqueue time."""
         with self._stages.time("coalesce"):
-            take = min(len(self._queue), self._eff_max_batch)
-            events = [self._queue.popleft() for _ in range(take)]
-            return ([e for e in events if e[2] == "frames"],
-                    [e for e in events if e[2] == "features"])
+            budget = min(self._queued, self._eff_max_batch)
+            self._queued -= budget
+            runs: List[_Run] = []
+            while budget:
+                run = self._queue.popleft()
+                if run.n > budget:
+                    run, rest = run.split(budget)
+                    self._queue.appendleft(rest)
+                runs.append(run)
+                budget -= run.n
+            return ([r for r in runs if r.kind == "frames"],
+                    [r for r in runs if r.kind == "features"])
 
-    def _dispatch(self, frame_events: List[_Event],
-                  feat_events: List[_Event]) -> List[ScoredEvent]:
+    def _dispatch(self, frame_runs: List[_Run],
+                  feat_runs: List[_Run]) -> List[ScoredEvent]:
         """Launch one micro-batch (frames and features as two passes),
         retire whatever finished, then run the background scrub step when
         it is due: after the drain, so freshly folded disagreement
         counters can steer it, while the batch just launched is still on
         the device."""
-        if not frame_events and not feat_events:
+        if not frame_runs and not feat_runs:
             return []
         if self._t_start is None:
             self._t_start = self._clock()
-        if frame_events:
+        if frame_runs:
             self._inflight.append(self._launch_counted(
-                "frames", self._launch_frames, frame_events))
-        if feat_events:
+                "frames", self._launch_frames, frame_runs))
+        if feat_runs:
             self._inflight.append(self._launch_counted(
-                "features", self._launch_features, feat_events))
+                "features", self._launch_features, feat_runs))
         done = self._drain_ready()
         self._dispatch_idx += 1
         si = self._effective_scrub_interval()
@@ -816,18 +872,21 @@ class ReadoutServer:
             self.scrub_step()
         return done
 
-    def _launch_counted(self, kind: str, launch, events: List[_Event]
+    def _launch_counted(self, kind: str, launch, runs: List[_Run]
                         ) -> _Batch:
-        """``launch(events)``, counted in ``shape_misses`` if it added an
+        """``launch(runs)``, counted in ``shape_misses`` if it added an
         nvcc build, a library load or a launch signature
         (kernels/build.py miss_counts) at a (path, egress, batch width)
         this server had launched before: every shape is a function of the
         fixed geometry and the batch width alone, so only a new width may
         add one (the host path featurizes each chip at its own count)."""
-        counts = collections.Counter(e[1] for e in events).values()
-        key = (kind, self._sparse_active(), self._path.widths(counts))
+        counts: Dict[int, int] = collections.Counter()
+        for r in runs:
+            counts[r.chip] += r.n
+        key = (kind, self._sparse_active(),
+               self._path.widths(counts.values()))
         before = build.miss_counts()
-        batch = launch(events)
+        batch = launch(runs)
         if key in self._launch_keys and build.miss_counts() != before:
             self.shape_misses += 1
         self._launch_keys.add(key)
@@ -841,24 +900,28 @@ class ReadoutServer:
             si = si * SCRUB_RELAX_FACTOR
         return si
 
-    def _open_batch(self, events: List[_Event]):
-        """A batch of ``events`` opened at the coalesce, and per chip
-        their payloads."""
-        per_chip_seq: List[List[int]] = [[] for _ in self.chips]
-        per_chip_payload: List[List[object]] = [[] for _ in self.chips]
-        per_chip_t: List[List[float]] = [[] for _ in self.chips]
-        for seq, chip, _, payload, t_enq in events:
-            per_chip_seq[chip].append(seq)
-            per_chip_payload[chip].append(payload)
-            per_chip_t[chip].append(t_enq)
-        counts = [len(s) for s in per_chip_seq]
+    def _open_batch(self, runs: List[_Run]):
+        """A batch of ``runs`` opened at the coalesce, and per chip the
+        payloads of its runs, in seq order."""
+        per_chip: List[List[_Run]] = [[] for _ in self.chips]
+        for r in runs:
+            per_chip[r.chip].append(r)
+        seqs: List[List[int]] = []
+        for rs in per_chip:
+            chip_seqs: List[int] = []
+            for r in rs:
+                chip_seqs.extend(range(r.seq0, r.seq0 + r.n))
+            seqs.append(chip_seqs)
+        counts = [len(q) for q in seqs]
         for i, n in enumerate(counts):
             if n:
                 self._stats[i].n_dispatches += 1
-        trace = {"t_enqueued": min(e[4] for e in events),
+        t_enq = [np.repeat(np.array([r.t_enq for r in rs], np.float64),
+                           [r.n for r in rs]) for rs in per_chip]
+        trace = {"t_enqueued": min(r.t_enq for r in runs),
                  "t_coalesced": self._clock()}
-        return _Batch(per_chip_seq, counts, per_chip_t, trace), \
-            per_chip_payload
+        return _Batch(seqs, counts, t_enq, trace), \
+            [[r.payload for r in rs] for rs in per_chip]
 
     def _sparse_active(self) -> bool:
         """Sparse egress is on when configured or forced by the degrade
@@ -866,27 +929,28 @@ class ReadoutServer:
         scores of dropped events stop crossing the link)."""
         return self.config.sparse or self._rung_active("sparse_egress")
 
-    def _launch_frames(self, events: List[_Event]) -> _Batch:
+    def _launch_frames(self, runs: List[_Run]) -> _Batch:
         """Frames: the path's pass (kernel: ONE fused device pass, timed
         ``launch_fused``; host: the same pipeline STAGED, each stage
         materialized and timed, ``staged_featurize`` / ``staged_encode`` /
         ``staged_score``)."""
         with self._stages.time("coalesce"):
-            batch, per_chip_fy = self._open_batch(events)
+            batch, per_chip_fy = self._open_batch(runs)
         return self._enqueue(batch, *self._path.score_frames(
             per_chip_fy, batch.counts, batch.trace, self._sparse_active()))
 
-    def _launch_features(self, events: List[_Event]) -> _Batch:
+    def _launch_features(self, runs: List[_Run]) -> _Batch:
         """Features: host encoding (quantize + offset-binary bits, timed
         ``encode_host``), then the path's ONE chip-batched scoring pass
         (timed ``launch_score``)."""
         with self._stages.time("coalesce"):
-            batch, per_chip_X = self._open_batch(events)
+            batch, per_chip_X = self._open_batch(runs)
         with self._stages.time("encode_host"):
             per_chip_bits: List[np.ndarray] = []
             for i, chip in enumerate(self.chips):
                 if per_chip_X[i]:
-                    bits = chip.encode_features(np.stack(per_chip_X[i]))
+                    bits = chip.encode_features(
+                        np.concatenate([X for X, in per_chip_X[i]]))
                 else:
                     bits = np.zeros((0, chip.config.n_inputs), np.uint8)
                 per_chip_bits.append(bits)
@@ -1059,20 +1123,19 @@ class ReadoutServer:
         t_co = trace.get("t_coalesced", t_done)
         dl = self.config.deadline_s
         n_batch = 0
-        for i, ts in enumerate(batch.t_enq):
-            if not ts:
+        for i, t_enq in enumerate(batch.t_enq):
+            if not t_enq.size:
                 continue
-            t_enq = np.asarray(ts, np.float64)
             lat_s = np.maximum(t_done - t_enq, 0.0)
             us = lat_s * 1e6
             self._hist_chip[i].add_many(us)
             self._hist_total.add_many(us)
             self._hist_queue.add_many(np.maximum(t_co - t_enq, 0.0) * 1e6)
-            n_batch += len(ts)
+            n_batch += t_enq.size
             if dl is not None:
                 missed = int((lat_s > dl).sum())
                 self._deadline_missed += missed
-                self._deadline_met += len(ts) - missed
+                self._deadline_met += t_enq.size - missed
                 self._window_missed += missed
         self._hist_service.add(max(t_done - t_co, 0.0) * 1e6)
         self._window_drained += n_batch
@@ -1452,7 +1515,10 @@ class ReadoutServer:
         front door's accounting (``net``: the attached door's
         ``stats()``, else ``{"attached": False}``). The same keys as the
         JAX package's report, and ``slabs``: each slab's device and chips
-        [first, end) (kernel path; empty on the host path).
+        [first, end) (kernel path; empty on the host path), and
+        ``queue``: the runs and events that entered the queue (a run is
+        the admitted events of one submit call, so events / runs is the
+        events a queue entry carries).
 
         ``stages`` maps a key to its host seconds and calls (a key runs
         only where its path does; a dotted key is a child of the key
@@ -1460,10 +1526,12 @@ class ReadoutServer:
 
             submit              submit_frames / submit_batch, a call
             poll                the whole body of poll()
-              coalesce          the queue take and kind split; each
-                                pass's grouping into a batch
+              coalesce          the queue take (whole runs, the last
+                                cut where the batch ends) and kind
+                                split; each pass's grouping into a batch
               stack_frames      frames: the fill of a staging-ring
-                                slot with the real rows only
+                                slot with the real rows only, one copy a
+                                run
                 stack_frames.ring_wait  the host blocked on the slot's
                                 earlier copies (only when one had not
                                 landed)
@@ -1535,6 +1603,7 @@ class ReadoutServer:
             "fraction_kept": n_kept / n_in if n_in else 1.0,
             "events_per_s": n_in / dt if dt > 0 else float("nan"),
             "queue_depth": self.queue_depth,
+            "queue": {"runs": self._runs_in, "events": self._events_in},
             "inflight_batches": len(self._inflight),
             "seu_disagreement_total": int(
                 sum(sum(s.disagreements) for s in self._stats)),

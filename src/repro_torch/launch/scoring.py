@@ -26,7 +26,6 @@ from repro_torch.core.fabric import (
     stack_event_bits,
 )
 from repro_torch.core.tmr import majority_vote, replicate_config
-from repro_torch.data.smartpixel import N_T, N_X, N_Y
 from repro_torch.parallel.compression import sparse_trigger_pack
 
 
@@ -222,10 +221,12 @@ class KernelPath(_Path):
                     for c0, (score, keep, dis) in parts]
 
     def _stage_rows(self, per_chip_fy, counts: List[int], B: int, slabs):
-        """``stack_frames``: each chip's real (frame, y0) rows, chip-major
-        with no padding, into the next slot of the staging ring (pinned
-        where a slab is on a card; ``pipeline_depth + 2`` slots, so a
-        slot's copies have landed by the time it comes round again)."""
+        """``stack_frames``: each chip's real rows, chip-major with no
+        padding, into the next slot of the staging ring (pinned where a
+        slab is on a card; ``pipeline_depth + 2`` slots, so a slot's
+        copies have landed by the time it comes round again).
+        ``per_chip_fy`` holds per chip its (frames (n, T, Y, X), y0 (n,))
+        pieces in seq order: one copy a piece and array."""
         from repro_torch.kernels.frontend import StagingRing
 
         pinned = any(fe.device.type == "cuda" for fe, _ in slabs)
@@ -233,16 +234,13 @@ class KernelPath(_Path):
             self.ring = StagingRing(self.config.pipeline_depth + 2,
                                     pinned=pinned)
         rows = self.ring.take(counts, B, self._stages)
-        # the slot as (rows * T, Y, X): the frames concatenate along T
-        # into it, with no wrapper array an event (as np.stack makes)
-        frames = rows.frames.numpy().reshape(-1, N_Y, N_X)
-        y0 = rows.y0.numpy()
-        for o, events in zip(rows.offsets, per_chip_fy):
-            if events:
-                n = len(events)
-                np.concatenate([fr for fr, _ in events],
-                               out=frames[o * N_T : (o + n) * N_T])
-                y0[o : o + n] = [z for _, z in events]
+        frames, y0 = rows.frames.numpy(), rows.y0.numpy()
+        for o, pieces in zip(rows.offsets, per_chip_fy):
+            for fr, z in pieces:
+                n = len(fr)
+                np.copyto(frames[o : o + n], fr)
+                np.copyto(y0[o : o + n], z)
+                o += n
         return rows
 
     def swap_chip(self, slot: int, chip) -> None:
@@ -340,8 +338,8 @@ class HostPath(_Path):
                 continue
             with self._stages.time("staged_featurize"):
                 feats = yp_ops.yprofile(
-                    np.stack([fr for fr, _ in fy]),
-                    np.asarray([z for _, z in fy], np.float32),
+                    np.concatenate([fr for fr, _ in fy]),
+                    np.concatenate([z for _, z in fy]),
                     threshold_electrons=self.config.threshold_electrons,
                     device=self.device).cpu().numpy()
             with self._stages.time("staged_encode"):

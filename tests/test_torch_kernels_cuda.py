@@ -21,8 +21,9 @@ on chip_smoke's synthetic words, keep fractions and decode rows; each one
 kernel and no memset a call, by the profiler; its look-back state across
 graph replays and shape changes) and the fused frontend downstream of
 identical features are exact. A served stream staged from the pinned
-ring equals the host oracle, and a ring slot is refilled only once its
-queued copy has landed. A TCP replay through the port's front door
+ring equals the host oracle, blocks whose queue runs the coalesce cuts
+across ring slots score as the same events submitted one at a time, and
+a ring slot is refilled only once its queued copy has landed. A TCP replay through the port's front door
 over a card server verifies every trigger against the host oracle. A
 server split into two and four slabs on ``cuda:0`` serves exactly as one
 slab does, and as the CPU from identical features; every kernel wrapper
@@ -734,6 +735,54 @@ def test_served_stream_from_the_pinned_ring_equals_the_oracle(card):
     assert st["launch_fused"]["calls"] == 12
     assert "stack_frames.ring_wait" not in st
     assert server._path.ring.pinned and len(server._path.ring._slots) == 4
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_blocks_cut_across_ring_slots_equal_single_events(card, sparse):
+    """256-event blocks of two chips, six of them, through a TMR server
+    at ``max_batch`` 200: the coalesce cuts the blocks' runs, each piece
+    copied into a ring slot once. Every drained batch's ``ScoredEvent``s
+    equal, bit for bit and in order, those of the same frames submitted
+    one event at a time; the kept set is the host oracle's."""
+    from repro_torch.launch.readout_server import ReadoutServer, ServerConfig
+
+    chips, frames, y0 = card
+    feats = [yp.yprofile(frames[i], y0[i], device="cuda").cpu().numpy()
+             .astype(np.float64) for i in range(2)]
+    chips = _cut_at_median(chips, feats)
+    oracle = [_card_oracle(chips[c], frames[c], y0[c]) for c in range(2)]
+    runs = []
+    for per_event in (False, True):
+        server = ReadoutServer(chips, ServerConfig(
+            max_batch=200, redundancy="tmr", sparse=sparse,
+            scrub_interval=4), device="cuda")
+        batches, drain = [], server._drain_one
+
+        def drain_one(drain=drain, batches=batches):
+            got = drain()
+            batches.append([(r.seq, r.chip, r.score_raw, r.keep)
+                            for r in got])
+            return got
+
+        server._drain_one = drain_one
+        want = {}
+        for k in range(6):
+            c = k % 2
+            seqs = ([s for i in range(256) for s in server.submit_frames(
+                c, frames[c][i:i + 1], y0[c][i:i + 1])] if per_event else
+                server.submit_frames(c, frames[c], y0[c]))
+            for seq, score, keep in zip(seqs, *oracle[c]):
+                if keep or not sparse:
+                    want[seq] = (c, int(score), bool(keep))
+            server.poll()
+        server.flush()
+        got = {q: (c, s, k) for b in batches for q, c, s, k in b}
+        assert got == want
+        rep = server.report()
+        assert rep["queue"]["runs"] == (6 * 256 if per_event else 6)
+        assert rep["stages"]["launch_fused"]["calls"] == len(batches) > 6
+        runs.append(batches)
+    assert runs[0] == runs[1]
 
 
 def test_ring_slot_refill_waits_for_its_queued_copy(card):
